@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
+path on one NVIDIA card, with its four hand-written kernels.
+
+    python3 chip_smoke.py              # from the root of a checkout
+
+Phases; any failure raises and exits non-zero, and no result line is
+printed then:
+
+1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, all started together) and print nvcc's register report.
+2. Main path at full size, through the service a user calls: SearchConfig
+   defaults (D = 2^16, K = 256, 32 bands x 8 rows, b = 32, n_slots 2048
+   growing by rebuild, bucket width 8, one in-process shard) on
+   ``device="cuda"``.  Ingest 262,144 synthetic documents in 4096-document
+   batches through ``IngestPipeline(depth=2)``, then answer one batch of
+   1024 indexed + 64 fresh documents (top_k = 5).  Every kernel's launch
+   count is set to 0 just before this phase and read just after it; each
+   must be > 0.  Top-1 self-hit on the indexed rows must be 100%, and some
+   rows must take the brute-force fallback.
+3. Each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gave it: outputs must be equal (tolerance 0, all
+   integers).  Times are medians of CUDA-event timings after warm-up.
+   ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations / the
+   int32 rate (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7e12 op/s, half
+   the lanes behind the published 67 TFLOP/s float32 figure of the H100
+   SXM), counted from this run's inputs.  ``library_ms`` is the collision
+   count as one PyTorch call, ``K - torch.cdist(a.double(), b.double(),
+   p=0)`` (float64 holds the int32 codes exactly; checked equal), timed
+   here only; no single PyTorch call computes the other three, so theirs
+   is null.
+4. One more query batch under ``torch.profiler``: the device-busy share
+   of its wall time and device time by kernel (the timeline goes to
+   ``chiprun_out/query_trace.json``).
+5. The card against the port's own CPU path on the first 4096 documents:
+   ids and scores must be identical.
+
+The second-to-last line is nvidia-smi's name and power limit of the card;
+the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
+output included, go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BATCH = 4096
+N_QUERY_INDEXED = 1024
+N_QUERY_FRESH = 64
+TOP_K = 5
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip smoke check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    require(a.shape == b.shape and a.dtype == b.dtype,
+            f"shape/dtype {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+            f"{b.dtype}")
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max().item())
+
+
+def corpus(n_docs: int):
+    from repro_torch.data.shingle import batch_shingles
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    docs, _ = corpus_with_duplicates(n_docs, vocab=30_000, doc_len=256,
+                                     dup_fraction=0.4, seed=0)
+    idx = batch_shingles(docs, n=3, d=1 << 16)
+    fresh, _ = corpus_with_duplicates(N_QUERY_FRESH, vocab=30_000,
+                                      doc_len=256, dup_fraction=0.4, seed=1)
+    fresh_idx = batch_shingles(fresh, n=3, d=1 << 16, max_nnz=idx.shape[1])
+    return idx, fresh_idx
+
+
+def kernels():
+    from repro_torch.kernels import (cminhash_sparse, collision_kernel,
+                                     lsh_probe, query_fused)
+    return {"cminhash_sparse": cminhash_sparse.KERNEL,
+            "fold": query_fused.KERNEL,
+            "lsh_probe": lsh_probe.KERNEL,
+            "collision": collision_kernel.KERNEL}
+
+
+def ingest(svc, idx, batch: int) -> float:
+    t0 = time.perf_counter()
+    with svc.pipeline(depth=2) as pipe:
+        for lo in range(0, len(idx), batch):
+            pipe.submit(idx[lo: lo + batch])
+    return time.perf_counter() - t0
+
+
+def main_path(idx, fresh_idx, report: dict):
+    """Phase 2: the serving path at full size, counted and checked."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    ks = kernels()
+    svc = SimilaritySearchService(SearchConfig(device="cuda"))
+    qidx = np.concatenate([idx[:N_QUERY_INDEXED], fresh_idx])
+    for k in ks.values():
+        k.launches = 0
+    # --- the main path: ingest + query batches -----------------------------
+    t_ingest = ingest(svc, idx, BATCH)
+    after_ingest = {n: k.launches for n, k in ks.items()}
+    lat = []
+    for _ in range(5):
+        before = {n: k.launches for n, k in ks.items()}
+        t0 = time.perf_counter()
+        ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
+        lat.append(time.perf_counter() - t0)
+    launches = {n: k.launches for n, k in ks.items()}
+    # -----------------------------------------------------------------------
+    per_query = {n: launches[n] - before[n] for n in ks}
+    n_batches = -(-len(idx) // BATCH)
+    store = svc.store.shards[0].store
+    n_fallback = svc.store.last_timings["n_fallback"]
+    self_hit = float((ids[:N_QUERY_INDEXED, 0]
+                      == np.arange(N_QUERY_INDEXED)).mean())
+    report["main_path"] = {
+        "docs": len(idx), "ingest_s": t_ingest,
+        "ingest_docs_per_s": len(idx) / t_ingest,
+        "query_rows": len(qidx),
+        "query_latency_s_first": lat[0],
+        "query_latency_s_median_next4": statistics.median(lat[1:]),
+        "query_latency_s_all": lat, "top1_self_hit": self_hit,
+        "fallback_rows": n_fallback, "n_slots": store.table.n_slots,
+        "bucket_width": store.table.bucket_width,
+        "n_spilled": store.n_spilled, "n_rebuilds": store.n_rebuilds,
+        "records_bytes": store.table.records.nbytes,
+        "words_bytes": store.buffer.size * store.buffer.cfg.n_words * 4,
+        "launches": launches,
+        "launches_per_ingest_batch": {n: after_ingest[n] / n_batches
+                                      for n in ks},
+        "launches_per_query_batch": per_query,
+        "registry": obs_metrics.default().snapshot(),
+    }
+    print(f"[main] ingest {len(idx)} docs in {t_ingest:.3f} s "
+          f"({len(idx) / t_ingest:.0f} docs/s, {n_batches} batches of "
+          f"{BATCH}); n_slots={store.table.n_slots} "
+          f"bucket_width={store.table.bucket_width} "
+          f"spilled={store.n_spilled} rebuilds={store.n_rebuilds}")
+    print(f"[main] query batch of {len(qidx)} rows: first "
+          f"{lat[0] * 1e3:.3f} ms, median of next 4 "
+          f"{statistics.median(lat[1:]) * 1e3:.3f} ms; top-1 self-hit "
+          f"{self_hit * 100:.2f}%; fallback rows {n_fallback}")
+    print(f"[main] launches {launches}; per query batch {per_query}")
+    require(ids.shape == (len(qidx), TOP_K) and scores.dtype == np.float32,
+            "answer shape")
+    require(bool(np.isfinite(scores).all()), "finite scores")
+    require(self_hit == 1.0, f"top-1 self-hit {self_hit}")
+    require(n_fallback > 0, "some rows take the brute-force fallback")
+    for n, c in launches.items():
+        require(c > 0, f"kernel {n} launched on the main path ({c})")
+    return svc, qidx
+
+
+def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
+    """Phase 3: every kernel vs its plain version at the main path's
+    shapes, timed."""
+    from repro_torch.core.lsh import band_hashes_packed
+    from repro_torch.core.permutations import apply_permutation_sparse
+    from repro_torch.device import u32_to_host
+    from repro_torch.kernels import cminhash_sparse as ks
+    from repro_torch.kernels import collision_kernel as kc
+    from repro_torch.kernels import lsh_probe as kp
+    from repro_torch.kernels import query_fused as kq
+    from repro_torch.kernels.packfmt import unpack_codes
+    dev = svc.engine.device
+    cfg = svc.cfg
+    store = svc.store.shards[0].store
+    out = []
+
+    def entry(name, source, replaces, got, want, ms, plain_ms, nbytes, ops,
+              extra=None, library_ms=None):
+        err = max_abs_err(got, want)
+        require(err == 0.0 and torch.equal(got, want),
+                f"{name}: kernel != plain version (max abs err {err})")
+        b_ms, b_by = bound_ms(nbytes, ops)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": report["main_path"]["launches"][name],
+               "max_abs_err": err, "equal": True, "ms": ms, "kernel_ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms, "bytes": nbytes,
+               "operations": ops}
+        row.update(extra or {})
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        print(f"[kernel] {name}: equal, {ms:.4f} ms (plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by}{lib})")
+        out.append(row)
+
+    # 1. sparse window-min signing, one 4096-document ingest batch
+    sidx = apply_permutation_sparse(torch.tensor(idx[:BATCH], device=dev),
+                                    svc.engine.sigma).to(torch.int32)
+    sidx = sidx.contiguous()
+    pi, k = svc.engine.pi, cfg.k
+    got = ks.cminhash_sparse_kernel(sidx, pi, k, pack_b=cfg.b)
+    want = ks.cminhash_sparse_plain(sidx, pi, k, pack_b=cfg.b)
+    for pack_b in (None, 1, 2, 4, 8, 16):      # the other epilogues
+        a = ks.cminhash_sparse_kernel(sidx, pi, k, pack_b=pack_b)
+        require(torch.equal(a, ks.cminhash_sparse_plain(sidx, pi, k,
+                                                        pack_b=pack_b)),
+                f"cminhash_sparse pack_b={pack_b}")
+    wrap = sidx + pi.numel() * torch.randint_like(sidx, 0, 3) * (sidx >= 0)
+    require(torch.equal(ks.cminhash_sparse_kernel(wrap, pi, k, pack_b=cfg.b),
+                        want), "cminhash_sparse indices >= D wrap mod D")
+    require(torch.equal(
+        ks.cminhash_sparse_kernel(sidx, pi, k, shift_offset=0),
+        ks.cminhash_sparse_plain(sidx, pi, k, shift_offset=0)),
+        "cminhash_sparse shift_offset=0")
+    big_d = (1 << 16) + 3                       # past the uint16 range
+    gen = torch.Generator().manual_seed(1)
+    pi_big = torch.randperm(big_d, generator=gen).to(torch.int32).to(dev)
+    idx_big = torch.randint(-1, big_d, (257, 77), generator=gen,
+                            dtype=torch.int32).to(dev)
+    require(torch.equal(ks.cminhash_sparse_kernel(idx_big, pi_big, 200),
+                        ks.cminhash_sparse_plain(idx_big, pi_big, 200)),
+            "cminhash_sparse D > 2^16")
+    ms = time_ms(lambda: ks.cminhash_sparse_kernel(sidx, pi, k,
+                                                   pack_b=cfg.b), 20)
+    plain_ms = time_ms(lambda: ks.cminhash_sparse_plain(sidx, pi, k,
+                                                        pack_b=cfg.b), 5)
+    n_valid = int((sidx >= 0).sum().item())
+    entry("cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
+          "src/repro/kernels/cminhash_sparse.py:186", got, want, ms,
+          plain_ms, sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+          n_valid * k,
+          {"shape": list(sidx.shape)})
+
+    # 2. band-hash fold, the coordinator's query batch
+    qwords = svc.engine.sign(qidx, layout="sparse", pack_b=cfg.b)
+    rows = kq.words_to_rows(qwords, cfg.n_bands).contiguous()
+    folded = got = kq.fold_rows_kernel(rows)
+    want = kq.fold_rows_plain(rows)
+    require(np.array_equal(kq.hashes_to_host(got), band_hashes_packed(
+        u32_to_host(qwords), cfg.n_bands)), "fold vs host uint64 fold")
+    sig = torch.randint(-2**31, 2**31 - 1, rows.shape, dtype=torch.int32,
+                        device=dev)
+    require(torch.equal(kq.fold_rows_kernel(sig, sign_extend=True),
+                        kq.fold_rows_plain(sig, sign_extend=True)),
+            "fold sign_extend")
+    ms = time_ms(lambda: kq.fold_rows_kernel(rows), 50)
+    plain_ms = time_ms(lambda: kq.fold_rows_plain(rows), 10)
+    entry("fold", "src/repro_torch/csrc/fold.cu",
+          "src/repro/kernels/query_fused.py:164", got, want, ms, plain_ms,
+          rows.numel() * 4 + got.numel() * 8, rows.numel() * 5,
+          {"shape": list(rows.shape)})
+
+    # 3. probe over the full-size resident records
+    records = store.table.device_records()
+    hashes = kq.hashes_to_host(folded)
+    meta = torch.tensor(kp.probe_operands(hashes, store.table.n_slots),
+                        device=dev)
+    ns, mp = store.table.n_slots, store.table.max_probes
+    got = kp.lsh_probe_kernel(records, meta, n_slots=ns, max_probes=mp)
+    want = kp.lsh_probe_plain(records, meta, n_slots=ns, max_probes=mp)
+    ms = time_ms(lambda: kp.lsh_probe_kernel(records, meta, n_slots=ns,
+                                             max_probes=mp), 50)
+    plain_ms = time_ms(lambda: kp.lsh_probe_plain(records, meta, n_slots=ns,
+                                                  max_probes=mp), 5)
+    # bytes this run's walk needs: 8 key bytes per probe step taken, the W
+    # posting ids of each hit, the operands and the output
+    w = records.shape[1] - 2
+    steps, hits = probe_walk(records, meta, ns, mp)
+    entry("lsh_probe", "src/repro_torch/csrc/lsh_probe.cu",
+          "src/repro/kernels/lsh_probe.py:137", got, want, ms, plain_ms,
+          steps * 8 + hits * w * 4 + meta.numel() * 4 + got.numel() * 4,
+          steps * 3, {"shape": [int(meta.shape[0]), w],
+                      "records_shape": list(records.shape),
+                      "probe_steps": steps, "hits": hits})
+
+    # 4. collision counts: one brute-force block, the fallback rows
+    n_fb = report["main_path"]["fallback_rows"]
+    q_pad = 1 << (n_fb - 1).bit_length()
+    qfb = unpack_codes(qwords[N_QUERY_INDEXED:], k, cfg.b)
+    qfb = torch.cat([qfb, qfb[:1].expand(max(q_pad - len(qfb), 0), -1)])
+    qfb = qfb[:q_pad].contiguous()
+    words = store.buffer.device_words()
+    block = unpack_codes(words[:16384], k, cfg.b).contiguous()
+    got = kc.collision_counts_kernel(qfb, block)
+    want = kc.collision_counts_plain(qfb, block)
+    ragged = kc.collision_counts_kernel(qfb[:37, :130].contiguous(),
+                                        block[:1001, :130].contiguous())
+    require(torch.equal(ragged, kc.collision_counts_plain(
+        qfb[:37, :130], block[:1001, :130])), "collision ragged edges")
+    qd, bd = qfb.double(), block.double()
+
+    def library():
+        return k - torch.cdist(qd, bd, p=0)
+    require(torch.equal(library().to(torch.int32), want),
+            "collision: K - cdist(p=0) == the plain version")
+    ms = time_ms(lambda: kc.collision_counts_kernel(qfb, block), 20)
+    plain_ms = time_ms(lambda: kc.collision_counts_plain(qfb, block), 5)
+    library_ms = time_ms(library, 5)
+    qn, nn = qfb.shape[0], block.shape[0]
+    entry("collision", "src/repro_torch/csrc/collision.cu",
+          "src/repro/kernels/collision_kernel.py:37", got, want, ms,
+          plain_ms, (qn + nn) * k * 4 + qn * nn * 4, 2 * qn * nn * k,
+          {"shape": [qn, nn, k],
+           "blocks_per_brute_call": -(-store.size // 16384)},
+          library_ms=library_ms)
+    return out
+
+
+def trace_query(svc, qidx, report: dict) -> None:
+    """Phase 4: one query batch under torch.profiler.  Device busy time is
+    the union of the trace's kernel, memcpy and memset intervals, so no
+    operator is counted twice with the kernels it launched."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.query_sparse(qidx, top_k=TOP_K)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    path = os.path.join(ROOT, "chiprun_out", "query_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, float("-inf")
+    by_name: dict[str, float] = {}
+    for start, stop, name in device:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] = by_name.get(name, 0.0) + stop - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    report["query_trace"] = {
+        "wall_us": wall_us, "device_busy_us": busy_us,
+        "device_busy_share": busy_us / wall_us,
+        "device_events": len(device),
+        "top_device_time_us": [{"name": n, "us": t} for n, t in top]}
+    require(busy_us > 0, "the profiler recorded device activity")
+    print(f"[trace] query batch: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us * 100:.1f}%) over "
+          f"{len(device)} device events; top: "
+          + ", ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top[:4]))
+
+
+def probe_walk(records, meta, n_slots, max_probes) -> tuple[int, int]:
+    """Probe steps and hits of the early-exit walk over these operands."""
+    lin, base = meta[:, 0].long(), meta[:, 1].long()
+    active = meta[:, 4] != 0
+    steps = hits = 0
+    for t in range(max_probes):
+        n_act = int(active.sum().item())
+        if not n_act:
+            break
+        steps += n_act
+        rec = records[lin + (base + t * (t + 1) // 2) % n_slots]
+        hit = active & (rec[:, 0] == meta[:, 2]) & (rec[:, 1] == meta[:, 3])
+        unused = (rec[:, 0] == -1) & (rec[:, 1] == -1)
+        hits += int(hit.sum().item())
+        active = active & ~hit & ~unused
+    return steps, hits
+
+
+def card_vs_cpu(idx, fresh_idx, report: dict) -> None:
+    """Phase 5: the same service on the card and on the CPU."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    sub = idx[:4096]
+    q = np.concatenate([sub[:256], fresh_idx])
+    answers = []
+    for device in ("cuda", "cpu"):
+        svc = SimilaritySearchService(SearchConfig(device=device))
+        ingest(svc, sub, 1024)
+        answers.append(svc.query_sparse(q, top_k=TOP_K))
+        fb = svc.store.last_timings["n_fallback"]
+    (ci, cs), (pi_, ps) = answers
+    require(np.array_equal(ci, pi_) and np.array_equal(cs, ps),
+            "card and CPU answers differ on the 4096-document subset")
+    report["card_vs_cpu"] = {"docs": len(sub), "query_rows": len(q),
+                             "fallback_rows": fb, "identical": True}
+    print(f"[card-vs-cpu] {len(sub)} docs, {len(q)} queries "
+          f"({fb} fallback rows): ids and scores identical")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--docs", type=int, default=262_144,
+                    help="documents to ingest on the main path")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "script needs an NVIDIA card")
+    from repro_torch.kernels import _build
+    t_all = time.perf_counter()
+    card = card_line()
+    print(f"[card] {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    report: dict = {"card": card, "torch": torch.__version__,
+                    "cuda": torch.version.cuda}
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    report["build_s"] = time.perf_counter() - t0
+    report["build"] = built
+    print(f"[build] {len(built)} kernels in {report['build_s']:.2f} s")
+    for name, b in built.items():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    idx, fresh_idx = corpus(args.docs)
+    report["corpus_s"] = time.perf_counter() - t0
+    print(f"[data] {len(idx)} docs x {idx.shape[1]} shingles + "
+          f"{len(fresh_idx)} fresh in {report['corpus_s']:.1f} s")
+
+    svc, qidx = main_path(idx, fresh_idx, report)
+    report["kernels"] = kernel_checks(svc, idx, qidx, report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    trace_query(svc, qidx, report)
+    del svc
+    torch.cuda.empty_cache()
+    card_vs_cpu(idx, fresh_idx, report)
+    report["wall_s"] = time.perf_counter() - t_all
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "equal", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in report["kernels"]]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,111 @@
+"""Kernel front door for the signing and query hot paths.
+
+Every request lands here and goes to one kernel wrapper; the wrapper picks
+the CUDA kernel or its plain version from the device of the tensors it is
+given, never from a fallback.  Each entry bumps a ``kernel.<leg>.<impl>``
+counter (``impl`` is ``cuda`` or ``plain``), as the reference's dispatch
+does per resolved implementation.
+
+Launch geometry is fixed inside each wrapper: the port has no autotuner.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.permutations import apply_permutation_sparse
+from ..obs import metrics as obs_metrics
+from . import lsh_probe as _lsh_probe
+from . import query_fused as _query_fused
+from .cminhash_sparse import cminhash_sparse_kernel
+
+
+def _impl(t: torch.Tensor) -> str:
+    return "cuda" if t.device.type == "cuda" else "plain"
+
+
+def signatures_sparse(idx: torch.Tensor, pi: torch.Tensor, k: int,
+                      sigma: torch.Tensor | None = None, *,
+                      shift_offset: int = 1,
+                      pack_b: int | None = None) -> torch.Tensor:
+    """(B, NNZ) padded index lists -> (B, K) int32 signatures, or (B, W)
+    int32 packed words when ``pack_b`` is set (fused sign -> pack)."""
+    obs_metrics.default().counter(f"kernel.sparse.{_impl(idx)}").inc()
+    if sigma is not None:
+        idx = apply_permutation_sparse(idx, sigma)
+    return cminhash_sparse_kernel(idx.to(torch.int32).contiguous(), pi, k,
+                                  shift_offset=shift_offset, pack_b=pack_b)
+
+
+def lsh_probe(records_dev: torch.Tensor, hashes: np.ndarray, *,
+              n_slots: int, max_probes: int) -> np.ndarray:
+    """(Q, n_bands) uint64 band hashes -> (Q, n_bands * W) candidate ids
+    over the table's uploaded records (``BandedLSHTable.device_records``)."""
+    obs_metrics.default().counter(f"kernel.probe.{_impl(records_dev)}").inc()
+    q, nb = hashes.shape
+    w = records_dev.shape[1] - 2
+    meta = torch.tensor(_lsh_probe.probe_operands(hashes, n_slots),
+                        device=records_dev.device)
+    out = _lsh_probe.lsh_probe_kernel(records_dev, meta, n_slots=n_slots,
+                                      max_probes=max_probes)
+    return out.cpu().numpy().reshape(q, nb * w)
+
+
+def fold_hashes(qwords: torch.Tensor, *, n_bands: int) -> np.ndarray:
+    """(Q, W) int32 packed query words -> (Q, n_bands) uint64 band hashes
+    via the device fold; bit-identical to ``core.lsh.band_hashes_packed``.
+    The coordinator's fold leg: the hashes go to the host for the shard
+    broadcast anyway."""
+    obs_metrics.default().counter(f"kernel.fold.{_impl(qwords)}").inc()
+    rows = _query_fused.words_to_rows(qwords.contiguous(), n_bands)
+    h = _query_fused.fold_rows_kernel(rows.contiguous())
+    return _query_fused.hashes_to_host(h)
+
+
+def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
+                qwords: torch.Tensor, *, n_bands: int, n_slots: int,
+                max_probes: int, k: int, b: int, top_k: int,
+                hashes: np.ndarray | None = None, spill_lookup=None,
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fold -> probe -> score over resident store state: (Q, W) packed
+    query words -> ``(ids, scores, has_candidates)`` host arrays.
+
+    * ``hashes=None``: fold and probe meta on the device (power-of-two
+      ``n_slots``; the store gates).
+    * ``hashes=`` host uint64 band hashes (the coordinator folded once and
+      broadcast them): the fold is skipped and the meta is built on the
+      host (``probe_operands``, any ``n_slots``).
+    * ``spill_lookup``: optional ``hashes -> (Q, M) int64`` host callable
+      for the table's spilled keys, concatenated before scoring.
+
+    Returns ids (Q, top_k) int64 (-1 pad), scores (Q, top_k) float32
+    (-inf pad), has_candidates (Q,) bool."""
+    obs_metrics.default().counter(
+        f"kernel.query_fused.{_impl(records_dev)}").inc()
+    dev = records_dev.device
+    qwords = qwords.to(dev).contiguous()
+    q = qwords.shape[0]
+    w = records_dev.shape[1] - 2
+    if hashes is None:
+        rows = _query_fused.words_to_rows(qwords, n_bands)
+        h = _query_fused.fold_rows_kernel(rows.contiguous())
+        meta = _query_fused.meta_from_hashes(h, n_slots=n_slots)
+        if spill_lookup is not None:
+            hashes = _query_fused.hashes_to_host(h)
+    else:
+        meta = torch.tensor(_lsh_probe.probe_operands(hashes, n_slots),
+                            device=dev)
+    cand = _lsh_probe.lsh_probe_kernel(records_dev, meta.contiguous(),
+                                       n_slots=n_slots,
+                                       max_probes=max_probes)
+    cand = cand.reshape(q, n_bands * w)
+    if spill_lookup is not None:
+        spill = np.asarray(spill_lookup(hashes))
+        if spill.size:
+            cand = torch.cat([cand, torch.tensor(spill.astype(np.int32),
+                                                 device=dev)], dim=1)
+    ids, scores, has = _query_fused.score_topk(cand, words_dev, qwords,
+                                               k=k, b=b, top_k=top_k)
+    return (ids.cpu().numpy().astype(np.int64), scores.cpu().numpy(),
+            has.cpu().numpy())

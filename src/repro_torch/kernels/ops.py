@@ -1,0 +1,42 @@
+"""Pairwise scoring on packed codes (what the query planner calls).
+
+The b-bit packed-code format lives in ``kernels.packfmt``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .collision_kernel import collision_counts_kernel
+from .packfmt import unpack_codes
+
+
+def collision_counts(sig_q: torch.Tensor, sig_n: torch.Tensor) -> torch.Tensor:
+    """(Q, K) x (N, K) int32 -> (Q, N) int32 match counts (the collision
+    kernel on a CUDA device, its plain version on the CPU)."""
+    return collision_counts_kernel(sig_q.contiguous(), sig_n.contiguous())
+
+
+def packed_collision_counts(words_q: torch.Tensor, words_n: torch.Tensor,
+                            k: int, b: int, *,
+                            unpack_block_n: int = 16384) -> torch.Tensor:
+    """(Q, W) x (N, W) packed int32 words -> (Q, N) int32 matching-code
+    counts.  The index side is unpacked and scored in blocks of
+    ``unpack_block_n`` rows, so the unpacked (N', K) intermediate stays
+    bounded while the resident index keeps its packed footprint."""
+    uq = unpack_codes(words_q, k, b)
+    n = words_n.shape[0]
+    if n <= unpack_block_n:
+        return collision_counts(uq, unpack_codes(words_n, k, b))
+    parts = [collision_counts(
+        uq, unpack_codes(words_n[lo: lo + unpack_block_n], k, b))
+        for lo in range(0, n, unpack_block_n)]
+    return torch.cat(parts, dim=1)
+
+
+def packed_estimated_jaccard_matrix(words_q: torch.Tensor,
+                                    words_n: torch.Tensor, k: int,
+                                    b: int) -> torch.Tensor:
+    """(Q, N) float32 estimated Jaccard from b-bit packed codes."""
+    counts = packed_collision_counts(words_q, words_n, k, b)
+    return counts.to(torch.float32) / k

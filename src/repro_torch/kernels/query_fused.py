@@ -1,0 +1,154 @@
+"""Device query pipeline pieces: band-hash fold, probe meta, top-k scoring.
+
+* **fold** — the polynomial band-hash fold ``h = h * BASE + x + 1;
+  h ^= h >> 29`` over each band's R codes, in uint64.  The reference
+  emulates it on two uint32 planes; the CUDA kernel (``csrc/fold.cu``) uses
+  native 64-bit integers and the plain version wrapping int64 (with the
+  logical shift written as an arithmetic shift and a mask).  Hashes travel
+  as int64 tensors with uint64 bits.  Packed words zero-extend, raw int32
+  signature codes sign-extend, as the host fold does.
+* **probe meta** — ``meta_from_hashes`` builds the ``lsh_probe`` operand
+  block on the device (power-of-two ``n_slots``).
+* **scorer** — ``score_topk`` ranks (Q, C) -1-padded candidate rows against
+  the resident packed words: sort-by-id dedup, one row gather, b-bit
+  unpack, integer collision counts, then a stable sort by id and a stable
+  sort by -count, which is the reference's two-key ``lax.sort`` on
+  (-count, id).  Scores are ``count.float32 / k`` on both sides.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+
+import numpy as np
+import torch
+
+from . import _build
+from .lsh_probe import META_COLS
+from .packfmt import unpack_codes
+
+BASE = 0x9E3779B97F4A7C15
+_BASE_I64 = BASE - 2 ** 64              # the same bits as a signed int64
+_LOW35 = (1 << 35) - 1                  # keeps the 35 bits a logical >> 29 keeps
+_INVALID_ID = 2 ** 31 - 1               # in-scorer sentinel: sorts after ids
+_LITTLE_ENDIAN = sys.byteorder == "little"
+
+KERNEL = _build.CudaKernel("fold", [
+    ctypes.c_void_p, ctypes.c_void_p,                    # rows, out
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # n_rows, nb, R
+    ctypes.c_int])                                       # sign_extend
+
+
+def words_to_rows(words: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """(B, W) int32 packed words -> (B, n_bands, W/n_bands) band rows."""
+    b, w = words.shape
+    if w % n_bands:
+        raise ValueError(f"W={w} not divisible by n_bands={n_bands}")
+    return words.reshape(b, n_bands, w // n_bands)
+
+
+def sig_to_rows(sig: torch.Tensor, n_bands: int,
+                rows_per_band: int) -> torch.Tensor:
+    """(B, K) int32 signatures -> (B, n_bands, rows_per_band) band rows."""
+    b, k = sig.shape
+    if n_bands * rows_per_band != k:
+        raise ValueError(f"K={k} != n_bands*rows_per_band")
+    return sig.reshape(b, n_bands, rows_per_band)
+
+
+def fold_rows_plain(rows: torch.Tensor, *,
+                    sign_extend: bool = False) -> torch.Tensor:
+    """(B, nb, R) int32 codes -> (B, nb) int64 fold keys (uint64 bits)."""
+    x = rows.to(torch.int64)
+    if not sign_extend:
+        x = x & 0xFFFFFFFF
+    h = torch.zeros(rows.shape[:2], dtype=torch.int64, device=rows.device)
+    for r in range(rows.shape[2]):
+        h = h * _BASE_I64 + x[:, :, r] + 1            # wraps like uint64
+        h = h ^ ((h >> 29) & _LOW35)                  # logical >> 29
+    return h
+
+
+def fold_rows_kernel(rows: torch.Tensor, *,
+                     sign_extend: bool = False) -> torch.Tensor:
+    """(B, nb, R) int32 codes -> (B, nb) int64 fold keys: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return fold_rows_plain(rows, sign_extend=sign_extend)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _build.check_cuda_operand(rows, "rows", torch.int32, 3, dev)
+    b, nb, r = rows.shape
+    out = torch.empty((b, nb), dtype=torch.int64, device=dev)
+    if b * nb:
+        KERNEL.launch(dev, _build.ptr(rows), _build.ptr(out), b, nb, r,
+                      int(sign_extend))
+    return out
+
+
+def meta_from_hashes(h: torch.Tensor, *, n_slots: int) -> torch.Tensor:
+    """(Q, nb) int64 fold keys -> (Q * nb, 5) int32 probe operands on the
+    device: [band * n_slots, key & (n_slots - 1), key halves, valid].
+    Needs power-of-two ``n_slots``.  The key halves follow the host byte
+    order, as the records' native int32 view does."""
+    if n_slots & (n_slots - 1):
+        raise ValueError(f"meta_from_hashes needs pow2 n_slots (got "
+                         f"{n_slots})")
+    q, nb = h.shape
+    flat = h.reshape(-1)
+    lin_band = (torch.arange(nb, dtype=torch.int32, device=h.device)
+                * n_slots).repeat(q)
+    base = (flat & (n_slots - 1)).to(torch.int32)
+    lo = flat & 0xFFFFFFFF
+    klo = torch.where(lo >= 2 ** 31, lo - 2 ** 32, lo).to(torch.int32)
+    khi = (flat >> 32).to(torch.int32)
+    valid = (flat != -1).to(torch.int32)
+    if not _LITTLE_ENDIAN:                      # pragma: no cover
+        klo, khi = khi, klo
+    cols = [lin_band, base, klo, khi, valid]
+    assert len(cols) == META_COLS
+    return torch.stack(cols, dim=1)
+
+
+def hashes_to_host(h: torch.Tensor) -> np.ndarray:
+    """(Q, nb) int64 fold keys -> host uint64 hashes (the spill leg and
+    the shard broadcast want uint64)."""
+    return np.array(h.cpu().numpy(), copy=True).view(np.uint64)
+
+
+def score_topk(cand: torch.Tensor, words: torch.Tensor, qwords: torch.Tensor,
+               *, k: int, b: int, top_k: int,
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(Q, C) -1-padded candidate ids + resident (N, W) words -> ranked
+    partials: ids (Q, top_k) int32 [-1 pad], scores (Q, top_k) float32
+    [-inf pad], has_candidates (Q,) bool, ordered (score desc, id asc)."""
+    qn, c = cand.shape
+    dev = cand.device
+    has = (cand >= 0).any(dim=1)
+    ids = torch.where(cand >= 0, cand, _INVALID_ID).to(torch.int32)
+    ids = torch.sort(ids, dim=1).values
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    valid = (ids != _INVALID_ID) & ~dup
+    n = words.shape[0]
+    rows = words[ids.clamp(0, max(n - 1, 0)).long()]           # (Q, C, W)
+    ccodes = unpack_codes(rows.reshape(qn * c, -1), k, b).reshape(qn, c, k)
+    qcodes = unpack_codes(qwords, k, b)                        # (Q, K)
+    counts = (qcodes[:, None, :] == ccodes).sum(-1, dtype=torch.int32)
+    counts = torch.where(valid, counts, -1)
+    # (-count, id) lexicographic: ids are already ascending, so one stable
+    # sort by -count keeps equal counts in id order
+    order = torch.sort(-counts, dim=1, stable=True).indices
+    neg = torch.gather(-counts, 1, order)
+    ids = torch.gather(ids, 1, order)
+    kk = min(top_k, c)
+    out_ids = torch.full((qn, top_k), -1, dtype=torch.int32, device=dev)
+    out_scores = torch.full((qn, top_k), float("-inf"), dtype=torch.float32,
+                            device=dev)
+    hit = neg[:, :kk] <= 0                                     # count >= 0
+    out_ids[:, :kk] = torch.where(hit, ids[:, :kk], -1)
+    out_scores[:, :kk] = torch.where(
+        hit, (-neg[:, :kk]).to(torch.float32) / k, float("-inf"))
+    return out_ids, out_scores, has

@@ -7,3 +7,8 @@ sys.path.insert(0, os.path.dirname(__file__))
 import _hypothesis_stub
 
 _hypothesis_stub.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skipped where there is none")

@@ -1,0 +1,167 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Edge shapes the serving path does not reach every day: K not a multiple of
+32, empty index lists, indices >= D, D past the uint16 range, every pack
+width, odd record strides, ragged collision tiles.  Integer outputs: tolerance 0.
+Also: the wrappers refuse what the kernels do not take, and the service
+answers the same on the card as on the CPU.  Imports neither jax nor repro,
+so it runs where the card is:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test here skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.lsh import band_hashes
+from repro_torch.kernels import cminhash_sparse as ks
+from repro_torch.kernels import collision_kernel as kc
+from repro_torch.kernels import lsh_probe as kp
+from repro_torch.kernels import query_fused as kq
+from repro_torch.kernels.packfmt import PACK_BITS
+from repro_torch.store.table import BandedLSHTable
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _sparse_case(b, nnz, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    pi = torch.randperm(d, generator=gen).to(torch.int32)
+    idx = torch.randint(-1, d, (b, nnz), generator=gen, dtype=torch.int32)
+    if b > 1:
+        idx[1] = -1                               # no valid index
+    return idx, pi
+
+
+@pytest.mark.parametrize("b,nnz,d,k", [(1, 1, 64, 1), (5, 0, 64, 31),
+                                       (7, 37, 4096, 33),
+                                       (300, 254, 1 << 16, 256),
+                                       (9, 13, (1 << 16) + 3, 300)])
+@pytest.mark.parametrize("off", [0, 1])
+def test_sparse_kernel_matches_plain(cuda, b, nnz, d, k, off):
+    idx, pi = _sparse_case(b, nnz, d, seed=b + d)
+    want = ks.cminhash_sparse_plain(idx, pi, k, shift_offset=off)
+    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k,
+                                    shift_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", [300, 1 << 16, (1 << 16) + 3])
+@pytest.mark.parametrize("off", [0, 1])
+def test_sparse_kernel_wraps_out_of_range_indices(cuda, d, off):
+    """No sigma: indices >= D reach the kernel and wrap mod D, as in the
+    plain version."""
+    gen = torch.Generator().manual_seed(d + off)
+    pi = torch.randperm(d, generator=gen).to(torch.int32)
+    idx = torch.randint(-1, 4 * d, (33, 50), generator=gen,
+                        dtype=torch.int32)
+    idx[0, :3] = torch.tensor([d, 2 ** 31 - 1, d - 1])
+    for pack_b in (None, 8):
+        want = ks.cminhash_sparse_plain(idx, pi, 64, shift_offset=off,
+                                        pack_b=pack_b)
+        got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), 64,
+                                        shift_offset=off, pack_b=pack_b)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("pack_b", PACK_BITS)
+@pytest.mark.parametrize("k", [1, 33, 256])
+def test_sparse_kernel_fused_pack_matches_plain(cuda, pack_b, k):
+    idx, pi = _sparse_case(6, 40, 4096, seed=pack_b)
+    want = ks.cminhash_sparse_plain(idx, pi, k, pack_b=pack_b)
+    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k,
+                                    pack_b=pack_b)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("q,nb,r", [(1, 1, 1), (1088, 32, 8), (7, 5, 13)])
+@pytest.mark.parametrize("sign_extend", [False, True])
+def test_fold_kernel_matches_plain_and_host(cuda, q, nb, r, sign_extend):
+    gen = torch.Generator().manual_seed(q + r)
+    rows = torch.randint(-2**31, 2**31 - 1, (q, nb, r), generator=gen,
+                         dtype=torch.int32)
+    want = kq.fold_rows_plain(rows, sign_extend=sign_extend)
+    got = kq.fold_rows_kernel(rows.to(cuda), sign_extend=sign_extend)
+    assert torch.equal(got.cpu(), want)
+    if sign_extend:
+        host = band_hashes(rows.reshape(q, nb * r).numpy(), nb, r)
+        assert np.array_equal(kq.hashes_to_host(got), host)
+
+
+@pytest.mark.parametrize("ns,w,mp,nb", [(37, 3, 5, 5), (64, 2, 4, 4),
+                                        (101, 7, 16, 8), (16, 1, 2, 3),
+                                        (2048, 8, 16, 32)])
+def test_probe_kernel_matches_plain_and_host_walk(cuda, ns, w, mp, nb):
+    rng = np.random.default_rng(ns)
+    sigs = rng.integers(0, 40, (260, nb * 4), dtype=np.int32)
+    hashes = band_hashes(sigs, nb, 4)
+    hashes[5, 0] = kp.SENTINEL_KEY
+    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp,
+                           device=cuda)
+    table.insert(hashes, np.arange(260))
+    qh = hashes[:70].copy()
+    qh[3, 1] = kp.SENTINEL_KEY
+    qh[60:] = rng.integers(0, 1 << 60, (10, nb)).astype(np.uint64)
+    meta = torch.tensor(kp.probe_operands(qh, ns))
+    flat = torch.tensor(table.records.reshape(-1, 2 + w))
+    want = kp.lsh_probe_plain(flat, meta, n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_kernel(flat.to(cuda), meta.to(cuda), n_slots=ns,
+                              max_probes=mp)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(table.lookup(qh, impl="device"),
+                          table.lookup(qh, impl="numpy"))
+
+
+@pytest.mark.parametrize("q,n,k", [(1, 1, 1), (37, 1001, 130),
+                                   (64, 16384, 256), (65, 63, 31)])
+def test_collision_kernel_matches_plain(cuda, q, n, k):
+    gen = torch.Generator().manual_seed(q * n + k)
+    a = torch.randint(0, 4, (q, k), generator=gen, dtype=torch.int32)
+    b = torch.randint(0, 4, (n, k), generator=gen, dtype=torch.int32)
+    want = kc.collision_counts_plain(a, b)
+    got = kc.collision_counts_kernel(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kc.collision_counts_kernel(a.long(), a.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.collision_counts_kernel(a.t(), a.t())
+    with pytest.raises(ValueError, match="cuda|cpu"):
+        kc.collision_counts_kernel(a, a.cpu())
+    pi = torch.arange(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ks.cminhash_sparse_kernel(a.long(), pi, 8)
+
+
+def test_service_answers_the_same_on_card_and_cpu(cuda):
+    from repro_torch.data.shingle import batch_shingles
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    docs, _ = corpus_with_duplicates(600, vocab=3000, doc_len=64, seed=0)
+    idx = batch_shingles(docs, n=3, d=1 << 12, max_nnz=64)
+    answers = []
+    for device in ("cuda", "cpu"):
+        svc = SimilaritySearchService(SearchConfig(
+            d=1 << 12, k=64, n_bands=16, rows_per_band=4, n_shards=3,
+            bucket_width=1, device=device))
+        with svc.pipeline(depth=2) as pipe:
+            for lo in range(0, 500, 100):
+                pipe.submit(idx[lo: lo + 100])
+        answers.append(svc.query_sparse(idx[450:], top_k=5))
+    assert np.array_equal(answers[0][0], answers[1][0])
+    assert np.array_equal(answers[0][1], answers[1][1])

@@ -1,0 +1,249 @@
+"""The port's query-side kernels' plain versions against the JAX package.
+
+Fold vs ``fold_planes_jnp`` and the host ``_poly_fold``; device probe meta
+vs ``meta_from_planes``; the probe vs ``lsh_probe_jnp`` over records built
+by the reference ``BandedLSHTable`` (sentinel hashes, a rebuilt wider
+table); collision counts vs ``ops.collision_counts``; ``score_topk`` vs the
+reference scorer.  One interpret-mode Pallas case per kernel.  All outputs
+are integers or count/k floats: tolerance 0.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.lsh import band_hashes, band_hashes_packed
+from repro.kernels import collision_kernel as ref_coll
+from repro.kernels import lsh_probe as ref_probe
+from repro.kernels import ops as ref_ops
+from repro.kernels import packfmt as ref_packfmt
+from repro.kernels import query_fused as ref_qf
+from repro.store import BandedLSHTable as RefTable
+from repro_torch.device import u32_to_device
+from repro_torch.kernels import collision_kernel as t_coll
+from repro_torch.kernels import dispatch as t_dispatch
+from repro_torch.kernels import lsh_probe as t_probe
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import query_fused as t_qf
+from repro_torch.store.table import BandedLSHTable
+
+CPU = torch.device("cpu")
+
+
+def _ref_fold(hi, lo):
+    fh, fl = ref_qf.fold_planes_jnp(hi, lo)
+    return ref_qf.planes_to_hashes(np.asarray(fh), np.asarray(fl))
+
+
+# -- fold --------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fold_words_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    nb, wpb, b = int(rng.integers(1, 33)), int(rng.integers(1, 9)), 5
+    words = rng.integers(0, 2**32, (b, nb * wpb), dtype=np.uint32)
+    words[0, :wpb] = 2**32 - 1                   # all-ones band
+    hi, lo = ref_qf.words_to_planes(jnp.asarray(words), nb)
+    want = _ref_fold(hi, lo)
+    assert np.array_equal(want, band_hashes_packed(words, nb))
+    rows = t_qf.words_to_rows(u32_to_device(words, CPU), nb)
+    got = t_qf.hashes_to_host(t_qf.fold_rows_kernel(rows))
+    assert np.array_equal(got, want)
+    assert np.array_equal(
+        t_dispatch.fold_hashes(u32_to_device(words, CPU), n_bands=nb), want)
+
+
+@pytest.mark.parametrize("nb,r", [(8, 3), (5, 7), (1, 13), (16, 1)])
+def test_fold_negative_codes_sign_extend(nb, r):
+    rng = np.random.default_rng(nb * r)
+    sig = rng.integers(-2**31, 2**31, (6, nb * r), dtype=np.int64) \
+        .astype(np.int32)
+    hi, lo = ref_qf.sig_to_planes(jnp.asarray(sig), nb, r)
+    want = _ref_fold(hi, lo)
+    assert np.array_equal(want, band_hashes(sig, nb, r))
+    rows = t_qf.sig_to_rows(torch.tensor(sig), nb, r)
+    got = t_qf.fold_rows_kernel(rows, sign_extend=True)
+    assert np.array_equal(t_qf.hashes_to_host(got), want)
+
+
+def test_fold_matches_pallas_kernel_interpret():
+    rng = np.random.default_rng(7)
+    words = rng.integers(0, 2**32, (3, 16), dtype=np.uint32)
+    hi, lo = ref_qf.words_to_planes(jnp.asarray(words), 4)
+    fh, fl = ref_qf.fold_planes_pallas(hi, lo, block_q=2, interpret=True)
+    want = ref_qf.planes_to_hashes(np.asarray(fh), np.asarray(fl))
+    got = t_qf.fold_rows_kernel(t_qf.words_to_rows(
+        u32_to_device(words, CPU), 4))
+    assert np.array_equal(t_qf.hashes_to_host(got), want)
+
+
+@pytest.mark.parametrize("n_slots", [16, 2048])
+def test_meta_from_hashes_matches_reference(n_slots):
+    rng = np.random.default_rng(n_slots)
+    words = rng.integers(0, 2**32, (7, 12), dtype=np.uint32)
+    hi, lo = ref_qf.fold_planes_jnp(*ref_qf.words_to_planes(
+        jnp.asarray(words), 4))
+    hi, lo = np.asarray(hi).copy(), np.asarray(lo).copy()
+    hi[2, 1] = lo[2, 1] = 2**32 - 1              # the sentinel key
+    want = np.asarray(ref_qf.meta_from_planes(
+        jnp.asarray(hi), jnp.asarray(lo), n_slots=n_slots))
+    h = torch.tensor(ref_qf.planes_to_hashes(hi, lo).view(np.int64))
+    got = t_qf.meta_from_hashes(h, n_slots=n_slots)
+    assert np.array_equal(got.numpy(), want)
+    hashes = ref_qf.planes_to_hashes(hi, lo)
+    assert np.array_equal(t_probe.probe_operands(hashes, n_slots),
+                          ref_probe.probe_operands(hashes, n_slots))
+    with pytest.raises(ValueError, match="pow2"):
+        t_qf.meta_from_hashes(h, n_slots=24)
+
+
+# -- probe -------------------------------------------------------------------
+
+def _loaded_ref_table(ns, w, mp, nb, n=260, seed=2):
+    rng = np.random.default_rng(seed)
+    sigs = rng.integers(0, 40, (n, nb * 4), dtype=np.int32)  # forced clashes
+    hashes = band_hashes(sigs, nb, 4)
+    hashes[5, 0] = ref_probe.SENTINEL_KEY        # sentinel hash -> spill
+    t = RefTable(nb, n_slots=ns, bucket_width=w, max_probes=mp)
+    t.insert(hashes[: n // 2], np.arange(n // 2))
+    t.insert(hashes[n // 2:], np.arange(n // 2, n))
+    return t, hashes
+
+
+def _queries(hashes, nb):
+    qh = hashes[:70].copy()
+    qh[3, 1] = ref_probe.SENTINEL_KEY            # must match nothing
+    rng = np.random.default_rng(9)
+    qh[60:] = rng.integers(0, 1 << 60, (10, nb)).astype(np.uint64)  # absent
+    return qh
+
+
+def _probe_both(ref_table, qh):
+    flat = ref_table.records.reshape(-1, 2 + ref_table.bucket_width)
+    meta = ref_probe.probe_operands(qh, ref_table.n_slots)
+    want = np.asarray(ref_probe.lsh_probe_jnp(
+        jnp.asarray(flat), jnp.asarray(meta), n_slots=ref_table.n_slots,
+        max_probes=ref_table.max_probes))
+    got = t_probe.lsh_probe_kernel(
+        torch.tensor(flat), torch.tensor(t_probe.probe_operands(
+            qh, ref_table.n_slots)),
+        n_slots=ref_table.n_slots, max_probes=ref_table.max_probes)
+    return want, got.numpy()
+
+
+@pytest.mark.parametrize("ns,w,mp,nb", [(37, 3, 5, 5), (64, 2, 4, 4),
+                                        (101, 7, 16, 8), (16, 1, 2, 3)])
+def test_probe_matches_reference_over_reference_records(ns, w, mp, nb):
+    ref_table, hashes = _loaded_ref_table(ns, w, mp, nb)
+    qh = _queries(hashes, nb)
+    want, got = _probe_both(ref_table, qh)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got.reshape(len(qh), -1), ref_table.lookup(qh))
+
+
+def test_probe_after_rebuild_to_a_wider_table():
+    ref_table, hashes = _loaded_ref_table(32, 2, 3, 4)
+    assert ref_table.n_spilled > 0
+    ref_table.rebuild(n_slots=257, bucket_width=8, max_probes=16)
+    want, got = _probe_both(ref_table, _queries(hashes, 4))
+    assert got.shape[1] == 8
+    assert np.array_equal(got, want)
+
+
+def test_probe_matches_pallas_kernel_interpret():
+    ref_table, hashes = _loaded_ref_table(16, 2, 4, 2, n=40)
+    qh = hashes[:4]
+    flat = ref_table.records.reshape(-1, 4)
+    meta = ref_probe.probe_operands(qh, 16)
+    want = np.asarray(ref_probe.lsh_probe_pallas(
+        jnp.asarray(flat), jnp.asarray(meta), n_slots=16, max_probes=4,
+        block_e=4, interpret=True))
+    got = t_probe.lsh_probe_kernel(torch.tensor(flat), torch.tensor(meta),
+                                   n_slots=16, max_probes=4)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ns,w,mp,nb", [(37, 3, 5, 5), (16, 1, 2, 3)])
+def test_port_table_state_and_lookups_match_reference(ns, w, mp, nb):
+    ref_table, hashes = _loaded_ref_table(ns, w, mp, nb)
+    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp)
+    table.insert(hashes[:130], np.arange(130))
+    table.insert(hashes[130:], np.arange(130, 260))
+    assert np.array_equal(table.records, ref_table.records)
+    assert table.n_spilled == ref_table.n_spilled
+    qh = _queries(hashes, nb)
+    want = ref_table.lookup(qh)
+    assert np.array_equal(table.lookup(qh, impl="numpy"), want)
+    assert np.array_equal(table.lookup(qh, impl="device"), want)
+    assert np.array_equal(table.spilled_candidates(qh, cap=2),
+                          ref_table.spilled_candidates(qh, cap=2))
+    table.rebuild(n_slots=2 * ns, bucket_width=2 * w)
+    ref_table.rebuild(n_slots=2 * ns, bucket_width=2 * w)
+    assert np.array_equal(table.records, ref_table.records)
+
+
+# -- collision counts --------------------------------------------------------
+
+@pytest.mark.parametrize("q,n,k", [(1, 1, 1), (37, 53, 130), (64, 64, 33)])
+def test_collision_counts_match_reference(q, n, k):
+    rng = np.random.default_rng(q + n + k)
+    a = rng.integers(0, 5, (q, k), dtype=np.int32)
+    b = rng.integers(0, 5, (n, k), dtype=np.int32)
+    b[0] = a[0]
+    want = np.asarray(ref_ops.collision_counts(jnp.asarray(a),
+                                               jnp.asarray(b)))
+    got = t_ops.collision_counts(torch.tensor(a), torch.tensor(b))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_collision_counts_match_pallas_kernel_interpret():
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 3, (3, 40), dtype=np.int32)
+    b = rng.integers(0, 3, (4, 40), dtype=np.int32)
+    want = np.asarray(ref_coll.collision_count_pallas(
+        jnp.asarray(a), jnp.asarray(b), block_q=2, block_n=2, block_k=16,
+        interpret=True))
+    got = t_coll.collision_counts_kernel(torch.tensor(a), torch.tensor(b))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_packed_collision_counts_in_blocks(b):
+    rng = np.random.default_rng(b)
+    k = 40
+    sq = rng.integers(0, 2**31, (5, k), dtype=np.int32)
+    sn = rng.integers(0, 2**31, (50, k), dtype=np.int32)
+    sn[3] = sq[1]
+    wq = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sq), b))
+    wn = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sn), b))
+    want = np.asarray(ref_ops.packed_estimated_jaccard_matrix(
+        jnp.asarray(wq), jnp.asarray(wn), k, b, unpack_block_n=16))
+    got = t_ops.packed_estimated_jaccard_matrix(
+        u32_to_device(wq, CPU), u32_to_device(wn, CPU), k, b)
+    blocked = t_ops.packed_collision_counts(
+        u32_to_device(wq, CPU), u32_to_device(wn, CPU), k, b,
+        unpack_block_n=16)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(blocked.numpy().astype(np.float32) / k, want)
+
+
+# -- scorer ------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,top_k", [(32, 5), (4, 3), (32, 40)])
+def test_score_topk_matches_reference(b, top_k):
+    rng = np.random.default_rng(b + top_k)
+    k, n, q = 32, 60, 9
+    base = rng.integers(0, 4, (n, k), dtype=np.int32)   # many score ties
+    words = np.asarray(ref_packfmt.pack_codes(jnp.asarray(base), b))
+    qwords = words[rng.integers(0, n, q)]
+    cand = rng.integers(-1, n, (q, 24)).astype(np.int32)
+    cand[:, :4] = cand[:, 4:8]                           # duplicates
+    cand[2] = -1                                         # no candidates
+    want = ref_qf.score_topk(jnp.asarray(cand), jnp.asarray(words),
+                             jnp.asarray(qwords), k=k, b=b, top_k=top_k)
+    got = t_qf.score_topk(torch.tensor(cand), u32_to_device(words, CPU),
+                          u32_to_device(qwords, CPU), k=k, b=b, top_k=top_k)
+    for w, g in zip(want, got):
+        assert np.array_equal(g.numpy(), np.asarray(w))
