@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
-path on one NVIDIA card, with its four hand-written kernels.
+path (sparse and dense input) and the paper's Fig. 7 experiment on one
+NVIDIA card, with its six hand-written kernels.
 
     python3 chip_smoke.py              # from the root of a checkout
 
 Phases; any failure raises and exits non-zero, and no result line is
 printed then:
 
-1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+1. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print nvcc's register report.
 2. Main path at full size, through the service a user calls: SearchConfig
    defaults (D = 2^16, K = 256, 32 bands x 8 rows, b = 32, n_slots 2048
@@ -34,6 +35,37 @@ printed then:
    ``chiprun_out/query_trace.json``).
 5. The card against the port's own CPU path on the first 4096 documents:
    ids and scores must be identical.
+6. Dense serving path: a fresh service with the same defaults ingests the
+   first 65,536 documents as dense 0/1 int8 rows (16 batches of 4096 x
+   2^16, built on the host) through ``pipeline(layout="dense", depth=2)``
+   (auto: the bit-packed kernel), then answers the 1088-row query batch as
+   dense rows five times.  Counts are set to 0 just before and read just
+   after; the bit-packed kernel must have launched once per ingest batch.
+   Every ingested word must equal the sparse signing of the same
+   documents, ``query_dense`` must answer as ``query_sparse`` of the same
+   documents, and top-1 self-hit must be 100%.  One more dense query batch
+   runs under the profiler, as in phase 4
+   (``chiprun_out/query_trace_dense.json``).
+7. Paper path, Fig. 7 (``benchmarks/bench_mae.py``'s four corpora at D =
+   2048, 4096 documents each, K in {64, 256, 512}): C-MinHash-(0,pi) and
+   -(sigma,pi) through ``ops.cminhash_signatures`` (auto: the int8
+   kernel), classical MinHash through ``core.minhash.minhash_dense``,
+   estimates from the collision kernel, exact Jaccard over all pairs as an
+   exact float32 product (TF32 off).  Prints each method's MAE per
+   (corpus, K); nothing statistical gates the run.  Counted as phase 6.
+8. The two dense kernels against their plain versions: the int8 kernel
+   at the paper's shape and, forced, at the service's shape with pack_b =
+   32; the bit-packed kernel at the service's shape and at D = 2048.
+   Tolerance 0; timed and bounded as in phase 3.  Both are bounded by the
+   function's work on this run's rows: each input byte (or word) read
+   once, and one min per set bit per hash.  The int8 kernel's B*K*D
+   masked mins are its algorithm's cost, not the function's, and are
+   recorded beside as ``dense_algorithm_ops``.  No single PyTorch call
+   computes the dense min-reduce, so ``library_ms`` is null.
+9. The card against the CPU on a 512-document dense subset.
+
+``launches`` in the kernels line is the sum over the three counted paths
+(phases 2, 6 and 7).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -62,6 +94,10 @@ BATCH = 4096
 N_QUERY_INDEXED = 1024
 N_QUERY_FRESH = 64
 TOP_K = 5
+N_DENSE = 65_536              # documents ingested as dense rows
+PAPER_D = 2048
+PAPER_DOCS = 4096
+PAPER_KS = (64, 256, 512)
 
 
 def require(cond: bool, what: str) -> None:
@@ -121,12 +157,34 @@ def corpus(n_docs: int):
 
 
 def kernels():
-    from repro_torch.kernels import (cminhash_sparse, collision_kernel,
+    from repro_torch.kernels import (cminhash_kernel, cminhash_packed,
+                                     cminhash_sparse, collision_kernel,
                                      lsh_probe, query_fused)
     return {"cminhash_sparse": cminhash_sparse.KERNEL,
             "fold": query_fused.KERNEL,
             "lsh_probe": lsh_probe.KERNEL,
-            "collision": collision_kernel.KERNEL}
+            "collision": collision_kernel.KERNEL,
+            "cminhash_dense": cminhash_kernel.KERNEL,
+            "cminhash_packed": cminhash_packed.KERNEL}
+
+
+def zero_counts(ks) -> None:
+    for k in ks.values():
+        k.launches = 0
+
+
+def read_counts(ks) -> dict:
+    return {n: k.launches for n, k in ks.items()}
+
+
+def dense_rows(idx: np.ndarray, d: int = 1 << 16) -> np.ndarray:
+    """Padded index lists -> (B, d) int8 0/1 rows, as a user holds them."""
+    v = np.zeros((len(idx), d), np.int8)
+    rows = np.repeat(np.arange(len(idx)), idx.shape[1])
+    flat = idx.reshape(-1)
+    ok = flat >= 0
+    v[rows[ok], flat[ok]] = 1
+    return v
 
 
 def ingest(svc, idx, batch: int) -> float:
@@ -144,8 +202,7 @@ def main_path(idx, fresh_idx, report: dict):
     ks = kernels()
     svc = SimilaritySearchService(SearchConfig(device="cuda"))
     qidx = np.concatenate([idx[:N_QUERY_INDEXED], fresh_idx])
-    for k in ks.values():
-        k.launches = 0
+    zero_counts(ks)
     # --- the main path: ingest + query batches -----------------------------
     t_ingest = ingest(svc, idx, BATCH)
     after_ingest = {n: k.launches for n, k in ks.items()}
@@ -155,7 +212,7 @@ def main_path(idx, fresh_idx, report: dict):
         t0 = time.perf_counter()
         ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
         lat.append(time.perf_counter() - t0)
-    launches = {n: k.launches for n, k in ks.items()}
+    launches = read_counts(ks)
     # -----------------------------------------------------------------------
     per_query = {n: launches[n] - before[n] for n in ks}
     n_batches = -(-len(idx) // BATCH)
@@ -196,8 +253,9 @@ def main_path(idx, fresh_idx, report: dict):
     require(bool(np.isfinite(scores).all()), "finite scores")
     require(self_hit == 1.0, f"top-1 self-hit {self_hit}")
     require(n_fallback > 0, "some rows take the brute-force fallback")
-    for n, c in launches.items():
-        require(c > 0, f"kernel {n} launched on the main path ({c})")
+    for n in ("cminhash_sparse", "fold", "lsh_probe", "collision"):
+        require(launches[n] > 0,
+                f"kernel {n} launched on the main path ({launches[n]})")
     return svc, qidx
 
 
@@ -217,24 +275,8 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     store = svc.store.shards[0].store
     out = []
 
-    def entry(name, source, replaces, got, want, ms, plain_ms, nbytes, ops,
-              extra=None, library_ms=None):
-        err = max_abs_err(got, want)
-        require(err == 0.0 and torch.equal(got, want),
-                f"{name}: kernel != plain version (max abs err {err})")
-        b_ms, b_by = bound_ms(nbytes, ops)
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces,
-               "launches": report["main_path"]["launches"][name],
-               "max_abs_err": err, "equal": True, "ms": ms, "kernel_ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": library_ms, "bytes": nbytes,
-               "operations": ops}
-        row.update(extra or {})
-        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        print(f"[kernel] {name}: equal, {ms:.4f} ms (plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by}{lib})")
-        out.append(row)
+    def entry(*args, **kw):
+        out.append(kernel_entry(*args, **kw))
 
     # 1. sparse window-min signing, one 4096-document ingest batch
     sidx = apply_permutation_sparse(torch.tensor(idx[:BATCH], device=dev),
@@ -349,19 +391,43 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     return out
 
 
-def trace_query(svc, qidx, report: dict) -> None:
-    """Phase 4: one query batch under torch.profiler.  Device busy time is
-    the union of the trace's kernel, memcpy and memset intervals, so no
-    operator is counted twice with the kernels it launched."""
+def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
+                 ops, extra=None, library_ms=None) -> dict:
+    """One kernel's checked, timed and bounded row (launches are filled in
+    from the counted paths at the end)."""
+    err = max_abs_err(got, want)
+    require(err == 0.0 and torch.equal(got, want),
+            f"{name}: kernel != plain version (max abs err {err})")
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None,
+           "max_abs_err": err, "equal": True, "ms": ms, "kernel_ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms, "bytes": nbytes, "operations": ops}
+    row.update(extra or {})
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    shape = f" {row['shape']}" if "shape" in row else ""
+    print(f"[kernel] {name}{shape}: equal, {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}{lib})")
+    return row
+
+
+def trace_query(svc, qdata, report: dict, layout: str = "sparse") -> None:
+    """Phase 4 (and the dense path's trace): one query batch under
+    torch.profiler.  Device busy time is the union of the trace's kernel,
+    memcpy and memset intervals, so no operator is counted twice with the
+    kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
+    query = svc.query_sparse if layout == "sparse" else svc.query_dense
+    tag = "" if layout == "sparse" else f"_{layout}"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.query_sparse(qidx, top_k=TOP_K)
+        query(qdata, top_k=TOP_K)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    path = os.path.join(ROOT, "chiprun_out", "query_trace.json")
+    path = os.path.join(ROOT, "chiprun_out", f"query_trace{tag}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -374,13 +440,14 @@ def trace_query(svc, qidx, report: dict) -> None:
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + stop - start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    report["query_trace"] = {
+    report[f"query_trace{tag}"] = {
         "wall_us": wall_us, "device_busy_us": busy_us,
         "device_busy_share": busy_us / wall_us,
         "device_events": len(device),
         "top_device_time_us": [{"name": n, "us": t} for n, t in top]}
     require(busy_us > 0, "the profiler recorded device activity")
-    print(f"[trace] query batch: wall {wall_us / 1e3:.3f} ms, device busy "
+    print(f"[trace] {layout} query batch: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us * 100:.1f}%) over "
           f"{len(device)} device events; top: "
           + ", ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top[:4]))
@@ -424,6 +491,274 @@ def card_vs_cpu(idx, fresh_idx, report: dict) -> None:
           f"({fb} fallback rows): ids and scores identical")
 
 
+def dense_path(idx, fresh_idx, report: dict):
+    """Phase 6: dense rows through the service a user calls, counted."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    ks = kernels()
+    n = min(N_DENSE, len(idx))
+    t0 = time.perf_counter()
+    batches = [dense_rows(idx[lo: lo + BATCH]) for lo in range(0, n, BATCH)]
+    qidx = np.concatenate([idx[:N_QUERY_INDEXED], fresh_idx])
+    qv = dense_rows(qidx)
+    build_s = time.perf_counter() - t0
+    svc = SimilaritySearchService(SearchConfig(device="cuda"))
+    zero_counts(ks)
+    # --- the dense path: ingest + query batches ----------------------------
+    t0 = time.perf_counter()
+    with svc.pipeline(depth=2, layout="dense") as pipe:
+        for v in batches:
+            pipe.submit(v)
+    t_ingest = time.perf_counter() - t0
+    split = pipe.timings
+    after_ingest = read_counts(ks)
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ids, scores = svc.query_dense(qv, top_k=TOP_K)
+        lat.append(time.perf_counter() - t0)
+    launches = read_counts(ks)
+    # -----------------------------------------------------------------------
+    store = svc.store.shards[0].store
+    words = store.buffer.device_words()
+    for lo in range(0, n, BATCH):
+        sparse = svc.engine.sign(idx[lo: lo + BATCH], layout="sparse",
+                                 pack_b=svc.cfg.b)
+        require(torch.equal(words[lo: lo + BATCH], sparse),
+                f"dense words of documents {lo}..{lo + BATCH} equal the "
+                "sparse signing")
+    sids, sscores = svc.query_sparse(qidx, top_k=TOP_K)
+    require(np.array_equal(ids, sids) and np.array_equal(scores, sscores),
+            "query_dense answers as query_sparse of the same documents")
+    self_hit = float((ids[:N_QUERY_INDEXED, 0]
+                      == np.arange(N_QUERY_INDEXED)).mean())
+    n_fallback = svc.store.last_timings["n_fallback"]
+    report["dense_path"] = {
+        "docs": n, "batches": len(batches), "rows_bytes_per_batch":
+        batches[0].nbytes, "host_rows_build_s": build_s,
+        "ingest_s": t_ingest, "ingest_docs_per_s": n / t_ingest,
+        "ingest_split_s": split, "query_rows": len(qv),
+        "query_latency_s_first": lat[0],
+        "query_latency_s_median_next4": statistics.median(lat[1:]),
+        "query_latency_s_all": lat, "top1_self_hit": self_hit,
+        "fallback_rows": n_fallback, "launches": launches,
+        "launches_ingest": after_ingest, "words_equal_sparse": True,
+        "answers_equal_sparse": True}
+    print(f"[dense] ingest {n} docs as {len(batches)} batches of "
+          f"{BATCH} x {batches[0].shape[1]} int8 rows in {t_ingest:.3f} s "
+          f"({n / t_ingest:.0f} docs/s; rows built on the host in "
+          f"{build_s:.2f} s beforehand); sign (copy in, permute, pack, "
+          f"launch) {split['sign_s']:.3f} s, wait {split['wait_s']:.3f} s, "
+          f"scatter {split['scatter_s']:.3f} s")
+    print(f"[dense] query batch of {len(qv)} dense rows: first "
+          f"{lat[0] * 1e3:.3f} ms, median of next 4 "
+          f"{statistics.median(lat[1:]) * 1e3:.3f} ms; top-1 self-hit "
+          f"{self_hit * 100:.2f}%; fallback rows {n_fallback}")
+    print(f"[dense] launches {launches}; words of all {n} documents equal "
+          "the sparse signing; query_dense == query_sparse")
+    require(ids.shape == (len(qv), TOP_K), "dense answer shape")
+    require(bool(np.isfinite(scores).all()), "finite dense scores")
+    require(self_hit == 1.0, f"dense top-1 self-hit {self_hit}")
+    trace_query(svc, qv, report, layout="dense")
+    require(after_ingest["cminhash_packed"] == len(batches),
+            f"bit-packed kernel launched once per ingest batch "
+            f"({after_ingest['cminhash_packed']} for {len(batches)})")
+    for name in ("cminhash_packed", "fold", "lsh_probe"):
+        require(launches[name] > 0,
+                f"kernel {name} launched on the dense path")
+    return svc, batches[0]
+
+
+def paper_path(report: dict) -> dict:
+    """Phase 7: Fig. 7 on the card, counted.  Returns the corpora."""
+    from repro_torch.core.estimators import true_jaccard_dense
+    from repro_torch.core.minhash import make_k_permutations, minhash_dense
+    from repro_torch.core.permutations import make_two_permutations
+    from repro_torch.data.synthetic import (imagelike_binary_dataset,
+                                            textlike_binary_dataset)
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact integer counts
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    ks = kernels()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    corpora = {
+        "textA": textlike_binary_dataset(rng, PAPER_DOCS, PAPER_D,
+                                         mean_nnz=80),
+        "textB": textlike_binary_dataset(rng, PAPER_DOCS, PAPER_D,
+                                         mean_nnz=250),
+        "imageA": imagelike_binary_dataset(rng, PAPER_DOCS, PAPER_D,
+                                           block=16),
+        "imageB": imagelike_binary_dataset(rng, PAPER_DOCS, PAPER_D,
+                                           block=64, p_on=0.5)}
+    data_s = time.perf_counter() - t0
+    iu = torch.triu_indices(PAPER_DOCS, PAPER_DOCS, 1, device=dev)
+    rows = []
+    zero_counts(ks)
+    # --- the paper path ----------------------------------------------------
+    t0 = time.perf_counter()
+    for name, data in corpora.items():
+        v = torch.from_numpy(data).to(dev)
+        vf = v.float()
+        inter = vf @ vf.T                      # exact: counts < 2^24
+        cnt = vf.sum(dim=1)
+        union = cnt[:, None] + cnt[None, :] - inter
+        truth = torch.where(union > 0, inter / union.clamp(min=1),
+                            torch.zeros_like(union))
+        for k in PAPER_KS:
+            gen = torch.Generator().manual_seed(k)
+            sigma, pi = make_two_permutations(gen, PAPER_D, device=dev)
+            perms = make_k_permutations(gen, PAPER_D, k, device=dev)
+            sigs = {"MH": minhash_dense(v, perms),
+                    "C0pi": ops.cminhash_signatures(v, pi, k),
+                    "Csigmapi": ops.cminhash_signatures(v, pi, k, sigma)}
+            row = {"corpus": name, "k": k}
+            for method, sig in sigs.items():
+                est = ops.estimated_jaccard_matrix(sig, sig)
+                err = (est - truth)[iu[0], iu[1]].abs().double()
+                row[method] = float(err.mean())
+                require(bool(torch.isfinite(est).all())
+                        and 0.0 <= row[method] <= 1.0,
+                        f"paper {name} K={k} {method} estimates")
+            row["win_pct"] = (row["MH"] - row["Csigmapi"]) / row["MH"] * 100
+            rows.append(row)
+            print(f"[paper] fig7_mae_{name}_K{k}: MH={row['MH']:.4f} "
+                  f"C0pi={row['C0pi']:.4f} Csigmapi={row['Csigmapi']:.4f} "
+                  f"win={row['win_pct']:.1f}%")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(ks)
+    # -----------------------------------------------------------------------
+    n_sign = len(corpora) * len(PAPER_KS) * 2
+    report["paper_path"] = {
+        "d": PAPER_D, "docs": PAPER_DOCS, "ks": list(PAPER_KS),
+        "data_s": data_s, "wall_s": wall, "rows": rows,
+        "nnz_mean": {n: float(c.sum(1).mean()) for n, c in corpora.items()},
+        "launches": launches}
+    print(f"[paper] {len(rows)} (corpus, K) cells in {wall:.3f} s "
+          f"(corpora built in {data_s:.1f} s); launches {launches}")
+    require(launches["cminhash_dense"] == n_sign,
+            f"int8 kernel launched for every C-MinHash set "
+            f"({launches['cminhash_dense']} of {n_sign})")
+    require(launches["collision"] == 3 * len(rows),
+            "collision kernel launched for every method")
+    return corpora
+
+
+def dense_kernel_checks(svc, batch: np.ndarray,
+                        corpora: dict) -> tuple[list, list]:
+    """Phase 8: the two dense kernels against their plain versions.
+    Returns the kernels line's rows (the int8 kernel at the paper's shape,
+    the bit-packed one at the service's) and the rows of the other two
+    shapes."""
+    from repro_torch.core.permutations import (apply_permutation_dense,
+                                               make_two_permutations)
+    from repro_torch.kernels import cminhash_kernel as kd
+    from repro_torch.kernels import cminhash_packed as kpk
+    dev = svc.engine.device
+    out = []
+    sources = {"cminhash_dense": ("src/repro_torch/csrc/cminhash_dense.cu",
+                                  "src/repro/kernels/cminhash_kernel.py:77"),
+               "cminhash_packed": ("src/repro_torch/csrc/cminhash_packed.cu",
+                                   "src/repro/kernels/cminhash_packed.py:95")}
+
+    def dense_int8(v, pi, k, pack_b, reps, plain_reps):
+        got = kd.cminhash_dense_kernel(v, pi, k, pack_b=pack_b)
+        want = kd.cminhash_dense_plain(v, pi, k, pack_b=pack_b)
+        ms = time_ms(lambda: kd.cminhash_dense_kernel(v, pi, k,
+                                                      pack_b=pack_b), reps)
+        plain_ms = time_ms(lambda: kd.cminhash_dense_plain(
+            v, pi, k, pack_b=pack_b), plain_reps, warmup=1)
+        b, d = v.shape
+        nnz = int((v > 0).sum().item())
+        # the function's work, as the bit-packed kernel is bounded: read
+        # each byte once, one min per set bit per hash; the dense
+        # algorithm's B*K*D masked mins are its own cost, kept beside it
+        return kernel_entry(
+            "cminhash_dense", *sources["cminhash_dense"], got, want, ms,
+            plain_ms, b * d + d * 4 + got.numel() * 4, nnz * k + b * d,
+            {"shape": [b, d, k], "pack_b": pack_b, "set_bits": nnz,
+             "dense_algorithm_ops": b * k * d})
+
+    def packed(v, pi, k, pack_b, reps, plain_reps):
+        words = kpk.pack_bits(v)
+        got = kpk.cminhash_packed_kernel(words, pi, k, pack_b=pack_b)
+        want = kpk.cminhash_packed_plain(words, pi, k, pack_b=pack_b)
+        ms = time_ms(lambda: kpk.cminhash_packed_kernel(
+            words, pi, k, pack_b=pack_b), reps)
+        plain_ms = time_ms(lambda: kpk.cminhash_packed_plain(
+            words, pi, k, pack_b=pack_b), plain_reps, warmup=1)
+        pack_ms = time_ms(lambda: kpk.pack_bits(v), reps)
+        b, nw = words.shape
+        nnz = int((v > 0).sum().item())
+        return kernel_entry(
+            "cminhash_packed", *sources["cminhash_packed"], got, want, ms,
+            plain_ms, words.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+            nnz * k + b * nw,
+            {"shape": [b, v.shape[1], k], "pack_b": pack_b,
+             "set_bits": nnz, "pack_bits_ms": pack_ms})
+
+    # the paper's shape: the image-like corpus with the permutations the
+    # paper path drew for it, sigma applied as dispatch does
+    kp = PAPER_KS[-1]
+    sigma_p, pi_p = make_two_permutations(torch.Generator().manual_seed(kp),
+                                          PAPER_D, device=dev)
+    vp = apply_permutation_dense(torch.from_numpy(corpora["imageA"]).to(dev),
+                                 sigma_p)
+    out.append(dense_int8(vp, pi_p, kp, None, 20, 3))
+    # the service's shape: the dense path's first batch, sigma-permuted
+    cfg = svc.cfg
+    vs = apply_permutation_dense(torch.from_numpy(batch).to(dev),
+                                 svc.engine.sigma)
+    out.append(packed(vs, svc.engine.pi, cfg.k, cfg.b, 20, 3))
+    extra = [dense_int8(vs, svc.engine.pi, cfg.k, cfg.b, 5, 2),
+             packed(vp, pi_p, kp, None, 20, 3)]
+    words = kpk.pack_bits(vs[:512])
+    for pack_b in (None, 1, 2, 4, 8, 16):      # the other epilogues
+        require(torch.equal(
+            kd.cminhash_dense_kernel(vp[:512], pi_p, kp, pack_b=pack_b),
+            kd.cminhash_dense_plain(vp[:512], pi_p, kp, pack_b=pack_b)),
+            f"cminhash_dense pack_b={pack_b}")
+        require(torch.equal(
+            kpk.cminhash_packed_kernel(words, svc.engine.pi, cfg.k,
+                                       pack_b=pack_b),
+            kpk.cminhash_packed_plain(words, svc.engine.pi, cfg.k,
+                                      pack_b=pack_b)),
+            f"cminhash_packed pack_b={pack_b}")
+    require(torch.equal(
+        kd.cminhash_dense_kernel(vp[:256], pi_p, kp, shift_offset=0),
+        kd.cminhash_dense_plain(vp[:256], pi_p, kp, shift_offset=0)),
+        "cminhash_dense shift_offset=0")
+    require(torch.equal(
+        kpk.cminhash_packed_kernel(words, svc.engine.pi, cfg.k,
+                                   shift_offset=0),
+        kpk.cminhash_packed_plain(words, svc.engine.pi, cfg.k,
+                                  shift_offset=0)),
+        "cminhash_packed shift_offset=0")
+    return out, extra
+
+
+def dense_card_vs_cpu(idx, fresh_idx, report: dict) -> None:
+    """Phase 9: a 512-document dense subset on the card and on the CPU."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    v = dense_rows(idx[:512])
+    q = np.concatenate([v[:128], dense_rows(fresh_idx)])
+    answers = []
+    for device in ("cuda", "cpu"):
+        svc = SimilaritySearchService(SearchConfig(device=device))
+        with svc.pipeline(depth=2, layout="dense") as pipe:
+            for lo in range(0, len(v), 128):
+                pipe.submit(v[lo: lo + 128])
+        answers.append(svc.query_dense(q, top_k=TOP_K))
+    (ci, cs), (pi_, ps) = answers
+    require(np.array_equal(ci, pi_) and np.array_equal(cs, ps),
+            "card and CPU dense answers differ on the 512-document subset")
+    report["dense_card_vs_cpu"] = {"docs": len(v), "query_rows": len(q),
+                                   "identical": True}
+    print(f"[dense-card-vs-cpu] {len(v)} docs, {len(q)} dense queries: ids "
+          "and scores identical")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=262_144,
@@ -463,7 +798,27 @@ def main() -> None:
     del svc
     torch.cuda.empty_cache()
     card_vs_cpu(idx, fresh_idx, report)
+
+    svc, batch = dense_path(idx, fresh_idx, report)
+    corpora = paper_path(report)
+    rows, extra = dense_kernel_checks(svc, batch, corpora)
+    report["kernels"] += rows
+    report["kernel_extra"] = extra
+    del svc, batch
+    torch.cuda.empty_cache()
+    dense_card_vs_cpu(idx, fresh_idx, report)
+
+    paths = ("main_path", "dense_path", "paper_path")
+    for row in report["kernels"] + extra:
+        row["launches"] = sum(report[p]["launches"][row["name"]]
+                              for p in paths)
+        row["launches_by_path"] = {p: report[p]["launches"][row["name"]]
+                                   for p in paths}
+    for row in report["kernels"]:
+        require(row["launches"] > 0,
+                f"kernel {row['name']} launched on a counted path")
     report["wall_s"] = time.perf_counter() - t_all
+    print(f"[done] {report['wall_s']:.1f} s in all")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

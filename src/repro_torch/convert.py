@@ -3,7 +3,8 @@
 ``torch.randperm`` cannot reproduce JAX's PRNG, so a port service that must
 answer like a reference service takes the reference's two permutations as
 host arrays (``np.asarray(engine.sigma)``, ``np.asarray(engine.pi)``) and
-signs with exactly those.
+signs with exactly those; classical MinHash takes the reference's (K, D)
+permutation set the same way.
 """
 
 from __future__ import annotations
@@ -36,3 +37,16 @@ def permutations_from_jax(sigma: np.ndarray, pi: np.ndarray,
                          f"{len(pi)}")
     dev = resolve_device(device)
     return torch.tensor(sigma, device=dev), torch.tensor(pi, device=dev)
+
+
+def k_permutations_from_jax(perms: np.ndarray, device: str | torch.device,
+                            ) -> torch.Tensor:
+    """Reference (K, D) permutation set (``repro.core.minhash.
+    make_k_permutations``, as a host array) -> the port's int32 tensor on
+    ``device``, for ``core.minhash``."""
+    perms = np.asarray(perms)
+    if perms.ndim != 2:
+        raise ValueError(f"perms must be (K, D) (got shape {perms.shape})")
+    rows = [_as_permutation(p, f"perms[{i}]") for i, p in enumerate(perms)]
+    out = np.stack(rows) if rows else np.zeros(perms.shape, np.int32)
+    return torch.tensor(out, device=resolve_device(device))

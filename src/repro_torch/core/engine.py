@@ -5,9 +5,9 @@ through the kernel front door (``kernels.dispatch``).  ``sign_packed`` is
 the fused ingest path: words leave the kernel already truncated to b bits
 and packed, so the (B, K) int32 form never reaches the host.
 
-One card, no mesh.  Only the sparse layout is ported: dense signing and its
-two kernels are a later slice (ROADMAP.md, "Modules still to port", dense
-signing).
+One card, no mesh.  Dense (B, D) rows go to the int8 or the bit-packed
+kernel (``dispatch.select_dense_impl``), sparse index lists to the
+window-min kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +22,6 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import dispatch
 from ..obs import metrics as obs_metrics
 from .permutations import make_two_permutations
-
-_DENSE_TODO = ("dense signing is not ported yet: it waits for its two "
-               "kernels (ROADMAP.md, 'Modules still to port', dense signing)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SketchConfig:
@@ -57,6 +53,7 @@ class SketchEngine:
         self.pi = pi
         self.sigma = sigma if cfg.use_sigma else None
         reg = obs_metrics.default()
+        self._c_dense = reg.counter("engine.sign.dense")
         self._c_sparse = reg.counter("engine.sign.sparse")
         self._c_rows = reg.counter("engine.sign.rows")
 
@@ -65,8 +62,15 @@ class SketchEngine:
             return data.to(self.device)
         return torch.tensor(np.asarray(data), device=self.device)
 
-    def signatures_dense(self, v, *, pack_b: int | None = None):
-        raise NotImplementedError(_DENSE_TODO)
+    def signatures_dense(self, v, *,
+                         pack_b: int | None = None) -> torch.Tensor:
+        """(B, D) binary rows -> (B, K) int32 signatures ((B, W) int32
+        packed words when ``pack_b`` is set), on the device."""
+        self._c_dense.inc()
+        self._c_rows.inc(len(v))
+        return dispatch.signatures_dense(
+            self._on_device(v), self.pi, self.cfg.k, self.sigma,
+            pack_b=pack_b)
 
     def signatures_sparse(self, idx, *,
                           pack_b: int | None = None) -> torch.Tensor:
@@ -81,7 +85,7 @@ class SketchEngine:
     def sign_packed(self, data, b: int, *,
                     layout: str = "sparse") -> torch.Tensor:
         """Fused sign -> pack: data -> (B, ceil(K/(32/b))) int32 words,
-        bit-identical to ``pack_codes(signatures_sparse(data), b)``."""
+        bit-identical to ``pack_codes(signatures_<layout>(data), b)``."""
         if layout == "dense":
             return self.signatures_dense(data, pack_b=b)
         if layout == "sparse":

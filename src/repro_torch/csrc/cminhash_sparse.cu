@@ -14,9 +14,10 @@
 // reads pi as it is, without a window table.  sigma is applied by the
 // caller.  Padding (idx < 0) is skipped; a row with no valid index keeps
 // SENTINEL = 2^31-1, which truncates to all-ones at b < 32 as
-// packfmt.pack_codes does.  With pack_b set, the epilogue truncates each
-// code to b bits and ORs the 32/b codes of a word together across lanes
-// (a shuffle butterfly), so the words are bit-identical to pack_codes.
+// packfmt.pack_codes does.  With pack_b set, the epilogue
+// (pack_epilogue.cuh) truncates each code to b bits and ORs the 32/b codes
+// of a word together across lanes (a shuffle butterfly), so the words are
+// bit-identical to pack_codes.
 //
 // An index >= D wraps mod D, as the plain version's window_starts does.  The
 // hot path pays one unsigned compare per table read, as for the m < 0 wrap
@@ -39,11 +40,14 @@
 
 #include <cuda_runtime.h>
 
+#include "pack_epilogue.cuh"
+
 namespace {
+
+using cminhash::kSentinel;
 
 constexpr int kThreads = 1024;   // threads per block
 constexpr int kGroup = 256;      // threads per document (a multiple of 32)
-constexpr int kSentinel = 0x7fffffff;
 
 __device__ __forceinline__ int window(const int* __restrict__ pi, int i,
                                       int base, int D) {
@@ -62,15 +66,12 @@ cminhash_sparse_kernel(const int* __restrict__ idx, const int* __restrict__ pi,
                        int off, int pack_b, int n_words) {
   const int groups = blockDim.x / kGroup;
   const int t = threadIdx.x % kGroup;
-  const int lane = threadIdx.x & 31;
   const int k_round = (K + 31) & ~31;          // whole warps, for shuffles
-  const int cpw = pack_b ? 32 / pack_b : 1;
-  const unsigned mask =
-      (pack_b == 0 || pack_b == 32) ? 0xffffffffu : ((1u << pack_b) - 1u);
 
   for (long long doc = (long long)blockIdx.x * groups + threadIdx.x / kGroup;
        doc < B; doc += (long long)gridDim.x * groups) {
     const int* __restrict__ row = idx + doc * nnz;
+    int* __restrict__ out_row = out + doc * (pack_b ? n_words : K);
     for (int q = t; q < k_round; q += kGroup) {  // q % 32 == lane
       int h = kSentinel;
       if (q < K) {
@@ -88,16 +89,7 @@ cminhash_sparse_kernel(const int* __restrict__ idx, const int* __restrict__ pi,
         for (; j < nnz; ++j)
           h = min(h, window(pi, __ldg(row + j), base, D));
       }
-      if (pack_b == 0) {
-        if (q < K) out[doc * K + q] = h;
-        continue;
-      }
-      const unsigned code = q < K ? (static_cast<unsigned>(h) & mask) : 0u;
-      unsigned word = code << ((lane % cpw) * pack_b % 32);
-      for (int s = 1; s < cpw; s <<= 1)
-        word |= __shfl_xor_sync(0xffffffffu, word, s);
-      if (lane % cpw == 0 && q < K)
-        out[doc * n_words + q / cpw] = static_cast<int>(word);
+      cminhash::store_codes(out_row, q, K, h, pack_b);
     }
   }
 }

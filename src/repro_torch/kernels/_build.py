@@ -10,8 +10,8 @@ PyTorch header is included, so a source builds in seconds:
 
 The build happens at first use, from the sources in the checkout, into
 ``src/repro_torch/build/`` (listed in ``.gitignore``).  The file name
-carries a digest of the source and the flags, so an edited source never
-loads a stale library; each build writes a temporary file and renames it,
+carries a digest of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale library; each build writes a temporary file and renames it,
 so processes that race produce the same library.  ``build()`` starts one
 nvcc per source together and waits for all of them.
 """
@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("cminhash_sparse", "fold", "lsh_probe", "collision")
+SOURCES = ("cminhash_sparse", "fold", "lsh_probe", "collision",
+           "cminhash_dense", "cminhash_packed")
 
 
 def nvcc_path() -> str:
@@ -49,9 +50,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a digest of the source, every header
+    in ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

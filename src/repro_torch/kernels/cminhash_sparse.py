@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..core.cminhash import _check
 from . import _build
 from .packfmt import pack_codes, pack_geometry
 
@@ -34,11 +35,6 @@ KERNEL = _build.CudaKernel("cminhash_sparse", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # idx, pi, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, nnz, D, K
     ctypes.c_int, ctypes.c_int, ctypes.c_int])           # off, pack_b, n_words
-
-
-def _check(d: int, k: int) -> None:
-    if k > d:
-        raise ValueError(f"C-MinHash requires K <= D (got K={k}, D={d})")
 
 
 def window_table(pi: torch.Tensor, wl: int, dtype=torch.int32,

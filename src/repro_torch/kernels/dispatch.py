@@ -4,7 +4,18 @@ Every request lands here and goes to one kernel wrapper; the wrapper picks
 the CUDA kernel or its plain version from the device of the tensors it is
 given, never from a fallback.  Each entry bumps a ``kernel.<leg>.<impl>``
 counter (``impl`` is ``cuda`` or ``plain``), as the reference's dispatch
-does per resolved implementation.
+does per resolved implementation; dense signing counts
+``kernel.dense.<int8|packed>.<impl>``.
+
+Dense (B, D) rows go to one of two kernels:
+
+  * ``int8``   — ``cminhash_kernel``: the circulant min-reduce, B*K*D work;
+  * ``packed`` — ``cminhash_packed``: rows packed 32 positions to a word,
+                 B*K*nnz work and an 8x smaller operand.
+
+``impl="auto"`` takes ``packed`` from ``PACKED_MIN_D`` positions up and
+``int8`` below, the reference's TPU policy, on either device: a CPU tensor
+runs the chosen route's plain version.  There is no ``ref`` route.
 
 Launch geometry is fixed inside each wrapper: the port has no autotuner.
 """
@@ -14,15 +25,51 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.permutations import apply_permutation_sparse
+from ..core.permutations import apply_permutation_dense, \
+    apply_permutation_sparse
 from ..obs import metrics as obs_metrics
 from . import lsh_probe as _lsh_probe
 from . import query_fused as _query_fused
+from .cminhash_kernel import as_int8_mask, cminhash_dense_kernel
+from .cminhash_packed import cminhash_packed
 from .cminhash_sparse import cminhash_sparse_kernel
+
+PACKED_MIN_D = 16384
+DENSE_IMPLS = ("auto", "int8", "packed")
 
 
 def _impl(t: torch.Tensor) -> str:
     return "cuda" if t.device.type == "cuda" else "plain"
+
+
+def select_dense_impl(d: int, device_type: str) -> str:
+    """Resolve ``impl="auto"`` for dense (B, d) rows on a ``cuda`` or
+    ``cpu`` tensor.  The policy is the same on both; ``device_type``
+    mirrors the reference's ``backend`` argument, so a caller names where
+    the rows live and an unknown device is refused."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device type must be cuda or cpu (got "
+                         f"{device_type!r})")
+    return "packed" if d >= PACKED_MIN_D else "int8"
+
+
+def signatures_dense(v: torch.Tensor, pi: torch.Tensor, k: int,
+                     sigma: torch.Tensor | None = None, *,
+                     shift_offset: int = 1, impl: str = "auto",
+                     pack_b: int | None = None) -> torch.Tensor:
+    """(B, D) binary rows (an entry is set when > 0) -> (B, K) int32
+    signatures, or (B, W) int32 packed words when ``pack_b`` is set."""
+    if impl not in DENSE_IMPLS:
+        raise ValueError(f"impl must be one of {DENSE_IMPLS} (got {impl!r})")
+    if impl == "auto":
+        impl = select_dense_impl(v.shape[-1], v.device.type)
+    obs_metrics.default().counter(f"kernel.dense.{impl}.{_impl(v)}").inc()
+    v = as_int8_mask(v)
+    if sigma is not None:
+        v = apply_permutation_dense(v, sigma)
+    kernel = cminhash_dense_kernel if impl == "int8" else cminhash_packed
+    return kernel(v.contiguous(), pi, k, shift_offset=shift_offset,
+                  pack_b=pack_b)
 
 
 def signatures_sparse(idx: torch.Tensor, pi: torch.Tensor, k: int,

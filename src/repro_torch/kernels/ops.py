@@ -1,20 +1,51 @@
-"""Pairwise scoring on packed codes (what the query planner calls).
+"""Dense signing and pairwise scoring: the library entry points the paper's
+experiments call, and the packed-code scoring the query planner calls.
 
-The b-bit packed-code format lives in ``kernels.packfmt``.
+Signing goes through ``kernels.dispatch``; the b-bit packed-code format
+lives in ``kernels.packfmt``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import dispatch
 from .collision_kernel import collision_counts_kernel
 from .packfmt import unpack_codes
+
+
+def cminhash_signatures(v: torch.Tensor, pi: torch.Tensor, k: int,
+                        sigma: torch.Tensor | None = None, *,
+                        shift_offset: int = 1,
+                        impl: str = "auto") -> torch.Tensor:
+    """Dense C-MinHash signatures: (B, D) binary -> (B, K) int32, through
+    the kernel ``impl`` picks (``dispatch.DENSE_IMPLS``)."""
+    return dispatch.signatures_dense(v, pi, k, sigma,
+                                     shift_offset=shift_offset, impl=impl)
+
+
+def cminhash_signatures_packed(v: torch.Tensor, pi: torch.Tensor, k: int,
+                               b: int, sigma: torch.Tensor | None = None, *,
+                               shift_offset: int = 1,
+                               impl: str = "auto") -> torch.Tensor:
+    """Fused sign -> pack: (B, D) binary -> (B, ceil(K/(32/b))) int32
+    words, bit-identical to ``pack_codes(cminhash_signatures(...), b)``."""
+    return dispatch.signatures_dense(v, pi, k, sigma,
+                                     shift_offset=shift_offset, impl=impl,
+                                     pack_b=b)
 
 
 def collision_counts(sig_q: torch.Tensor, sig_n: torch.Tensor) -> torch.Tensor:
     """(Q, K) x (N, K) int32 -> (Q, N) int32 match counts (the collision
     kernel on a CUDA device, its plain version on the CPU)."""
     return collision_counts_kernel(sig_q.contiguous(), sig_n.contiguous())
+
+
+def estimated_jaccard_matrix(sig_q: torch.Tensor,
+                             sig_n: torch.Tensor) -> torch.Tensor:
+    """(Q, N) float32 estimated Jaccard from signatures: count / K."""
+    k = sig_q.shape[-1]
+    return collision_counts(sig_q, sig_n).to(torch.float32) / k
 
 
 def packed_collision_counts(words_q: torch.Tensor, words_n: torch.Tensor,

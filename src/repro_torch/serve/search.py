@@ -15,9 +15,9 @@ once, so batch N+1's signing runs on the card while batch N scatters into
 the shards on the host; the copy of batch N's words to the host is the one
 synchronisation.
 
-Ported: the in-process plane with packed (word-aligned) banding and sparse
-input.  The tcp transport, replicas, streaming and dense input are later
-slices (ROADMAP.md).
+Ported: the in-process plane with packed (word-aligned) banding, for
+sparse index lists and dense (B, D) rows.  The tcp transport, replicas and
+streaming are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ..obs import trace as obs_trace
 from ..store import ShardedSketchStore, StoreConfig
 
 TRANSPORTS = ("inproc",)
+LAYOUTS = ("sparse", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,9 @@ class SimilaritySearchService:
     def add_sparse(self, idx: np.ndarray) -> None:
         self._scatter(u32_to_host(self._sign(idx, "sparse")))
 
+    def add_dense(self, v: np.ndarray) -> None:
+        self._scatter(u32_to_host(self._sign(v, "dense")))
+
     def pipeline(self, *, depth: int = 2,
                  layout: str = "sparse") -> "IngestPipeline":
         """A double-buffered ingest session over this service's store."""
@@ -114,16 +118,27 @@ class SimilaritySearchService:
         """(Q, NNZ) padded shingle lists -> (ids (Q, top_k) int64 [-1 pad],
         scores (Q, top_k) float32).  Rows with no bucket hit in any shard
         fall back to brute force over the whole index."""
+        return self._traced_query(idx, "sparse", top_k)
+
+    def query_dense(self, v: np.ndarray, top_k: int = 10):
+        """(Q, D) binary rows -> the same answers as ``query_sparse`` of
+        their set positions."""
+        return self._traced_query(v, "dense", top_k)
+
+    def _traced_query(self, data, layout: str, top_k: int):
+        """The traced front door: the root span opens here, the sign leg is
+        its first child, and the store's fold, probe, score and merge nest
+        beneath it."""
         t_wall = time.perf_counter()
         with self._tracer.span("query") as root:
-            root.tag("n", len(idx)).tag("top_k", top_k)
+            root.tag("n", len(data)).tag("top_k", top_k)
             if self.store.size <= 0:
                 raise ValueError(
                     "query on an empty index: add documents before querying "
                     "(the brute-force fallback has nothing to score)")
             t0 = time.perf_counter()
             with self._tracer.span("query.sign"):
-                qwords = self._sign(idx, "sparse")    # stays on the device
+                qwords = self._sign(data, layout)     # stays on the device
             self._h_sign.observe(time.perf_counter() - t0)
             out = self.store.query_packed(qwords, top_k)
         self._h_query.observe(time.perf_counter() - t_wall)
@@ -163,9 +178,8 @@ class IngestPipeline:
                  layout: str = "sparse"):
         if depth < 1:
             raise ValueError(f"depth must be >= 1 (got {depth})")
-        if layout != "sparse":
-            raise ValueError(f"unknown layout {layout!r} (only sparse input "
-                             "is ported)")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
         self.service = service
         self.depth = depth
         self.layout = layout

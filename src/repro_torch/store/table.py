@@ -32,6 +32,7 @@ import torch
 
 # probe chain + empty-slot sentinel are owned by the probe-kernel module so
 # the host walk and the device kernel can never diverge
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.lsh_probe import SENTINEL_KEY, probe_offset
 from ..obs import metrics as obs_metrics
 from ._growth import grown
@@ -56,14 +57,14 @@ class BandedLSHTable:
 
     def __init__(self, n_bands: int, n_slots: int = 2048,
                  bucket_width: int = 8, max_probes: int = 16, *,
-                 device: torch.device = torch.device("cpu")):
+                 device: str | torch.device = DEFAULT_DEVICE):
         if n_slots <= 0 or bucket_width <= 0 or max_probes <= 0:
             raise ValueError("n_slots, bucket_width, max_probes must be > 0")
         self.n_bands = n_bands
         self.n_slots = n_slots
         self.bucket_width = bucket_width
         self.max_probes = max_probes
-        self.device = device
+        self.device = resolve_device(device)
         reg = obs_metrics.default()
         self._c_spill_probe = reg.counter("table.spill.probe")
         self._c_spill_overflow = reg.counter("table.spill.overflow")

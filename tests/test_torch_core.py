@@ -88,7 +88,7 @@ def test_apply_permutation_sparse_matches_reference():
 
 def test_make_two_permutations_are_permutations():
     gen = torch.Generator().manual_seed(0)
-    sigma, pi = t_perm.make_two_permutations(gen, 257)
+    sigma, pi = t_perm.make_two_permutations(gen, 257, device="cpu")
     for p in (sigma, pi):
         assert p.dtype == torch.int32
         assert torch.equal(torch.sort(p).values,
@@ -178,14 +178,20 @@ def test_no_port_file_names_jax_or_repro_in_an_import():
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch.core.engine import SketchConfig, SketchEngine
+    from repro_torch.core.minhash import make_k_permutations
     from repro_torch.serve.search import SearchConfig, SimilaritySearchService
-    from repro_torch.store import ShardedSketchStore, SketchStore, StoreConfig
+    from repro_torch.store import (BandedLSHTable, ShardedSketchStore,
+                                   SketchStore, StoreConfig)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scfg = StoreConfig(k=64, n_bands=16, rows_per_band=4)
+    gen = torch.Generator().manual_seed(0)
     for make in (lambda: SketchEngine(SketchConfig(d=256, k=64)),
                  lambda: SketchStore(scfg),
                  lambda: ShardedSketchStore(scfg),
-                 lambda: SimilaritySearchService(SearchConfig())):
+                 lambda: SimilaritySearchService(SearchConfig()),
+                 lambda: BandedLSHTable(4),
+                 lambda: t_perm.make_two_permutations(gen, 64),
+                 lambda: make_k_permutations(gen, 64, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert SearchConfig().device == "cuda"
@@ -194,13 +200,49 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     SketchStore(scfg, device="cpu")
     SimilaritySearchService(SearchConfig(d=1 << 12, k=64, n_bands=16,
                                          rows_per_band=4, device="cpu"))
+    assert BandedLSHTable(4, device="cpu").device == CPU
+    assert t_perm.make_two_permutations(gen, 64, device="cpu")[0].device \
+        == CPU
+    assert make_k_permutations(gen, 64, 8, device="cpu").device == CPU
 
 
 def test_unported_options_raise_and_name_the_roadmap():
+    """Options still to port raise and name the roadmap; dense signing,
+    which used to, now answers like the reference engine."""
+    import jax
+    from repro.core.engine import SketchConfig as RefSketchConfig
+    from repro.core.engine import SketchEngine as RefSketchEngine
     from repro_torch.core.engine import SketchConfig, SketchEngine
     from repro_torch.serve.search import SearchConfig, SimilaritySearchService
-    eng = SketchEngine(SketchConfig(d=256, k=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.sign(np.zeros((2, 256), np.int8), layout="dense")
+    ref = RefSketchEngine(RefSketchConfig(d=256, k=64, use_kernel=False))
+    eng = SketchEngine(SketchConfig(d=256, k=64), device="cpu",
+                       params=convert.permutations_from_jax(
+                           np.asarray(ref.sigma), np.asarray(ref.pi), "cpu"))
+    v = (np.random.default_rng(0).random((3, 256)) < 0.1).astype(np.int8)
+    want = np.asarray(ref.sign(jax.numpy.asarray(v), layout="dense"))
+    assert np.array_equal(eng.sign(v, layout="dense").numpy(), want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimilaritySearchService(SearchConfig(transport="tcp", device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SimilaritySearchService(SearchConfig(d=1 << 12, k=60, n_bands=20,
+                                             rows_per_band=3, b=8,
+                                             device="cpu"))
+
+
+def test_library_path_digests_the_shared_headers(tmp_path, monkeypatch):
+    """An edited or added header names a new library, so no stale build
+    loads; every source in SOURCES is in the checkout."""
+    from repro_torch.kernels import _build
+    assert {"cminhash_dense", "cminhash_packed"} <= set(_build.SOURCES)
+    assert all((_build.CSRC / f"{n}.cu").is_file() for n in _build.SOURCES)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("#define X 1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    assert first.parent == _build.BUILD
+    (tmp_path / "h.cuh").write_text("#define X 2\n")
+    edited = _build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    added = _build.library_path("k")
+    assert len({first, edited, added}) == 3

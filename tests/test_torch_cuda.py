@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Edge shapes the serving path does not reach every day: K not a multiple of
-32, empty index lists, indices >= D, D past the uint16 range, every pack
-width, odd record strides, ragged collision tiles.  Integer outputs: tolerance 0.
+32, empty index lists and rows, indices >= D, D past the uint16 range and
+not a multiple of 32, K = D, every pack width, int8/int32/bool rows, row
+offsets past 2^31, odd record strides, ragged collision tiles.  Integer
+outputs: tolerance 0.
 Also: the wrappers refuse what the kernels do not take, and the service
 answers the same on the card as on the CPU.  Imports neither jax nor repro,
 so it runs where the card is:
@@ -17,8 +19,11 @@ import pytest
 import torch
 
 from repro_torch.core.lsh import band_hashes
+from repro_torch.kernels import cminhash_kernel as kd
+from repro_torch.kernels import cminhash_packed as kpk
 from repro_torch.kernels import cminhash_sparse as ks
 from repro_torch.kernels import collision_kernel as kc
+from repro_torch.kernels import dispatch
 from repro_torch.kernels import lsh_probe as kp
 from repro_torch.kernels import query_fused as kq
 from repro_torch.kernels.packfmt import PACK_BITS
@@ -84,6 +89,123 @@ def test_sparse_kernel_fused_pack_matches_plain(cuda, pack_b, k):
     got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k,
                                     pack_b=pack_b)
     assert torch.equal(got.cpu(), want)
+
+
+def _dense_case(b, d, dens, seed):
+    gen = torch.Generator().manual_seed(seed)
+    pi = torch.randperm(d, generator=gen).to(torch.int32)
+    v = (torch.rand((b, d), generator=gen) < dens).to(torch.int8)
+    if b > 1:
+        v[1] = 0                                  # an empty row
+    return v, pi
+
+
+DENSE_SHAPES = [(1, 1, 1, 0.5), (3, 70, 70, 0.3), (4, 257, 129, 0.05),
+                (9, 300, 200, 0.1), (3, 100, 37, 0.0), (7, 4096, 33, 0.9),
+                (33, 2048, 512, 0.5), (20, 1 << 16, 256, 0.004),
+                (5, (1 << 16) + 3, 300, 0.01)]
+
+
+@pytest.mark.parametrize("b,d,k,dens", DENSE_SHAPES)
+@pytest.mark.parametrize("off", [0, 1])
+def test_dense_kernels_match_plain(cuda, b, d, k, dens, off):
+    v, pi = _dense_case(b, d, dens, seed=b + d + k)
+    want = kd.cminhash_dense_plain(v, pi, k, shift_offset=off)
+    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k,
+                                   shift_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    words = kpk.pack_bits(v.to(cuda))
+    assert torch.equal(words.cpu(), kpk.pack_bits(v))
+    got = kpk.cminhash_packed_kernel(words, pi.to(cuda), k, shift_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(
+        kpk.cminhash_packed_plain(words.cpu(), pi, k, shift_offset=off), want)
+
+
+@pytest.mark.parametrize("pack_b", PACK_BITS)
+@pytest.mark.parametrize("k", [1, 33, 129, 256])
+def test_dense_kernels_fused_pack_match_plain(cuda, pack_b, k):
+    v, pi = _dense_case(6, 300, 0.1, seed=pack_b + k)
+    want = kd.cminhash_dense_plain(v, pi, k, pack_b=pack_b)
+    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k,
+                                   pack_b=pack_b)
+    assert torch.equal(got.cpu(), want)
+    got = kpk.cminhash_packed_kernel(kpk.pack_bits(v.to(cuda)), pi.to(cuda),
+                                     k, pack_b=pack_b)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.bool])
+def test_dense_kernels_read_every_input_type(cuda, dtype):
+    v, pi = _dense_case(5, 257, 0.2, seed=3)
+    rows = v.bool() if dtype == torch.bool else \
+        torch.where(v > 0, 7, -(torch.arange(257) % 5)).to(dtype)
+    want = kd.cminhash_dense_plain(v, pi, 100)
+    for impl in ("int8", "packed"):
+        got = dispatch.signatures_dense(rows.to(cuda), pi.to(cuda), 100,
+                                        impl=impl)
+        assert torch.equal(got.cpu(), want), impl
+
+
+def test_dense_kernels_row_offsets_past_2_31(cuda):
+    """B * D > 2^31: the last rows sit past the int32 byte offset."""
+    b, d, k = 32_800, 1 << 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    v = torch.zeros((b, d), dtype=torch.int8, device=cuda)
+    v.scatter_(1, torch.randint(0, d, (b, 40), generator=gen, device=cuda),
+               1)
+    pi = torch.randperm(d, generator=gen, device=cuda).to(torch.int32)
+    tail = slice(b - 48, b)
+    want = kd.cminhash_dense_plain(v[tail].cpu(), pi.cpu(), k, pack_b=32)
+    got = kd.cminhash_dense_kernel(v, pi, k, pack_b=32)
+    assert torch.equal(got[tail].cpu(), want)
+    words = kpk.pack_bits(v)
+    del v
+    got = kpk.cminhash_packed_kernel(words, pi, k, pack_b=32)
+    assert torch.equal(got[tail].cpu(), want)
+
+
+def test_dense_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    v = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
+    pi = torch.arange(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.cminhash_dense_kernel(v.reshape(64, 4).t(), pi, 8)
+    with pytest.raises(TypeError):
+        kd.cminhash_dense_kernel(v, pi.long(), 8)
+    with pytest.raises(ValueError, match="cuda|cpu"):
+        kd.cminhash_dense_kernel(v, pi.cpu(), 8)
+    words = kpk.pack_bits(v)
+    with pytest.raises(TypeError):
+        kpk.cminhash_packed_kernel(words.long(), pi, 8)
+    with pytest.raises(ValueError, match=r"\(B, 2\)"):
+        kpk.cminhash_packed_kernel(words[:, :1], pi, 8)
+
+
+@pytest.mark.parametrize("d", [1 << 12, 1 << 14])
+def test_dense_service_answers_the_same_on_card_and_cpu(cuda, d):
+    """int8 route below PACKED_MIN_D, bit-packed at it."""
+    from repro_torch.data.shingle import batch_shingles
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    docs, _ = corpus_with_duplicates(400, vocab=3000, doc_len=64, seed=1)
+    idx = batch_shingles(docs, n=3, d=d, max_nnz=64)
+    v = np.zeros((len(idx), d), np.int8)
+    for i, row in enumerate(idx):
+        v[i, row[row >= 0]] = 1
+    answers = []
+    for device in ("cuda", "cpu"):
+        svc = SimilaritySearchService(SearchConfig(
+            d=d, k=64, n_bands=16, rows_per_band=4, device=device))
+        with svc.pipeline(depth=2, layout="dense") as pipe:
+            for lo in range(0, 350, 70):
+                pipe.submit(v[lo: lo + 70])
+        answers.append(svc.query_dense(v[300:], top_k=5))
+        assert np.array_equal(answers[-1][0],
+                              svc.query_sparse(idx[300:], top_k=5)[0])
+    assert np.array_equal(answers[0][0], answers[1][0])
+    assert np.array_equal(answers[0][1], answers[1][1])
 
 
 @pytest.mark.parametrize("q,nb,r", [(1, 1, 1), (1088, 32, 8), (7, 5, 13)])

@@ -167,7 +167,8 @@ def test_probe_matches_pallas_kernel_interpret():
 @pytest.mark.parametrize("ns,w,mp,nb", [(37, 3, 5, 5), (16, 1, 2, 3)])
 def test_port_table_state_and_lookups_match_reference(ns, w, mp, nb):
     ref_table, hashes = _loaded_ref_table(ns, w, mp, nb)
-    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp)
+    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp,
+                           device="cpu")
     table.insert(hashes[:130], np.arange(130))
     table.insert(hashes[130:], np.arange(130, 260))
     assert np.array_equal(table.records, ref_table.records)
