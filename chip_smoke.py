@@ -22,6 +22,10 @@ printed then:
 3. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it: outputs must be equal (tolerance 0, all
    integers).  Times are medians of CUDA-event timings after warm-up.
+   ``ms`` (as ``plain_ms`` and ``library_ms``) times the call as a caller
+   makes it, the wrapper's host work included; ``device_ms`` has the card
+   spin ~0.25 ms before each start event, so the host's work overlaps the
+   spin and the events time the device's work alone.
    ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations / the
    int32 rate (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7e12 op/s, half
    the lanes behind the published 67 TFLOP/s float32 figure of the H100
@@ -61,7 +65,9 @@ printed then:
    once, and one min per set bit per hash.  The int8 kernel's B*K*D
    masked mins are its algorithm's cost, not the function's, and are
    recorded beside as ``dense_algorithm_ops``.  No single PyTorch call
-   computes the dense min-reduce, so ``library_ms`` is null.
+   computes the dense min-reduce, so ``library_ms`` is null.  The int8
+   kernel is also timed on the imageA corpus at each of Fig. 7's K, and
+   the sum over phase 7's 24 launches (8 at each K) is printed.
 9. The card against the CPU on a 512-document dense subset.
 
 ``launches`` in the kernels line is the sum over the three counted paths
@@ -70,6 +76,16 @@ printed then:
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
 output included, go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --compare [--baseline DIR]
+
+runs only a comparison of the sparse and dense int8 signing kernels through
+their wrappers, at the serving batch, at Fig. 7's shapes and forced at the
+dense service's: the per-call table placement of ``csrc/window_fold.cuh``,
+each placement forced through the kernels' test entry point and, with
+``--baseline``, the same wrappers on a build of ``DIR/src/repro_torch/
+csrc``'s two sources (an earlier checkout), each checked against the
+plain version and timed both ways (``chiprun_out/compare.json``).
 """
 
 from __future__ import annotations
@@ -89,6 +105,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12
+SPIN_CYCLES = 500_000         # ~0.25 ms at the H100's 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 4096
 N_QUERY_INDEXED = 1024
@@ -112,8 +129,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+def time_ms(fn, reps: int, warmup: int = 2, spin: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up,
+    the host's work to launch it included.
+
+    With ``spin`` the card spins for ~0.25 ms (``torch.cuda._sleep``)
+    before the start event of each run, so the host's work to launch
+    ``fn`` (the wrapper's checks, the allocation, the ctypes call) overlaps
+    the spin and the events time the device's work alone, as long as that
+    enqueue takes less than the spin."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -121,12 +145,20 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def both_ms(fn, reps: int) -> tuple[float, float]:
+    """(``ms``, ``device_ms``) of ``fn``: with the host's launch work, and
+    without it."""
+    return time_ms(fn, reps), time_ms(fn, reps, spin=True)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -305,15 +337,15 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     require(torch.equal(ks.cminhash_sparse_kernel(idx_big, pi_big, 200),
                         ks.cminhash_sparse_plain(idx_big, pi_big, 200)),
             "cminhash_sparse D > 2^16")
-    ms = time_ms(lambda: ks.cminhash_sparse_kernel(sidx, pi, k,
-                                                   pack_b=cfg.b), 20)
+    ms, dev_ms = both_ms(lambda: ks.cminhash_sparse_kernel(
+        sidx, pi, k, pack_b=cfg.b), 20)
     plain_ms = time_ms(lambda: ks.cminhash_sparse_plain(sidx, pi, k,
                                                         pack_b=cfg.b), 5)
     n_valid = int((sidx >= 0).sum().item())
     entry("cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
           "src/repro/kernels/cminhash_sparse.py:186", got, want, ms,
           plain_ms, sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
-          n_valid * k,
+          n_valid * k, dev_ms,
           {"shape": list(sidx.shape)})
 
     # 2. band-hash fold, the coordinator's query batch
@@ -328,11 +360,11 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     require(torch.equal(kq.fold_rows_kernel(sig, sign_extend=True),
                         kq.fold_rows_plain(sig, sign_extend=True)),
             "fold sign_extend")
-    ms = time_ms(lambda: kq.fold_rows_kernel(rows), 50)
+    ms, dev_ms = both_ms(lambda: kq.fold_rows_kernel(rows), 50)
     plain_ms = time_ms(lambda: kq.fold_rows_plain(rows), 10)
     entry("fold", "src/repro_torch/csrc/fold.cu",
           "src/repro/kernels/query_fused.py:164", got, want, ms, plain_ms,
-          rows.numel() * 4 + got.numel() * 8, rows.numel() * 5,
+          rows.numel() * 4 + got.numel() * 8, rows.numel() * 5, dev_ms,
           {"shape": list(rows.shape)})
 
     # 3. probe over the full-size resident records
@@ -343,8 +375,8 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     ns, mp = store.table.n_slots, store.table.max_probes
     got = kp.lsh_probe_kernel(records, meta, n_slots=ns, max_probes=mp)
     want = kp.lsh_probe_plain(records, meta, n_slots=ns, max_probes=mp)
-    ms = time_ms(lambda: kp.lsh_probe_kernel(records, meta, n_slots=ns,
-                                             max_probes=mp), 50)
+    ms, dev_ms = both_ms(lambda: kp.lsh_probe_kernel(
+        records, meta, n_slots=ns, max_probes=mp), 50)
     plain_ms = time_ms(lambda: kp.lsh_probe_plain(records, meta, n_slots=ns,
                                                   max_probes=mp), 5)
     # bytes this run's walk needs: 8 key bytes per probe step taken, the W
@@ -354,7 +386,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     entry("lsh_probe", "src/repro_torch/csrc/lsh_probe.cu",
           "src/repro/kernels/lsh_probe.py:137", got, want, ms, plain_ms,
           steps * 8 + hits * w * 4 + meta.numel() * 4 + got.numel() * 4,
-          steps * 3, {"shape": [int(meta.shape[0]), w],
+          steps * 3, dev_ms, {"shape": [int(meta.shape[0]), w],
                       "records_shape": list(records.shape),
                       "probe_steps": steps, "hits": hits})
 
@@ -378,13 +410,14 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
         return k - torch.cdist(qd, bd, p=0)
     require(torch.equal(library().to(torch.int32), want),
             "collision: K - cdist(p=0) == the plain version")
-    ms = time_ms(lambda: kc.collision_counts_kernel(qfb, block), 20)
+    ms, dev_ms = both_ms(lambda: kc.collision_counts_kernel(qfb, block),
+                         20)
     plain_ms = time_ms(lambda: kc.collision_counts_plain(qfb, block), 5)
     library_ms = time_ms(library, 5)
     qn, nn = qfb.shape[0], block.shape[0]
     entry("collision", "src/repro_torch/csrc/collision.cu",
           "src/repro/kernels/collision_kernel.py:37", got, want, ms,
-          plain_ms, (qn + nn) * k * 4 + qn * nn * 4, 2 * qn * nn * k,
+          plain_ms, (qn + nn) * k * 4 + qn * nn * 4, 2 * qn * nn * k, dev_ms,
           {"shape": [qn, nn, k],
            "blocks_per_brute_call": -(-store.size // 16384)},
           library_ms=library_ms)
@@ -392,7 +425,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
 
 
 def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
-                 ops, extra=None, library_ms=None) -> dict:
+                 ops, device_ms, extra=None, library_ms=None) -> dict:
     """One kernel's checked, timed and bounded row (launches are filled in
     from the counted paths at the end)."""
     err = max_abs_err(got, want)
@@ -402,12 +435,13 @@ def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None,
            "max_abs_err": err, "equal": True, "ms": ms, "kernel_ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms, "bytes": nbytes, "operations": ops}
     row.update(extra or {})
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     shape = f" {row['shape']}" if "shape" in row else ""
-    print(f"[kernel] {name}{shape}: equal, {ms:.4f} ms (plain "
+    print(f"[kernel] {name}{shape}: equal, {ms:.4f} ms, device "
+          f"{device_ms:.4f} ms (plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}{lib})")
     return row
 
@@ -645,8 +679,8 @@ def paper_path(report: dict) -> dict:
     return corpora
 
 
-def dense_kernel_checks(svc, batch: np.ndarray,
-                        corpora: dict) -> tuple[list, list]:
+def dense_kernel_checks(svc, batch: np.ndarray, corpora: dict,
+                        report: dict) -> tuple[list, list]:
     """Phase 8: the two dense kernels against their plain versions.
     Returns the kernels line's rows (the int8 kernel at the paper's shape,
     the bit-packed one at the service's) and the rows of the other two
@@ -665,8 +699,8 @@ def dense_kernel_checks(svc, batch: np.ndarray,
     def dense_int8(v, pi, k, pack_b, reps, plain_reps):
         got = kd.cminhash_dense_kernel(v, pi, k, pack_b=pack_b)
         want = kd.cminhash_dense_plain(v, pi, k, pack_b=pack_b)
-        ms = time_ms(lambda: kd.cminhash_dense_kernel(v, pi, k,
-                                                      pack_b=pack_b), reps)
+        ms, dev_ms = both_ms(lambda: kd.cminhash_dense_kernel(
+            v, pi, k, pack_b=pack_b), reps)
         plain_ms = time_ms(lambda: kd.cminhash_dense_plain(
             v, pi, k, pack_b=pack_b), plain_reps, warmup=1)
         b, d = v.shape
@@ -677,14 +711,14 @@ def dense_kernel_checks(svc, batch: np.ndarray,
         return kernel_entry(
             "cminhash_dense", *sources["cminhash_dense"], got, want, ms,
             plain_ms, b * d + d * 4 + got.numel() * 4, nnz * k + b * d,
-            {"shape": [b, d, k], "pack_b": pack_b, "set_bits": nnz,
+            dev_ms, {"shape": [b, d, k], "pack_b": pack_b, "set_bits": nnz,
              "dense_algorithm_ops": b * k * d})
 
     def packed(v, pi, k, pack_b, reps, plain_reps):
         words = kpk.pack_bits(v)
         got = kpk.cminhash_packed_kernel(words, pi, k, pack_b=pack_b)
         want = kpk.cminhash_packed_plain(words, pi, k, pack_b=pack_b)
-        ms = time_ms(lambda: kpk.cminhash_packed_kernel(
+        ms, dev_ms = both_ms(lambda: kpk.cminhash_packed_kernel(
             words, pi, k, pack_b=pack_b), reps)
         plain_ms = time_ms(lambda: kpk.cminhash_packed_plain(
             words, pi, k, pack_b=pack_b), plain_reps, warmup=1)
@@ -694,7 +728,7 @@ def dense_kernel_checks(svc, batch: np.ndarray,
         return kernel_entry(
             "cminhash_packed", *sources["cminhash_packed"], got, want, ms,
             plain_ms, words.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
-            nnz * k + b * nw,
+            nnz * k + b * nw, dev_ms,
             {"shape": [b, v.shape[1], k], "pack_b": pack_b,
              "set_bits": nnz, "pack_bits_ms": pack_ms})
 
@@ -713,6 +747,34 @@ def dense_kernel_checks(svc, batch: np.ndarray,
     out.append(packed(vs, svc.engine.pi, cfg.k, cfg.b, 20, 3))
     extra = [dense_int8(vs, svc.engine.pi, cfg.k, cfg.b, 5, 2),
              packed(vp, pi_p, kp, None, 20, 3)]
+    # the int8 kernel at each of Fig. 7's K on imageA, with the permutations
+    # phase 7 drew for that K: phase 7 launches it 8 times at each K (four
+    # corpora x two C-MinHash variants), so the launch-weighted sum stands in
+    # imageA's time for every corpus
+    imagea = torch.from_numpy(corpora["imageA"]).to(dev)
+    sweep = []
+    for k in PAPER_KS:
+        sigma_k, pi_k = make_two_permutations(
+            torch.Generator().manual_seed(k), PAPER_D, device=dev)
+        vk = apply_permutation_dense(imagea, sigma_k)
+        require(torch.equal(kd.cminhash_dense_kernel(vk, pi_k, k),
+                            kd.cminhash_dense_plain(vk, pi_k, k)),
+                f"cminhash_dense imageA K={k}")
+        ms, dev_ms = both_ms(lambda: kd.cminhash_dense_kernel(vk, pi_k, k), 20)
+        sweep.append({"k": k, "launches_in_phase_7": 2 * len(corpora),
+                      "ms": ms, "device_ms": dev_ms})
+    weighted = {key: sum(r[key] * r["launches_in_phase_7"] for r in sweep)
+                for key in ("ms", "device_ms")}
+    report["fig7_int8_sweep"] = {"rows": sweep,
+                                 "launch_weighted_ms": weighted["ms"],
+                                 "launch_weighted_device_ms":
+                                 weighted["device_ms"]}
+    print("[kernel] cminhash_dense on imageA at Fig. 7's K: "
+          + ", ".join(f"K={r['k']} {r['ms']:.4f} ms (device "
+                      f"{r['device_ms']:.4f})" for r in sweep)
+          + f"; summed over phase 7's "
+          f"{sum(r['launches_in_phase_7'] for r in sweep)} launches "
+          f"{weighted['ms']:.4f} ms (device {weighted['device_ms']:.4f})")
     words = kpk.pack_bits(vs[:512])
     for pack_b in (None, 1, 2, 4, 8, 16):      # the other epilogues
         require(torch.equal(
@@ -759,10 +821,150 @@ def dense_card_vs_cpu(idx, fresh_idx, report: dict) -> None:
           "and scores identical")
 
 
+PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
+
+
+def compare(baseline: str | None, report: dict) -> None:
+    """``--compare``: the sparse and dense int8 kernels through their
+    wrappers, with the per-call placement, each placement forced through
+    the libraries' test entry point (``<name>_force_placement``) and, with
+    ``--baseline DIR``, the same wrappers bound to a build of DIR's two
+    sources.  Each variant is checked against the plain version, then timed
+    in turns (forward, then reverse order; the median of each variant's
+    per-round medians), with the host's launch work (``ms``) and without
+    (``device_ms``).  Then the sparse kernel's time against the batch size:
+    the slope is a document's work, the intercept what a launch costs."""
+    import contextlib
+    import ctypes
+
+    from repro_torch.core.permutations import (apply_permutation_dense,
+                                               apply_permutation_sparse,
+                                               make_two_permutations)
+    from repro_torch.data.synthetic import imagelike_binary_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cminhash_kernel as kd
+    from repro_torch.kernels import cminhash_sparse as ks
+    dev = torch.device("cuda")
+    mods = {"cminhash_sparse": ks, "cminhash_dense": kd}
+    base = {}
+    if baseline:
+        out_dir = os.path.join(ROOT, "src", "repro_torch", "build", "baseline")
+        os.makedirs(out_dir, exist_ok=True)
+        csrc = os.path.join(baseline, "src", "repro_torch", "csrc")
+        procs = {name: subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(out_dir, f"lib{name}.so"),
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for name in mods}
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            require(proc.returncode == 0, f"nvcc baseline {name}:\n{log}")
+            base[name] = _build.CudaKernel(
+                name, mods[name].KERNEL.argtypes,
+                library=os.path.join(out_dir, f"lib{name}.so"))
+
+    @contextlib.contextmanager
+    def variant(name, label):
+        """The wrapper of ``name`` launching ``label``'s kernel."""
+        mod = mods[name]
+        current = mod.KERNEL
+        force = current.entry("force_placement", [ctypes.c_int])
+        place = {v: k for k, v in PLACEMENTS.items()}.get(label, -1)
+        mod.KERNEL = base[name] if label == "baseline" else current
+        force(place)
+        try:
+            yield
+        finally:
+            force(-1)
+            mod.KERNEL = current
+
+    # the serving batch: 4096 documents of the serving corpus, signed with
+    # a seeded sigma/pi at D = 2^16, K = 256, b = 32; imageA at Fig. 7's D
+    # and K, with the permutations phase 7 draws for each K; the serving
+    # batch as dense int8 rows
+    idx, _ = corpus(BATCH)
+    sigma, pi = make_two_permutations(torch.Generator().manual_seed(0),
+                                      1 << 16, device=dev)
+    sidx = apply_permutation_sparse(torch.tensor(idx, device=dev),
+                                    sigma).to(torch.int32).contiguous()
+    vs = apply_permutation_dense(torch.from_numpy(dense_rows(idx)).to(dev),
+                                 sigma).contiguous()
+    imagea = torch.from_numpy(imagelike_binary_dataset(
+        np.random.default_rng(0), PAPER_DOCS, PAPER_D, block=16)).to(dev)
+    cases = [("cminhash_sparse", "serving 4096 x 254, D 2^16, K 256, b 32",
+              sidx, pi, 256, 32)]
+    for k in PAPER_KS:
+        sigma_k, pi_k = make_two_permutations(
+            torch.Generator().manual_seed(k), PAPER_D, device=dev)
+        cases.append(("cminhash_dense", f"imageA 4096 x 2048, K {k}",
+                      apply_permutation_dense(imagea, sigma_k).contiguous(),
+                      pi_k, k, None))
+    cases.append(("cminhash_dense", "service 4096 x 2^16, K 256, b 32", vs,
+                  pi, 256, 32))
+    labels = ["per-call choice", *PLACEMENTS.values()] + (
+        ["baseline"] if base else [])
+    rows = []
+    for name, shape, x, p, k, pack_b in cases:
+        wrapper = (ks.cminhash_sparse_kernel if name == "cminhash_sparse"
+                   else kd.cminhash_dense_kernel)
+        plain = (ks.cminhash_sparse_plain if name == "cminhash_sparse"
+                 else kd.cminhash_dense_plain)
+        want = plain(x, p, k, pack_b=pack_b)
+        status = {}
+        for label in labels:
+            with variant(name, label):
+                try:
+                    got = wrapper(x, p, k, pack_b=pack_b)
+                except RuntimeError as e:
+                    status[label] = f"refused ({e})"
+                    continue
+            require(torch.equal(got, want), f"{name} {label} at {shape}")
+            status[label] = "equal"
+        run = [lbl for lbl in labels if status[lbl] == "equal"]
+        times: dict = {lbl: {"ms": [], "device_ms": []} for lbl in run}
+        for order in (run, run[::-1]):
+            for label in order:
+                with variant(name, label):
+                    ms, dev_ms = both_ms(
+                        lambda: wrapper(x, p, k, pack_b=pack_b), 20)
+                times[label]["ms"].append(ms)
+                times[label]["device_ms"].append(dev_ms)
+        row = {"kernel": name, "shape": shape, "status": status,
+               "ms": {lbl: statistics.median(t["ms"])
+                      for lbl, t in times.items()},
+               "device_ms": {lbl: statistics.median(t["device_ms"])
+                             for lbl, t in times.items()},
+               "rounds": times}
+        rows.append(row)
+        print(f"[compare] {name} {shape}: " + "; ".join(
+            f"{lbl} {row['ms'][lbl]:.4f} ms (device "
+            f"{row['device_ms'][lbl]:.4f})" if lbl in row["ms"]
+            else f"{lbl} refused" for lbl in labels))
+    report["compare"] = rows
+    big, _ = corpus(4 * BATCH)
+    scaling = []
+    for b in (BATCH // 4, BATCH // 2, BATCH, 2 * BATCH, 4 * BATCH):
+        x = apply_permutation_sparse(torch.tensor(big[:b], device=dev),
+                                     sigma).to(torch.int32).contiguous()
+        ms, dev_ms = both_ms(
+            lambda: ks.cminhash_sparse_kernel(x, pi, 256, pack_b=32), 20)
+        scaling.append({"docs": b, "ms": ms, "device_ms": dev_ms})
+    report["sparse_scaling"] = scaling
+    print("[compare] cminhash_sparse by batch: " + ", ".join(
+        f"{r['docs']} docs {r['ms']:.4f} ms (device {r['device_ms']:.4f})"
+        for r in scaling))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=262_144,
                     help="documents to ingest on the main path")
+    ap.add_argument("--compare", action="store_true",
+                    help="only compare the sparse and dense int8 kernels' "
+                         "table placements (and --baseline's build)")
+    ap.add_argument("--baseline", default=None,
+                    help="with --compare: a checkout whose two signing "
+                         "sources are timed behind the same wrappers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -785,6 +987,15 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    if args.compare:
+        compare(args.baseline, report)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "compare.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
+        print(card)
+        return
+
     t0 = time.perf_counter()
     idx, fresh_idx = corpus(args.docs)
     report["corpus_s"] = time.perf_counter() - t0
@@ -801,7 +1012,7 @@ def main() -> None:
 
     svc, batch = dense_path(idx, fresh_idx, report)
     corpora = paper_path(report)
-    rows, extra = dense_kernel_checks(svc, batch, corpora)
+    rows, extra = dense_kernel_checks(svc, batch, corpora, report)
     report["kernels"] += rows
     report["kernel_extra"] = extra
     del svc, batch
@@ -822,8 +1033,8 @@ def main() -> None:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "equal", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "equal", "ms", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report["kernels"]]}))
     print(card)

@@ -47,9 +47,12 @@ class SketchEngine:
         else:
             sigma, pi = (p.to(self.device, torch.int32).contiguous()
                          for p in params)
-            if sigma.shape != (cfg.d,) or pi.shape != (cfg.d,):
-                raise ValueError(f"params must be two ({cfg.d},) "
-                                 "permutations")
+            ident = torch.arange(cfg.d, dtype=torch.int32,
+                                 device=self.device)
+            if sigma.shape != (cfg.d,) or pi.shape != (cfg.d,) or not all(
+                    torch.equal(p.sort().values, ident) for p in (sigma, pi)):
+                raise ValueError(f"params must be two permutations of "
+                                 f"[0, {cfg.d})")
         self.pi = pi
         self.sigma = sigma if cfg.use_sigma else None
         reg = obs_metrics.default()

@@ -6,94 +6,133 @@
 //   (:77; pallas_call at :127 and :138).
 //
 // Computes, for row b and hash q in [0, K),
-//     h[b, q] = min over m in [0, D) of { pi[m] : v[b, (m + q + off) mod D] > 0 },
+//     h[b, q] = min over m in [0, D) of { pi[m] : v[b, (m + q + off) mod D] > 0 }
+//             = min over set positions p of pi[(p - q - off) mod D],
 // on the caller's (already sigma-permuted) int8 rows as they are: entries
 // <= 0 are zeros.  A row with no positive entry keeps SENTINEL = 2^31-1.
 //
-// What bounds it on an H100: B*K*D masked mins (6.9e10 at B = 4096,
-// D = 2^16, K = 256) against ~B*D bytes read, so the integer operation rate.
-// The design: a block of 8 warps owns 8 rows x 128 hashes (one row per
-// warp, 4 hashes per lane: q = q0 + lane + 32j) and keeps their 32 running
-// minima in registers while it walks D in tiles of 512 positions.  Per tile
-// it stages pi's slice and, per row, the 640-position band that the tile's
-// windows cover, read straight from the rows with the circular index applied
-// as it loads: the TPU wrapper's padded copy of the batch,
-// [v, v[:K+off], 0...] (cminhash_kernel.py:105-115), is never made.  The
-// band is stored as 0 (set) or SENTINEL (not set), so the inner step is
-// branch-free, min(h, pi[m] | band[m + q - q0]): one broadcast shared read of
-// pi[m] per warp, then a shared read, an OR and a min per hash.  pi values
-// are < D <= 2^31-1, so pi | SENTINEL == SENTINEL.  Positions past D in the
-// last tile read pi as SENTINEL.  The shared footprint is 22 KB per block,
-// so eight blocks fit an SM.  Row offsets are 64-bit (B*D passes 2^31 from
-// B = 32,768 at D = 2^16).
+// What bounds it on an H100: the function reads each byte once (B*D bytes:
+// 268 MB at B = 4096, D = 2^16) and does one min per set entry per hash
+// (set bits x K: 1.5e9 at the paper's 4096 x 2048, K = 512, on image-like
+// rows).  The TPU kernel walks all D positions for every hash instead,
+// B*K*D masked mins (4.3e9 and 6.9e10, 2.8x and 65x the function's work),
+// which on this card is bound by the instruction rate.  The design
+// (window_fold.cuh): a warp owns one row and all K hashes in registers.  It
+// scans the row once with 16-byte loads (eight in flight per lane), turns
+// each lane's 16 bytes into a 16-bit mask of the entries > 0, and compacts
+// the set positions into its shared list with a warp prefix sum of the
+// masks' popcounts; whenever the list could overflow on the next step (it
+// holds 1024 positions, a row may have D) it folds pi over the list and
+// empties it.  pi lives on the SM, staged once per persistent block: as
+// uint16 pairs at D = 2048 (two hashes a 4-byte shared read), as uint16
+// at D <= 65,536, in global memory beyond.  So the work is B*D byte tests
+// plus set bits x K table reads, bound at the paper's shape by the shared
+// wavefront rate and at the service's by the row bytes.  D % 16 != 0 or an
+// unaligned batch scans a byte per lane instead.  K > 1024 (K = D is
+// legal) takes passes of 1024 hashes, each scanning the row again.  Row
+// offsets are 64-bit (B*D passes 2^31 from B = 32,768 at D = 2^16).  pi
+// must hold values in [0, D) (a permutation): the shared tables keep it as
+// uint16.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "pack_epilogue.cuh"
+#include "window_fold.cuh"
 
 namespace {
 
-using cminhash::kSentinel;
+using namespace wfold;
 
-constexpr int kRows = 8;                    // rows per block, one per warp
-constexpr int kThreads = 32 * kRows;
-constexpr int kQPerLane = 4;
-constexpr int kHashTile = 32 * kQPerLane;   // hashes per block
-constexpr int kDTile = 512;                 // positions per step
-constexpr int kBand = kDTile + kHashTile;   // band positions per row
+// Bit i set where byte i of w is > 0 (signed): low 7 bits nonzero, sign
+// bit clear.  The multiply gathers the four byte flags into bits 28..31.
+__device__ __forceinline__ unsigned positive_bytes(unsigned w) {
+  const unsigned gt = ((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) & ~w & 0x80808080u;
+  return (gt * 0x00204081u) >> 28;
+}
 
+__device__ __forceinline__ unsigned positive_mask16(int4 v) {
+  return positive_bytes(v.x) | positive_bytes(v.y) << 4 |
+         positive_bytes(v.z) << 8 | positive_bytes(v.w) << 12;
+}
+
+template <int H, int P>
 __global__ void __launch_bounds__(kThreads)
 cminhash_dense_kernel(const signed char* __restrict__ v,
                       const int* __restrict__ pi, int* __restrict__ out,
-                      int B, int D, int K, int off, int pack_b, int n_words) {
-  __shared__ int pi_s[kDTile];
-  __shared__ int band_s[kRows][kBand];
+                      int B, int D, int K, int off, int pack_b, int n_words,
+                      int ext, int vec) {
+  extern __shared__ int4 smem[];
+  int* lists = reinterpret_cast<int*>(smem);
+  const auto tab = make_table<P>(lists + kWarps * kSlot, pi, D, ext);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int q0 = blockIdx.y * kHashTile;
+  int* list = lists + warp * kSlot;
+  constexpr int kUnroll = 8;                 // 16-byte loads in flight a lane
 
-  int h[kQPerLane];
+  for (long long row = (long long)blockIdx.x * kWarps + warp; row < B;
+       row += (long long)gridDim.x * kWarps) {   // uniform across the warp
+    const signed char* __restrict__ vrow = v + row * D;
+    int* __restrict__ out_row = out + row * (pack_b ? n_words : K);
+    for (int q0 = 0; q0 < K; q0 += 32 * H) {
+      int h[H];
+      tab.template init<H>(h);
+      const int s0 = tab.start(q0, off);
+      int n = 0;
+      if (vec) {                             // D % 16 == 0, 16-byte aligned
+        const int4* __restrict__ r4 = reinterpret_cast<const int4*>(vrow);
+        const int n16 = D / 16;
+        for (int c0 = 0; c0 < n16; c0 += 32 * kUnroll) {
+          int4 w[kUnroll];
 #pragma unroll
-  for (int j = 0; j < kQPerLane; ++j) h[j] = kSentinel;
-
-  for (int d0 = 0; d0 < D; d0 += kDTile) {
-    __syncthreads();                          // the last tile is consumed
-    for (int t = threadIdx.x; t < kDTile; t += kThreads) {
-      const int m = d0 + t;
-      pi_s[t] = m < D ? __ldg(pi + m) : kSentinel;
-    }
-    // band[r][t] = row r at position (d0 + q0 + off + t) mod D
-    const int p0 = static_cast<int>(((long long)d0 + q0 + off) % D);
-    for (int i = threadIdx.x; i < kRows * kBand; i += kThreads) {
-      const int r = i / kBand, t = i % kBand;
-      const long long row = row0 + r;
-      int val = kSentinel;
-      if (row < B) {
-        int p = p0 + t;
-        if (p >= D) p %= D;                   // the wrap; rare at large D
-        val = v[row * D + p] > 0 ? 0 : kSentinel;
+          for (int u = 0; u < kUnroll; ++u) {
+            const int c = c0 + 32 * u + lane;
+            w[u] = c < n16 ? __ldg(r4 + c) : make_int4(0, 0, 0, 0);
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            n = append_mask(list, n, positive_mask16(w[u]),
+                            16 * (c0 + 32 * u + lane));
+            if (n > kCap - 512) {
+              fold_list<H>(list, n, tab, s0, h);
+              n = 0;
+            }
+          }
+        }
+      } else {
+        for (int p0 = 0; p0 < D; p0 += 32) {
+          const int p = p0 + lane;
+          n = append1(list, n, p < D && vrow[p] > 0, p);
+          if (n > kCap - 32) {
+            fold_list<H>(list, n, tab, s0, h);
+            n = 0;
+          }
+        }
       }
-      band_s[r][t] = val;
-    }
-    __syncthreads();
-    const int* __restrict__ band = band_s[warp] + lane;
-    const int m_end = min(kDTile, D - d0);
-#pragma unroll 4
-    for (int m = 0; m < m_end; ++m) {
-      const int p = pi_s[m];
-#pragma unroll
-      for (int j = 0; j < kQPerLane; ++j)
-        h[j] = min(h[j], p | band[m + 32 * j]);
+      fold_list<H>(list, n, tab, s0, h);
+      tab.template store<H>(out_row, q0, K, h, pack_b);
     }
   }
+}
 
-  const long long row = row0 + warp;          // uniform across the warp
-  if (row >= B) return;
-  int* __restrict__ out_row = out + row * (pack_b ? n_words : K);
-#pragma unroll
-  for (int j = 0; j < kQPerLane; ++j)
-    cminhash::store_codes(out_row, q0 + lane + 32 * j, K, h[j], pack_b);
+template <int H>
+cudaError_t launch(const signed char* v, const int* pi, int* out, int B,
+                   int D, int K, int off, int pack_b, int n_words,
+                   cudaStream_t stream) {
+  const int ext = table_ext(K, off);
+  const int vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  using Kernel = decltype(&cminhash_dense_kernel<H, kShared16>);
+  Kernel pairs = nullptr;
+  if constexpr (H >= kPairsMinH) pairs = cminhash_dense_kernel<H, kPairs>;
+  const Kernel kernels[kPlacements] = {cminhash_dense_kernel<H, kShared16>,
+                                       cminhash_dense_kernel<H, kGlobal32>,
+                                       pairs};
+  Plan plan;
+  const cudaError_t e = plan_launch(kernels, D, ext, B, &plan);
+  if (e != cudaSuccess) return e;
+  kernels[plan.placement]<<<plan.grid, kThreads, plan.smem, stream>>>(
+      v, pi, out, B, D, K, off, pack_b, n_words, ext, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -102,11 +141,20 @@ extern "C" int cminhash_dense_launch(const signed char* v, const int* pi,
                                      int* out, int B, int D, int K, int off,
                                      int pack_b, int n_words, void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
-  const dim3 grid((B + kRows - 1) / kRows, (K + kHashTile - 1) / kHashTile);
-  cminhash_dense_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      v, pi, out, B, D, K, off, pack_b, n_words);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lane_hashes(K)) {
+    case 2: return launch<2>(v, pi, out, B, D, K, off, pack_b, n_words, s);
+    case 8: return launch<8>(v, pi, out, B, D, K, off, pack_b, n_words, s);
+    case 16: return launch<16>(v, pi, out, B, D, K, off, pack_b, n_words, s);
+    default: return launch<32>(v, pi, out, B, D, K, off, pack_b, n_words, s);
+  }
+}
+
+// Test entry point: every later launch takes placement p (kShared16 = 0,
+// kGlobal32 = 1, kPairs = 2), or fails where it is not offered or does not
+// fit; -1 restores the per-call choice.
+extern "C" void cminhash_dense_force_placement(int p) {
+  forced_placement().store(p);
 }
 
 extern "C" const char* cminhash_dense_error(int code) {

@@ -98,17 +98,22 @@ class CudaKernel:
 
     ``launches`` goes up by one for every launch the card accepted, and
     nowhere else: it is how a run shows that a path went through the
-    kernel.  A launch the runtime refuses raises ``RuntimeError``."""
+    kernel.  A launch the runtime refuses raises ``RuntimeError``.
+    ``library`` binds an already built library instead of building the
+    checkout's source (to time another version behind the same wrapper)."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, library: str | None = None):
         self.name = name
         self.argtypes = argtypes
+        self.library = library
         self.launches = 0
+        self._lib = None
         self._fn = None
         self._err = None
 
     def _bind(self) -> None:
-        lib = ctypes.CDLL(build([self.name])[self.name]["path"])
+        path = self.library or build([self.name])[self.name]["path"]
+        lib = self._lib = ctypes.CDLL(path)
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = [*self.argtypes, ctypes.c_void_p]     # + stream
         fn.restype = ctypes.c_int
@@ -116,6 +121,15 @@ class CudaKernel:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
+
+    def entry(self, suffix: str, argtypes: list, restype=None):
+        """Another C function of the kernel's library, ``<name>_<suffix>``
+        (a test entry point such as ``force_placement``)."""
+        if self._fn is None:
+            self._bind()
+        fn = getattr(self._lib, f"{self.name}_{suffix}")
+        fn.argtypes, fn.restype = argtypes, restype
+        return fn
 
     def launch(self, device: torch.device, *args) -> None:
         """Enqueue on ``device``'s current stream; no synchronisation."""

@@ -56,7 +56,10 @@ def cminhash_dense_kernel(v: torch.Tensor, pi: torch.Tensor, k: int, *,
     bits) when ``pack_b`` is set.  An entry is set when it is > 0.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (which reads int8 rows; bool rows are viewed, others copied as 0/1)."""
+    (which reads int8 rows; bool rows are viewed, others copied as 0/1).
+    pi must hold values in [0, D), as a permutation does: the kernel keeps
+    it as uint16 on the SM, so on the card a value outside gives other
+    codes than on the CPU."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]

@@ -88,7 +88,10 @@ def cminhash_sparse_kernel(idx: torch.Tensor, pi: torch.Tensor, k: int, *,
     int32 words (uint32 bits) when ``pack_b`` is set.
 
     An index >= D wraps mod D on both devices.  A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel."""
+    plain version; a CUDA tensor launches the kernel.  pi must hold values
+    in [0, D), as a permutation does: the kernel keeps it as uint16 on the
+    SM, so on the card a value outside gives other codes than on the
+    CPU."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]

@@ -111,6 +111,26 @@ def test_permutations_from_jax_carries_the_reference_parameters():
         convert.permutations_from_jax(np.arange(10), np.asarray(pi), "cpu")
 
 
+@pytest.mark.parametrize("bad", ["value_past_d", "repeat", "short"])
+def test_engine_refuses_params_that_are_not_permutations(bad):
+    """The signing kernels keep pi as uint16 and assume its values lie in
+    [0, D): the engine takes only permutations of [0, D) as params."""
+    from repro_torch.core.engine import SketchConfig, SketchEngine
+    cfg = SketchConfig(d=64, k=16)
+    sigma, pi = t_perm.make_two_permutations(torch.Generator().manual_seed(0),
+                                             64, device="cpu")
+    SketchEngine(cfg, device="cpu", params=(sigma, pi))
+    bad_pi = pi.clone()
+    if bad == "value_past_d":
+        bad_pi[int(torch.argmax(pi))] = 70_000
+    elif bad == "repeat":
+        bad_pi[0] = bad_pi[1]
+    else:
+        bad_pi = bad_pi[:63]
+    with pytest.raises(ValueError, match="permutations of"):
+        SketchEngine(cfg, device="cpu", params=(sigma, bad_pi))
+
+
 def test_host_device_views_keep_bits():
     words = np.array([[0, 1, 2**31, 2**32 - 1]], np.uint32)
     t = tdevice.u32_to_device(words, CPU)

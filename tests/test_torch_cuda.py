@@ -3,7 +3,9 @@
 Edge shapes the serving path does not reach every day: K not a multiple of
 32, empty index lists and rows, indices >= D, D past the uint16 range and
 not a multiple of 32, K = D, every pack width, int8/int32/bool rows, row
-offsets past 2^31, odd record strides, ragged collision tiles.  Integer
+offsets past 2^31, odd record strides, ragged collision tiles; for the
+signing kernels' window-min core, D on both sides of each table placement,
+rows longer than the compaction list, K past the hashes a lane holds.  Integer
 outputs: tolerance 0.
 Also: the wrappers refuse what the kernels do not take, and the service
 answers the same on the card as on the CPU.  Imports neither jax nor repro,
@@ -13,6 +15,8 @@ so it runs where the card is:
 
 Without a card every test here skips.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -206,6 +210,163 @@ def test_dense_service_answers_the_same_on_card_and_cpu(cuda, d):
                               svc.query_sparse(idx[300:], top_k=5)[0])
     assert np.array_equal(answers[0][0], answers[1][0])
     assert np.array_equal(answers[0][1], answers[1][1])
+
+
+# Placement boundaries of csrc/window_fold.cuh.  The warps' lists take
+# 16 x 1028 x 4 bytes; a block may have 232,448 bytes of shared memory; a
+# shared table covers D + ext entries, ext = K rounded up to the hashes a
+# pass covers (32 x 2, 8, 16 or 32 hashes a lane) + shift_offset; the pair
+# table (K > 64) holds two copies of (D + ext) // 2 + 1 32-bit words.
+_LIST_BYTES = 16 * 1028 * 4
+_SHARED_MAX = 232_448
+
+
+def _ext(k, off):
+    span = 32 * next((h for h in (2, 8, 16) if 32 * h >= k), 32)
+    return -(-k // span) * span + off
+
+
+def _pair_limit(k, off):
+    """The largest D whose pair table fits beside the lists."""
+    d = (_SHARED_MAX - _LIST_BYTES) // 4
+    while ((d + _ext(k, off)) // 2 + 1) * 8 + _LIST_BYTES > _SHARED_MAX:
+        d -= 1
+    return d
+
+
+_K_PLACE = 100
+PLACEMENT_DS = [_pair_limit(_K_PLACE, 1), _pair_limit(_K_PLACE, 1) + 1,
+                1 << 16, (1 << 16) + 1]
+
+
+def _both_kernels(v, pi, k, cuda, **kw):
+    """The dense int8 and the sparse kernel on the same rows, each against
+    the dense plain version."""
+    want = kd.cminhash_dense_plain(v, pi, k, **kw)
+    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    nnz = max(int((v > 0).sum(1).max()), 1)
+    idx = torch.full((v.shape[0], nnz), -1, dtype=torch.int32)
+    for r in range(v.shape[0]):
+        pos = torch.nonzero(v[r] > 0).flatten().to(torch.int32)
+        idx[r, :len(pos)] = pos
+    assert torch.equal(ks.cminhash_sparse_plain(idx, pi, k, **kw), want)
+    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", PLACEMENT_DS)
+@pytest.mark.parametrize("off", [0, 1])
+def test_signing_kernels_on_both_sides_of_each_placement(cuda, d, off):
+    """uint16 pairs up to their fit limit, the uint16 table past it and up
+    to D = 65,536, pi in global memory past that."""
+    v, pi = _dense_case(6, d, 0.003, seed=d + off)
+    _both_kernels(v, pi, _K_PLACE, cuda, shift_offset=off)
+
+
+@pytest.mark.parametrize("off", [0, 1])
+def test_table_too_large_for_shared_memory_reads_pi_from_global(cuda, off):
+    """D = 65,536 with K = 20,000: the uint16 table with its 20,480 + off
+    entries in front passes the shared limit, so pi is read from global
+    memory at a D the uint16 table would cover.  Held against the sparse
+    plain version (the dense one would take minutes at this K)."""
+    d, k = 1 << 16, 20_000
+    v, pi = _dense_case(3, d, 0.0002, seed=off)
+    v[0, d - 1] = 1
+    nnz = int((v > 0).sum(1).max())
+    idx = torch.full((3, nnz), -1, dtype=torch.int32)
+    for r in range(3):
+        pos = torch.nonzero(v[r] > 0).flatten().to(torch.int32)
+        idx[r, :len(pos)] = pos
+    want = ks.cminhash_sparse_plain(idx, pi, k, shift_offset=off, pack_b=4)
+    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k,
+                                    shift_offset=off, pack_b=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k,
+                                   shift_offset=off, pack_b=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", [2048, 3000])
+def test_dense_kernel_all_ones_rows_with_k_equal_d(cuda, d):
+    """Rows longer than the compaction list (1024 positions), K = D past
+    the hashes a lane holds: folds mid-row and passes over q.  D = 3000
+    scans a byte per lane, D = 2048 sixteen."""
+    gen = torch.Generator().manual_seed(d)
+    pi = torch.randperm(d, generator=gen).to(torch.int32)
+    v = torch.ones((3, d), dtype=torch.int8)
+    v[1, ::3] = 0
+    for pack_b in (None, 8):
+        want = kd.cminhash_dense_plain(v, pi, d, pack_b=pack_b)
+        got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), d,
+                                       pack_b=pack_b)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", [2048, 1 << 16, (1 << 16) + 1])
+def test_only_entry_at_d_minus_1_with_shift_offset_1(cuda, d):
+    """The last position, read by every hash through the circular wrap."""
+    gen = torch.Generator().manual_seed(d)
+    pi = torch.randperm(d, generator=gen).to(torch.int32)
+    v = torch.zeros((2, d), dtype=torch.int8)
+    v[0, d - 1] = 1
+    _both_kernels(v, pi, min(d, 1100), cuda, shift_offset=1)
+
+
+@pytest.mark.parametrize("d", [4096, 1 << 16])
+@pytest.mark.parametrize("off", [0, 1])
+def test_k_above_the_hashes_a_lane_holds(cuda, d, off):
+    """K = 1100 > 32 x 32: two passes over q."""
+    v, pi = _dense_case(5, d, 0.05, seed=d + off)
+    _both_kernels(v, pi, 1100, cuda, shift_offset=off)
+
+
+@pytest.mark.parametrize("pack_b", PACK_BITS)
+@pytest.mark.parametrize("d,k", [(2048, 512), (1 << 16, 256),
+                                 ((1 << 16) + 1, 100), (4096, 1100)])
+def test_signing_kernels_fused_pack_in_each_placement(cuda, pack_b, d, k):
+    v, pi = _dense_case(4, d, 0.02, seed=pack_b + d)
+    _both_kernels(v, pi, k, cuda, pack_b=pack_b)
+
+
+# (D, K) where each placement is offered: the pair table only at K > 64,
+# the uint16 table only at D <= 65,536, global everywhere
+_PLACEMENTS = {"uint16 shared": 0, "int32 global": 1, "uint16 pairs": 2}
+
+
+@pytest.mark.parametrize("placement", list(_PLACEMENTS))
+@pytest.mark.parametrize("d,k", [(2048, 64), (2048, 512), (3000, 1100),
+                                 (1 << 16, 256), ((1 << 16) + 1, 100)])
+def test_each_forced_placement_matches_plain(cuda, placement, d, k):
+    """Each table placement forced through the kernels' test entry point
+    (the per-call choice takes only one per shape): equal to the plain
+    version where it is offered, a refused launch where it is not."""
+    v, pi = _dense_case(5, d, 0.03, seed=d + k)
+    p = _PLACEMENTS[placement]
+    offered = {0: d <= 1 << 16, 1: True,
+               2: k > 64 and d <= _pair_limit(k, 1)}[p]
+    hooks = [m.KERNEL.entry("force_placement", [ctypes.c_int])
+             for m in (ks, kd)]
+    try:
+        for hook in hooks:
+            hook(p)
+        if offered:
+            _both_kernels(v, pi, k, cuda, pack_b=8)
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ks.cminhash_sparse_kernel(
+                    torch.zeros((5, 1), dtype=torch.int32, device=cuda),
+                    pi.to(cuda), k)
+    finally:
+        for hook in hooks:
+            hook(-1)
 
 
 @pytest.mark.parametrize("q,nb,r", [(1, 1, 1), (1088, 32, 8), (7, 5, 13)])
