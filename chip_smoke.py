@@ -17,8 +17,10 @@ printed then:
    batches through ``IngestPipeline(depth=2)``, then answer one batch of
    1024 indexed + 64 fresh documents (top_k = 5).  Every kernel's launch
    count is set to 0 just before this phase and read just after it; each
-   must be > 0.  Top-1 self-hit on the indexed rows must be 100%, and some
-   rows must take the brute-force fallback.
+   must be > 0, and the collision kernel must have launched once per
+   brute-force fallback call (one launch over the whole index).  Top-1
+   self-hit on the indexed rows must be 100%, and some rows must take the
+   brute-force fallback.
 3. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it: outputs must be equal (tolerance 0, all
    integers).  Times are medians of CUDA-event timings after warm-up.
@@ -33,7 +35,13 @@ printed then:
    count as one PyTorch call, ``K - torch.cdist(a.double(), b.double(),
    p=0)`` (float64 holds the int32 codes exactly; checked equal), timed
    here only; no single PyTorch call computes the other three, so theirs
-   is null.
+   is null.  The collision kernel is timed at the fallback's real call,
+   the pow2-padded fallback rows against all 262,144 indexed rows in one
+   launch on the stored words, and on one 16,384-row block of unpacked
+   codes (the shape the earlier blocked fallback launched 16 times); its
+   bound counts one integer compare a pair of codes (a pair of words at
+   b < 32), the compare being the only part of the count that needs the
+   integer pipe.
 4. One more query batch under ``torch.profiler``: the device-busy share
    of its wall time and device time by kernel (the timeline goes to
    ``chiprun_out/query_trace.json``).
@@ -44,7 +52,8 @@ printed then:
    2^16, built on the host) through ``pipeline(layout="dense", depth=2)``
    (auto: the bit-packed kernel), then answers the 1088-row query batch as
    dense rows five times.  Counts are set to 0 just before and read just
-   after; the bit-packed kernel must have launched once per ingest batch.
+   after; the bit-packed kernel must have launched once per ingest and
+   query batch, and the collision kernel once per fallback call.
    Every ingested word must equal the sparse signing of the same
    documents, ``query_dense`` must answer as ``query_sparse`` of the same
    documents, and top-1 self-hit must be 100%.  One more dense query batch
@@ -67,7 +76,10 @@ printed then:
    recorded beside as ``dense_algorithm_ops``.  No single PyTorch call
    computes the dense min-reduce, so ``library_ms`` is null.  The int8
    kernel is also timed on the imageA corpus at each of Fig. 7's K, and
-   the sum over phase 7's 24 launches (8 at each K) is printed.
+   the sum over phase 7's 24 launches (8 at each K) is printed; so is the
+   collision kernel at Fig. 7's 4096 x 4096 x K on those signatures
+   (checked against its plain version and ``K - cdist(p=0)``, timed with
+   both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
 
 ``launches`` in the kernels line is the sum over the three counted paths
@@ -79,20 +91,27 @@ output included, go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --compare [--baseline DIR]
 
-runs only a comparison of the sparse and dense int8 signing kernels through
-their wrappers, at the serving batch, at Fig. 7's shapes and forced at the
-dense service's: the per-call table placement of ``csrc/window_fold.cuh``,
-each placement forced through the kernels' test entry point and, with
-``--baseline``, the same wrappers on a build of ``DIR/src/repro_torch/
-csrc``'s two sources (an earlier checkout), each checked against the
-plain version and timed both ways (``chiprun_out/compare.json``).
+runs only a comparison of the signing and collision kernels, through their
+wrappers: the sparse, dense int8 and bit-packed signing kernels at the
+serving batch, at Fig. 7's shapes and at the dense service's, with the
+per-call table placement of ``csrc/window_fold.cuh`` and each placement
+forced through the kernels' test entry point; the collision kernel at the
+serving fallback (b = 32 and 8), one 16,384-row block and Fig. 7's 4096 x
+4096 x K; with ``--baseline``, each of them also on a build of
+``DIR/src/repro_torch/csrc``'s source of it (an earlier checkout) behind
+the same wrapper.  Each variant is checked against the plain version and
+timed both ways; the collision kernel's count loop is profiled in SASS
+(instructions a compare, by opcode).  Output: ``chiprun_out/compare.json``
+and ``chiprun_out/collision.sass``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -288,6 +307,12 @@ def main_path(idx, fresh_idx, report: dict):
     for n in ("cminhash_sparse", "fold", "lsh_probe", "collision"):
         require(launches[n] > 0,
                 f"kernel {n} launched on the main path ({launches[n]})")
+    n_shards = len(svc.store.shards)
+    require(per_query["collision"] == n_shards
+            and launches["collision"] == len(lat) * n_shards,
+            f"collision kernel launched once per brute-force fallback call "
+            f"({launches['collision']} launches for {len(lat)} query batches "
+            f"x {n_shards} shard)")
     return svc, qidx
 
 
@@ -301,7 +326,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     from repro_torch.kernels import collision_kernel as kc
     from repro_torch.kernels import lsh_probe as kp
     from repro_torch.kernels import query_fused as kq
-    from repro_torch.kernels.packfmt import unpack_codes
+    from repro_torch.kernels.packfmt import pack_codes, unpack_codes
     dev = svc.engine.device
     cfg = svc.cfg
     store = svc.store.shards[0].store
@@ -390,38 +415,68 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
                       "records_shape": list(records.shape),
                       "probe_steps": steps, "hits": hits})
 
-    # 4. collision counts: one brute-force block, the fallback rows
+    # 4. collision counts: the brute-force fallback's call, the
+    # pow2-padded fallback rows against the whole index in one launch, on
+    # the words as the index stores them; and one 16,384-row block of
+    # unpacked codes, the shape the earlier blocked fallback launched
     n_fb = report["main_path"]["fallback_rows"]
     q_pad = 1 << (n_fb - 1).bit_length()
-    qfb = unpack_codes(qwords[N_QUERY_INDEXED:], k, cfg.b)
-    qfb = torch.cat([qfb, qfb[:1].expand(max(q_pad - len(qfb), 0), -1)])
-    qfb = qfb[:q_pad].contiguous()
+    wq = qwords[N_QUERY_INDEXED:]
+    wq = torch.cat([wq, wq[:1].expand(max(q_pad - len(wq), 0), -1)])
+    wq = wq[:q_pad].contiguous()
     words = store.buffer.device_words()
-    block = unpack_codes(words[:16384], k, cfg.b).contiguous()
-    got = kc.collision_counts_kernel(qfb, block)
-    want = kc.collision_counts_plain(qfb, block)
+    b = cfg.b
+    got = kc.packed_collision_counts_kernel(wq, words, k, b)
+    want = torch.cat([kc.packed_collision_counts_plain(
+        wq, words[lo: lo + 16384], k, b)
+        for lo in range(0, len(words), 16384)], dim=1)
+    qfb = unpack_codes(wq, k, b).contiguous()
+    block = unpack_codes(words[:16384], k, b).contiguous()
+    require(torch.equal(kc.collision_counts_kernel(qfb, block),
+                        kc.collision_counts_plain(qfb, block)),
+            "collision one 16,384-row block")
     ragged = kc.collision_counts_kernel(qfb[:37, :130].contiguous(),
                                         block[:1001, :130].contiguous())
     require(torch.equal(ragged, kc.collision_counts_plain(
         qfb[:37, :130], block[:1001, :130])), "collision ragged edges")
-    qd, bd = qfb.double(), block.double()
+    for pb in (1, 2, 4, 8, 16):                 # the other pack widths
+        pq, pn = pack_codes(qfb, pb), pack_codes(block[:4099], pb)
+        require(torch.equal(kc.packed_collision_counts_kernel(pq, pn, k, pb),
+                            kc.packed_collision_counts_plain(pq, pn, k, pb)),
+                f"collision b={pb}")
+    qd, nd = unpack_codes(wq, k, b).double(), unpack_codes(words, k, b).double()
 
     def library():
-        return k - torch.cdist(qd, bd, p=0)
+        return k - torch.cdist(qd, nd, p=0)
     require(torch.equal(library().to(torch.int32), want),
             "collision: K - cdist(p=0) == the plain version")
-    ms, dev_ms = both_ms(lambda: kc.collision_counts_kernel(qfb, block),
-                         20)
-    plain_ms = time_ms(lambda: kc.collision_counts_plain(qfb, block), 5)
-    library_ms = time_ms(library, 5)
-    qn, nn = qfb.shape[0], block.shape[0]
+    ms, dev_ms = both_ms(lambda: kc.packed_collision_counts_kernel(
+        wq, words, k, b), 20)
+    blk_ms, blk_dev_ms = both_ms(lambda: kc.collision_counts_kernel(
+        qfb, block), 20)
+    plain_ms = time_ms(lambda: kc.packed_collision_counts_plain(
+        wq, words, k, b), 3, warmup=1)
+    library_ms = time_ms(library, 3, warmup=1)
+    qn, nn, nw = wq.shape[0], words.shape[0], words.shape[1]
     entry("collision", "src/repro_torch/csrc/collision.cu",
           "src/repro/kernels/collision_kernel.py:37", got, want, ms,
-          plain_ms, (qn + nn) * k * 4 + qn * nn * 4, 2 * qn * nn * k, dev_ms,
-          {"shape": [qn, nn, k],
-           "blocks_per_brute_call": -(-store.size // 16384)},
+          plain_ms, (qn + nn) * nw * 4 + qn * nn * 4,
+          collision_ops(qn, nn, k, b), dev_ms,
+          {"shape": [qn, nn, k], "b": b, "launches_per_brute_call": 1,
+           "block_16384_ms": blk_ms, "block_16384_device_ms": blk_dev_ms,
+           "block_16384_bound_ms": bound_ms(
+               (qn + 16384) * k * 4 + qn * 16384 * 4,
+               collision_ops(qn, 16384, k, 32))[0]},
           library_ms=library_ms)
+    print(f"[kernel] collision one 16,384-row block of int32 codes: "
+          f"{blk_ms:.4f} ms, device {blk_dev_ms:.4f} ms")
     return out
+
+
+def collision_ops(q: int, n: int, k: int, b: int) -> int:
+    """The collision count's operations: one integer compare a pair of
+    codes at b = 32, one a pair of words (32/b codes) below."""
+    return q * n * (k if b == 32 else -(-k // (32 // b)))
 
 
 def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
@@ -593,9 +648,14 @@ def dense_path(idx, fresh_idx, report: dict):
     require(bool(np.isfinite(scores).all()), "finite dense scores")
     require(self_hit == 1.0, f"dense top-1 self-hit {self_hit}")
     trace_query(svc, qv, report, layout="dense")
-    require(after_ingest["cminhash_packed"] == len(batches),
-            f"bit-packed kernel launched once per ingest batch "
-            f"({after_ingest['cminhash_packed']} for {len(batches)})")
+    require(after_ingest["cminhash_packed"] == len(batches)
+            and launches["cminhash_packed"] == len(batches) + len(lat),
+            f"bit-packed kernel launched once per ingest and query batch "
+            f"({launches['cminhash_packed']} for {len(batches)} + "
+            f"{len(lat)})")
+    require(launches["collision"] == len(lat) * len(svc.store.shards),
+            f"collision kernel launched once per brute-force fallback call "
+            f"({launches['collision']} for {len(lat)} query batches)")
     for name in ("cminhash_packed", "fold", "lsh_probe"):
         require(launches[name] > 0,
                 f"kernel {name} launched on the dense path")
@@ -689,6 +749,7 @@ def dense_kernel_checks(svc, batch: np.ndarray, corpora: dict,
                                                make_two_permutations)
     from repro_torch.kernels import cminhash_kernel as kd
     from repro_torch.kernels import cminhash_packed as kpk
+    from repro_torch.kernels import collision_kernel as kc
     dev = svc.engine.device
     out = []
     sources = {"cminhash_dense": ("src/repro_torch/csrc/cminhash_dense.cu",
@@ -752,17 +813,37 @@ def dense_kernel_checks(svc, batch: np.ndarray, corpora: dict,
     # corpora x two C-MinHash variants), so the launch-weighted sum stands in
     # imageA's time for every corpus
     imagea = torch.from_numpy(corpora["imageA"]).to(dev)
-    sweep = []
+    sweep, fig7_collision = [], []
     for k in PAPER_KS:
         sigma_k, pi_k = make_two_permutations(
             torch.Generator().manual_seed(k), PAPER_D, device=dev)
         vk = apply_permutation_dense(imagea, sigma_k)
-        require(torch.equal(kd.cminhash_dense_kernel(vk, pi_k, k),
-                            kd.cminhash_dense_plain(vk, pi_k, k)),
+        sig = kd.cminhash_dense_kernel(vk, pi_k, k)
+        require(torch.equal(sig, kd.cminhash_dense_plain(vk, pi_k, k)),
                 f"cminhash_dense imageA K={k}")
         ms, dev_ms = both_ms(lambda: kd.cminhash_dense_kernel(vk, pi_k, k), 20)
         sweep.append({"k": k, "launches_in_phase_7": 2 * len(corpora),
                       "ms": ms, "device_ms": dev_ms})
+        # the collision kernel at Fig. 7's 4096 x 4096 x K, on these codes
+        counts = kc.collision_counts_kernel(sig, sig)
+        require(torch.equal(counts, kc.collision_counts_plain(sig, sig)),
+                f"collision imageA 4096 x 4096 x {k}")
+        sd = sig.double()
+        require(torch.equal((k - torch.cdist(sd, sd, p=0)).to(torch.int32),
+                            counts), f"collision K - cdist(p=0), K={k}")
+        c_ms, c_dev_ms = both_ms(lambda: kc.collision_counts_kernel(sig, sig),
+                                 10)
+        n = sig.shape[0]
+        fig7_collision.append({
+            "k": k, "shape": [n, n, k],
+            "launches_in_phase_7": 3 * len(corpora), "ms": c_ms,
+            "device_ms": c_dev_ms,
+            "plain_ms": time_ms(lambda: kc.collision_counts_plain(sig, sig),
+                                1, warmup=1),
+            "library_ms": time_ms(lambda: k - torch.cdist(sd, sd, p=0), 3,
+                                  warmup=1),
+            "bound_ms": bound_ms(2 * n * k * 4 + n * n * 4,
+                                 collision_ops(n, n, k, 32))[0]})
     weighted = {key: sum(r[key] * r["launches_in_phase_7"] for r in sweep)
                 for key in ("ms", "device_ms")}
     report["fig7_int8_sweep"] = {"rows": sweep,
@@ -774,6 +855,21 @@ def dense_kernel_checks(svc, batch: np.ndarray, corpora: dict,
                       f"{r['device_ms']:.4f})" for r in sweep)
           + f"; summed over phase 7's "
           f"{sum(r['launches_in_phase_7'] for r in sweep)} launches "
+          f"{weighted['ms']:.4f} ms (device {weighted['device_ms']:.4f})")
+    weighted = {key: sum(r[key] * r["launches_in_phase_7"]
+                         for r in fig7_collision)
+                for key in ("ms", "device_ms")}
+    report["fig7_collision"] = {"rows": fig7_collision,
+                                "launch_weighted_ms": weighted["ms"],
+                                "launch_weighted_device_ms":
+                                weighted["device_ms"]}
+    print("[kernel] collision at Fig. 7's 4096 x 4096 x K: "
+          + ", ".join(f"K={r['k']} {r['ms']:.4f} ms (device "
+                      f"{r['device_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+                      f"plain {r['plain_ms']:.4f}, library "
+                      f"{r['library_ms']:.4f})" for r in fig7_collision)
+          + f"; summed over phase 7's "
+          f"{sum(r['launches_in_phase_7'] for r in fig7_collision)} launches "
           f"{weighted['ms']:.4f} ms (device {weighted['device_ms']:.4f})")
     words = kpk.pack_bits(vs[:512])
     for pack_b in (None, 1, 2, 4, 8, 16):      # the other epilogues
@@ -822,20 +918,86 @@ def dense_card_vs_cpu(idx, fresh_idx, report: dict) -> None:
 
 
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
+SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
+# The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
+UNPACKED_COLLISION_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+
+
+def build_baseline(baseline: str, names) -> dict[str, str]:
+    """Build ``names`` from DIR/src/repro_torch/csrc with the port's flags,
+    one nvcc each, all started together -> {name: library path}."""
+    from repro_torch.kernels import _build
+    out_dir = os.path.join(ROOT, "src", "repro_torch", "build", "baseline")
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = os.path.join(baseline, "src", "repro_torch", "csrc")
+    libs = {name: os.path.join(out_dir, f"lib{name}.so") for name in names}
+    procs = {name: subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", libs[name],
+         os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in names}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc baseline {name}:\n{log}")
+    return libs
+
+
+def collision_sass(report: dict) -> None:
+    """The count loop of the b = 32 collision kernel (16-byte copies) in
+    SASS: the instructions between the two barriers around one staged
+    chunk, by opcode, and how many there are a compare (a pair of codes:
+    an ``ISETP``).  A thread makes 512 compares a chunk (4 x 4 pairs of
+    rows x 32 words); ptxas may schedule a few of them past the barrier.
+    The whole listing goes to ``chiprun_out/collision.sass``."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "collision"))], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "collision.sass"), "w") as f:
+        f.write(sass)
+    body = next(f for f in re.split(r"\n\s+Function : ", sass)
+                if "CodeCountELi4E" in f.split("\n", 1)[0])
+    ops = [m.group(2) for m in (re.match(
+        r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        for line in body.splitlines()) if m]
+    bars = [i for i, op in enumerate(ops) if op.startswith("BAR.SYNC")]
+    seg = max((ops[i0 + 1: i1] for i0, i1 in zip(bars, bars[1:])),
+              key=lambda x: sum(op == "FADD" for op in x))
+    hist: dict = {}
+    for op in seg:
+        hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+    pairs = hist.get("ISETP", 0)
+    report["collision_sass"] = {
+        "compares_in_segment": pairs, "compares_per_chunk": 512,
+        "instructions": len(seg), "per_compare": len(seg) / pairs,
+        "opcodes": hist,
+        "integer_pipe_per_compare": sum(v for k, v in hist.items() if k in (
+            "ISETP", "IADD3", "LOP3", "SHF", "LEA", "SEL", "POPC", "VIADD",
+            "IMNMX")) / pairs}
+    print(f"[sass] collision count loop (b = 32, 16-byte copies): "
+          f"{len(seg)} instructions for {pairs} of a chunk's 512 compares, "
+          f"{len(seg) / pairs:.3f} a compare; "
+          + ", ".join(f"{k} {v}" for k, v in sorted(
+              hist.items(), key=lambda kv: -kv[1])[:8]))
 
 
 def compare(baseline: str | None, report: dict) -> None:
-    """``--compare``: the sparse and dense int8 kernels through their
-    wrappers, with the per-call placement, each placement forced through
-    the libraries' test entry point (``<name>_force_placement``) and, with
-    ``--baseline DIR``, the same wrappers bound to a build of DIR's two
-    sources.  Each variant is checked against the plain version, then timed
-    in turns (forward, then reverse order; the median of each variant's
-    per-round medians), with the host's launch work (``ms``) and without
-    (``device_ms``).  Then the sparse kernel's time against the batch size:
-    the slope is a document's work, the intercept what a launch costs."""
+    """``--compare``: the three signing kernels and the collision kernel
+    through their wrappers.  Each signing kernel runs with the per-call
+    placement and with each placement forced through the libraries' test
+    entry point (``<name>_force_placement``); with ``--baseline DIR``, each
+    of the four also runs bound to a build of DIR's source behind the same
+    wrapper (a DIR collision.cu with the earlier unpacked interface is
+    called as the earlier ``ops.packed_collision_counts`` called it: unpacked
+    in blocks of 16,384 index rows, one launch each, then concatenated).
+    Each variant is checked against the plain version, then timed in turns
+    (forward, then reverse order; the median of each variant's per-round
+    medians), with the host's launch work (``ms``) and without
+    (``device_ms``).  Then the sparse kernel's time against the batch size
+    (the slope is a document's work, the intercept what a launch costs),
+    and the collision kernel's count loop in SASS."""
     import contextlib
-    import ctypes
 
     from repro_torch.core.permutations import (apply_permutation_dense,
                                                apply_permutation_sparse,
@@ -843,34 +1005,33 @@ def compare(baseline: str | None, report: dict) -> None:
     from repro_torch.data.synthetic import imagelike_binary_dataset
     from repro_torch.kernels import _build
     from repro_torch.kernels import cminhash_kernel as kd
+    from repro_torch.kernels import cminhash_packed as kpk
     from repro_torch.kernels import cminhash_sparse as ks
+    from repro_torch.kernels import collision_kernel as kc
+    from repro_torch.kernels.packfmt import unpack_codes
     dev = torch.device("cuda")
-    mods = {"cminhash_sparse": ks, "cminhash_dense": kd}
-    base = {}
+    mods = {"cminhash_sparse": ks, "cminhash_dense": kd,
+            "cminhash_packed": kpk, "collision": kc}
+    base, unpacked_abi = {}, False
     if baseline:
-        out_dir = os.path.join(ROOT, "src", "repro_torch", "build", "baseline")
-        os.makedirs(out_dir, exist_ok=True)
-        csrc = os.path.join(baseline, "src", "repro_torch", "csrc")
-        procs = {name: subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, f"lib{name}.so"),
-             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for name in mods}
-        for name, proc in procs.items():
-            log, _ = proc.communicate()
-            require(proc.returncode == 0, f"nvcc baseline {name}:\n{log}")
-            base[name] = _build.CudaKernel(
-                name, mods[name].KERNEL.argtypes,
-                library=os.path.join(out_dir, f"lib{name}.so"))
+        with open(os.path.join(baseline, "src", "repro_torch", "csrc",
+                               "collision.cu")) as f:
+            unpacked_abi = "int bits" not in f.read()
+        for name, path in build_baseline(baseline, list(mods)).items():
+            args = (UNPACKED_COLLISION_ARGS if name == "collision"
+                    and unpacked_abi else mods[name].KERNEL.argtypes)
+            base[name] = _build.CudaKernel(name, args, library=path)
 
     @contextlib.contextmanager
     def variant(name, label):
         """The wrapper of ``name`` launching ``label``'s kernel."""
         mod = mods[name]
         current = mod.KERNEL
-        force = current.entry("force_placement", [ctypes.c_int])
+        force = (current.entry("force_placement", [ctypes.c_int])
+                 if name in SIGNING else (lambda p: None))
         place = {v: k for k, v in PLACEMENTS.items()}.get(label, -1)
-        mod.KERNEL = base[name] if label == "baseline" else current
+        if label == "baseline" and not (name == "collision" and unpacked_abi):
+            mod.KERNEL = base[name]
         force(place)
         try:
             yield
@@ -878,10 +1039,27 @@ def compare(baseline: str | None, report: dict) -> None:
             force(-1)
             mod.KERNEL = current
 
+    def unpacked_counts(a, b):
+        """The earlier wrapper on the baseline's unpacked collision kernel."""
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32,
+                          device=dev)
+        base["collision"].launch(dev, _build.ptr(a), _build.ptr(b),
+                                 _build.ptr(out), a.shape[0], b.shape[0],
+                                 a.shape[1])
+        return out
+
+    def collision_call(label, wq, wn, k, b):
+        if label == "baseline" and unpacked_abi:
+            uq = unpack_codes(wq, k, b).contiguous()
+            return torch.cat([unpacked_counts(uq, unpack_codes(
+                wn[lo: lo + 16384], k, b).contiguous())
+                for lo in range(0, wn.shape[0], 16384)], dim=1)
+        return kc.packed_collision_counts_kernel(wq, wn, k, b)
+
     # the serving batch: 4096 documents of the serving corpus, signed with
     # a seeded sigma/pi at D = 2^16, K = 256, b = 32; imageA at Fig. 7's D
     # and K, with the permutations phase 7 draws for each K; the serving
-    # batch as dense int8 rows
+    # batch as dense int8 rows and as bit-packed words
     idx, _ = corpus(BATCH)
     sigma, pi = make_two_permutations(torch.Generator().manual_seed(0),
                                       1 << 16, device=dev)
@@ -891,30 +1069,77 @@ def compare(baseline: str | None, report: dict) -> None:
                                  sigma).contiguous()
     imagea = torch.from_numpy(imagelike_binary_dataset(
         np.random.default_rng(0), PAPER_DOCS, PAPER_D, block=16)).to(dev)
-    cases = [("cminhash_sparse", "serving 4096 x 254, D 2^16, K 256, b 32",
-              sidx, pi, 256, 32)]
+    wrappers = {"cminhash_sparse": (ks.cminhash_sparse_kernel,
+                                    ks.cminhash_sparse_plain),
+                "cminhash_dense": (kd.cminhash_dense_kernel,
+                                   kd.cminhash_dense_plain),
+                "cminhash_packed": (kpk.cminhash_packed_kernel,
+                                    kpk.cminhash_packed_plain)}
+    cases = []                 # (name, shape, call(label) -> tensor, want)
+
+    def signing(name, shape, x, p, k, pack_b):
+        wrapper, plain = wrappers[name]
+        cases.append((name, shape, lambda label: wrapper(x, p, k,
+                                                         pack_b=pack_b),
+                      plain(x, p, k, pack_b=pack_b)))
+
+    signing("cminhash_sparse", "serving 4096 x 254, D 2^16, K 256, b 32",
+            sidx, pi, 256, 32)
     for k in PAPER_KS:
         sigma_k, pi_k = make_two_permutations(
             torch.Generator().manual_seed(k), PAPER_D, device=dev)
-        cases.append(("cminhash_dense", f"imageA 4096 x 2048, K {k}",
-                      apply_permutation_dense(imagea, sigma_k).contiguous(),
-                      pi_k, k, None))
-    cases.append(("cminhash_dense", "service 4096 x 2^16, K 256, b 32", vs,
-                  pi, 256, 32))
-    labels = ["per-call choice", *PLACEMENTS.values()] + (
-        ["baseline"] if base else [])
+        vk = apply_permutation_dense(imagea, sigma_k).contiguous()
+        signing("cminhash_dense", f"imageA 4096 x 2048, K {k}", vk, pi_k, k,
+                None)
+        if k == PAPER_KS[-1]:
+            signing("cminhash_packed", f"imageA 4096 x 2048, K {k}",
+                    kpk.pack_bits(vk), pi_k, k, None)
+    signing("cminhash_dense", "service 4096 x 2^16, K 256, b 32", vs, pi,
+            256, 32)
+    signing("cminhash_packed", "service 4096 x 2^16, K 256, b 32",
+            kpk.pack_bits(vs), pi, 256, 32)
+
+    # the collision kernel: the serving fallback (64 pow2-padded rows
+    # against a 262,144-row index, K = 256, at b = 32 and b = 8), one
+    # 16,384-row block, and Fig. 7's 4096 x 4096 x K; seeded codes (the
+    # kernels' time does not depend on which codes match)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b in (32, 8):
+        codes = torch.randint(0, 1 << 16, (64 + 262_144, 256), generator=gen,
+                              device=dev, dtype=torch.int32)
+        codes[64::4096] = codes[0]
+        w = pack_codes_dev(codes, b)
+        wq, wn = w[:64].contiguous(), w[64:].contiguous()
+        cases.append(("collision", f"fallback 64 x 262,144 x 256, b {b}",
+                      lambda label, wq=wq, wn=wn, b=b: collision_call(
+                          label, wq, wn, 256, b),
+                      torch.cat([kc.packed_collision_counts_plain(
+                          wq, wn[lo: lo + 16384], 256, b)
+                          for lo in range(0, wn.shape[0], 16384)], dim=1)))
+        if b == 32:
+            blk = wn[:16384].contiguous()
+            cases.append(("collision", "one block 64 x 16,384 x 256, b 32",
+                          lambda label, wq=wq, blk=blk: collision_call(
+                              label, wq, blk, 256, 32),
+                          kc.collision_counts_plain(wq, blk)))
+    for k in PAPER_KS:
+        a = torch.randint(0, 1 << 11, (PAPER_DOCS, k), generator=gen,
+                          device=dev, dtype=torch.int32)
+        cases.append(("collision", f"Fig. 7 4096 x 4096 x {k}",
+                      lambda label, a=a, k=k: collision_call(label, a, a, k,
+                                                             32),
+                      kc.collision_counts_plain(a, a)))
+
     rows = []
-    for name, shape, x, p, k, pack_b in cases:
-        wrapper = (ks.cminhash_sparse_kernel if name == "cminhash_sparse"
-                   else kd.cminhash_dense_kernel)
-        plain = (ks.cminhash_sparse_plain if name == "cminhash_sparse"
-                 else kd.cminhash_dense_plain)
-        want = plain(x, p, k, pack_b=pack_b)
+    for name, shape, call, want in cases:
+        labels = (["per-call choice", *PLACEMENTS.values()]
+                  if name in SIGNING else ["kernel"]) + (
+            ["baseline"] if base else [])
         status = {}
         for label in labels:
             with variant(name, label):
                 try:
-                    got = wrapper(x, p, k, pack_b=pack_b)
+                    got = call(label)
                 except RuntimeError as e:
                     status[label] = f"refused ({e})"
                     continue
@@ -925,8 +1150,7 @@ def compare(baseline: str | None, report: dict) -> None:
         for order in (run, run[::-1]):
             for label in order:
                 with variant(name, label):
-                    ms, dev_ms = both_ms(
-                        lambda: wrapper(x, p, k, pack_b=pack_b), 20)
+                    ms, dev_ms = both_ms(lambda: call(label), 20)
                 times[label]["ms"].append(ms)
                 times[label]["device_ms"].append(dev_ms)
         row = {"kernel": name, "shape": shape, "status": status,
@@ -953,6 +1177,15 @@ def compare(baseline: str | None, report: dict) -> None:
     print("[compare] cminhash_sparse by batch: " + ", ".join(
         f"{r['docs']} docs {r['ms']:.4f} ms (device {r['device_ms']:.4f})"
         for r in scaling))
+    collision_sass(report)
+
+
+def pack_codes_dev(codes: torch.Tensor, b: int) -> torch.Tensor:
+    """``packfmt.pack_codes`` in row chunks, so its int64 temporaries stay
+    small at the index's size."""
+    from repro_torch.kernels.packfmt import pack_codes
+    return torch.cat([pack_codes(codes[lo: lo + 16384], b)
+                      for lo in range(0, codes.shape[0], 16384)])
 
 
 def main() -> None:
@@ -960,11 +1193,13 @@ def main() -> None:
     ap.add_argument("--docs", type=int, default=262_144,
                     help="documents to ingest on the main path")
     ap.add_argument("--compare", action="store_true",
-                    help="only compare the sparse and dense int8 kernels' "
-                         "table placements (and --baseline's build)")
+                    help="only compare the signing kernels' table "
+                         "placements and the collision kernel (and "
+                         "--baseline's builds)")
     ap.add_argument("--baseline", default=None,
-                    help="with --compare: a checkout whose two signing "
-                         "sources are timed behind the same wrappers")
+                    help="with --compare: a checkout whose three signing "
+                         "sources and collision source are timed behind "
+                         "the same wrappers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "

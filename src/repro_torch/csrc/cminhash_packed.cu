@@ -13,91 +13,163 @@
 // m = p - q - off.  A row with no set bit keeps SENTINEL = 2^31-1.
 //
 // What bounds it on an H100: the words are D/8 bytes a row (32 MiB for a
-// 4096-row batch at D = 2^16), so the work sets the time: B*K*nnz table
-// reads and mins plus B*D/32 word scans, about 2.7e8 + 8.4e6 at the
-// service's batch (B = 4096, K = 256, ~254 set bits a row).
-// The design: the TPU kernel funnel-shifts the word pair under every hash's
-// window and unpacks all D bits for every hash, B*K*D work, because its
-// vector unit has no cheap gather.  Here a block of 256 threads owns one row
-// and 256 hashes (q = qb + threadIdx.x), and the row's set bits are found
-// once for all of them: each thread takes one word of a 256-word chunk,
-// appends its set positions (__popc, __ffs, clear lowest) to a list in
-// shared memory (a min does not care about order), and after a barrier
-// every thread folds pi[p - q - off] over the list.  The 32 lanes of a warp
-// read 32 consecutive entries of pi for each position, so the table reads
-// coalesce; pi stays in global memory behind the read-only cache, as in the
-// sparse kernel, where a shared uint16 table measured slower at D = 2^16.
-// A chunk holds at most 256 * 32 positions, so the list never overflows its
-// 32 KB.  The circular wrap is one compare and add per read: no extended
-// copy [v, v[:K+off]] of the rows is packed, so D % 32 != 0 needs nothing
-// but the mask on the row's last word.  Row offsets are 64-bit.
+// 4096-row batch at D = 2^16, 10 us at 3.35 TB/s), so the work sets the
+// time: one table read and one min per set bit per hash (2.7e8 at the
+// service's batch, ~254 set bits a row, K = 256) plus B*D/32 word scans.
+// The TPU kernel funnel-shifts the word pair under every hash's window and
+// unpacks all D bits for every hash, B*K*D work, because its vector unit
+// has no cheap gather.  The design here is the sparse and dense int8
+// kernels' (window_fold.cuh): a warp owns a row and all K hashes in
+// registers; each lane loads eight words a step (as two 16-byte loads
+// where the row length is a multiple of 4 words and the batch 16-byte
+// aligned), masks the row's last word to positions < D, and adds the
+// step's words to the warp's shared list: where the step's positions fit
+// the list (1024 entries), all at once after one warp prefix sum of the
+// lanes' popcounts; otherwise word by word through append_mask, which
+// places a warp's 32 words (up to 1024 positions) with a prefix sum each,
+// and the list is folded (fold_list) first whenever the next word's
+// positions might not fit.  pi lives where plan_launch puts it for the
+// shape: uint16 pairs or uint16 in shared memory, staged once per
+// persistent block, or int32 in global memory past D = 65,536.  pi must
+// hold values in [0, D) (a permutation): the shared tables keep it as
+// uint16.  Row offsets are 64-bit.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "pack_epilogue.cuh"
+#include "window_fold.cuh"
 
 namespace {
 
-using cminhash::kSentinel;
+using namespace wfold;
 
-constexpr int kThreads = 256;              // hashes per pass, words per chunk
-constexpr int kCap = kThreads * 32;        // positions a chunk can hold
+// One step of the scan: x[t], word w[t] of the row (masked to positions
+// < D), for t < S, a lane.  When the step's positions fit the list, one
+// warp prefix sum of the lanes' popcounts places them all; otherwise the
+// words go one at a time through append_mask, the list folded first
+// whenever the next word's positions might not fit.
+template <int S, int H, class Table>
+__device__ __forceinline__ int append_words(int* list, int n,
+                                            const unsigned (&x)[S],
+                                            const int (&w)[S],
+                                            const Table& tab, int s0,
+                                            int (&h)[H]) {
+  int c = 0;
+#pragma unroll
+  for (int t = 0; t < S; ++t) c += __popc(x[t]);
+  const int total = static_cast<int>(__reduce_add_sync(kFull, c));
+  if (total == 0) return n;
+  if (n + total <= kCap) {
+    const int lane = threadIdx.x & 31;
+    int incl = c;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, s);
+      if (lane >= s) incl += v;
+    }
+    int slot = n + incl - c;
+#pragma unroll
+    for (int t = 0; t < S; ++t)
+      for (unsigned m = x[t]; m; m &= m - 1u)
+        list[slot++] = 32 * w[t] + __ffs(m) - 1;
+    return n + total;
+  }
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    if (n + static_cast<int>(__reduce_add_sync(kFull, __popc(x[t]))) > kCap) {
+      fold_list<H>(list, n, tab, s0, h);
+      n = 0;
+    }
+    n = append_mask(list, n, x[t], 32 * w[t]);
+  }
+  return n;
+}
 
+template <int H, int P>
 __global__ void __launch_bounds__(kThreads)
 cminhash_packed_kernel(const unsigned* __restrict__ words,
                        const int* __restrict__ pi, int* __restrict__ out,
                        int B, int nw, int D, int K, int off, int pack_b,
-                       int n_words) {
-  __shared__ int pos_s[kCap];
-  __shared__ int n_s;
-  for (long long row = blockIdx.x; row < B; row += gridDim.x) {
+                       int n_words, int ext, int vec) {
+  extern __shared__ int4 smem[];
+  int* lists = reinterpret_cast<int*>(smem);
+  const auto tab = make_table<P>(lists + kWarps * kSlot, pi, D, ext);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* list = lists + warp * kSlot;
+  constexpr int kStep = 8;                   // words a lane per step
+
+  for (long long row = (long long)blockIdx.x * kWarps + warp; row < B;
+       row += (long long)gridDim.x * kWarps) {   // uniform across the warp
     const unsigned* __restrict__ wrow = words + row * nw;
     int* __restrict__ out_row = out + row * (pack_b ? n_words : K);
-    for (int qb = 0; qb < K; qb += kThreads) {
-      const int q = qb + threadIdx.x;        // q % 32 == lane
-      const int base = -q - off;             // m = p + base, >= -D
-      int h = kSentinel;
-      for (int w0 = 0; w0 < nw; w0 += kThreads) {
-        if (threadIdx.x == 0) n_s = 0;
-        __syncthreads();
-        const int w = w0 + threadIdx.x;
-        if (w < nw) {
-          unsigned bits = __ldg(wrow + w);
-          const int left = D - 32 * w;       // positions of this word < D
-          if (left < 32) bits &= (1u << left) - 1u;
-          if (bits) {
-            int slot = atomicAdd(&n_s, __popc(bits));
-            do {
-              pos_s[slot++] = 32 * w + __ffs(bits) - 1;
-              bits &= bits - 1u;
-            } while (bits);
+    for (int q0 = 0; q0 < K; q0 += 32 * H) {
+      int h[H];
+      tab.template init<H>(h);
+      const int s0 = tab.start(q0, off);
+      int n = 0;
+      // A step covers 256 words: with 16-byte loads (nw % 4 == 0, aligned)
+      // lane l takes words w0 + 4 l + t and w0 + 128 + 4 l + t, t < 4;
+      // otherwise words w0 + 32 t + l, t < 8.  A min takes the positions
+      // in any order.
+      for (int w0 = 0; w0 < nw; w0 += 32 * kStep) {
+        unsigned x[kStep];
+        if (vec) {
+          const uint4* __restrict__ r4 =
+              reinterpret_cast<const uint4*>(wrow + w0);
+#pragma unroll
+          for (int u = 0; u < kStep / 4; ++u) {
+            const int w = w0 + 128 * u + 4 * lane;
+            const uint4 v = w < nw ? __ldg(r4 + 32 * u + lane)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+            x[4 * u] = v.x;
+            x[4 * u + 1] = v.y;
+            x[4 * u + 2] = v.z;
+            x[4 * u + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kStep; ++t) {
+            const int w = w0 + 32 * t + lane;
+            x[t] = w < nw ? __ldg(wrow + w) : 0u;
           }
         }
-        __syncthreads();
-        const int n = n_s;
-        if (q < K) {
-          int i = 0;
-          for (; i + 4 <= n; i += 4) {
-            int m0 = pos_s[i] + base, m1 = pos_s[i + 1] + base;
-            int m2 = pos_s[i + 2] + base, m3 = pos_s[i + 3] + base;
-            if (m0 < 0) m0 += D;
-            if (m1 < 0) m1 += D;
-            if (m2 < 0) m2 += D;
-            if (m3 < 0) m3 += D;
-            h = min(h, min(min(__ldg(pi + m0), __ldg(pi + m1)),
-                           min(__ldg(pi + m2), __ldg(pi + m3))));
-          }
-          for (; i < n; ++i) {
-            int m = pos_s[i] + base;
-            if (m < 0) m += D;
-            h = min(h, __ldg(pi + m));
-          }
+        int w[kStep];
+#pragma unroll
+        for (int t = 0; t < kStep; ++t) {
+          w[t] = vec ? w0 + 128 * (t >> 2) + 4 * lane + (t & 3)
+                     : w0 + 32 * t + lane;
+          const int left = D - 32 * w[t];    // positions of the word < D
+          if (left < 32) x[t] = left > 0 ? x[t] & ((1u << left) - 1u) : 0u;
         }
-        __syncthreads();                      // the list is consumed
+        n = append_words<kStep, H>(list, n, x, w, tab, s0, h);
       }
-      cminhash::store_codes(out_row, q, K, h, pack_b);
+      fold_list<H>(list, n, tab, s0, h);
+      tab.template store<H>(out_row, q0, K, h, pack_b);
     }
   }
+}
+
+template <int H>
+cudaError_t launch(const unsigned* words, const int* pi, int* out, int B,
+                   int nw, int D, int K, int off, int pack_b, int n_words,
+                   cudaStream_t stream) {
+  const int ext = table_ext(K, off);
+  const int vec =
+      nw % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  using Kernel = decltype(&cminhash_packed_kernel<H, kShared16>);
+  Kernel pairs = nullptr;
+  if constexpr (H >= kPairsMinH) pairs = cminhash_packed_kernel<H, kPairs>;
+  const Kernel kernels[kPlacements] = {cminhash_packed_kernel<H, kShared16>,
+                                       cminhash_packed_kernel<H, kGlobal32>,
+                                       pairs};
+  Plan plan;
+  const cudaError_t e = plan_launch(kernels, D, ext, B, &plan);
+  if (e != cudaSuccess) return e;
+  kernels[plan.placement]<<<plan.grid, kThreads, plan.smem, stream>>>(
+      words, pi, out, B, nw, D, K, off, pack_b, n_words, ext, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -107,10 +179,20 @@ extern "C" int cminhash_packed_launch(const unsigned* words, const int* pi,
                                       int off, int pack_b, int n_words,
                                       void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
-  cminhash_packed_kernel<<<B, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      words, pi, out, B, nw, D, K, off, pack_b, n_words);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lane_hashes(K)) {
+    case 2: return launch<2>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
+    case 8: return launch<8>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
+    case 16: return launch<16>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
+    default: return launch<32>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
+  }
+}
+
+// Test entry point: every later launch takes placement p (kShared16 = 0,
+// kGlobal32 = 1, kPairs = 2), or fails where it is not offered or does not
+// fit; -1 restores the per-call choice.
+extern "C" void cminhash_packed_force_placement(int p) {
+  forced_placement().store(p);
 }
 
 extern "C" const char* cminhash_packed_error(int code) {

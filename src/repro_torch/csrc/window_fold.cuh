@@ -1,10 +1,10 @@
-// The window-min core of the sparse and dense int8 signing kernels
-// (cminhash_sparse.cu, cminhash_dense.cu).
+// The window-min core of the three signing kernels (cminhash_sparse.cu,
+// cminhash_dense.cu, cminhash_packed.cu).
 //
-// Both kernels compute, for one row and hash q in [0, K),
+// Each kernel computes, for one row and hash q in [0, K),
 //     h[q] = min over positions p in P of pi[(p - q - off) mod D],
 // where P is the row's set of positions in [0, D): the valid indices of a
-// sparse document, or the set entries of a dense row.  A warp owns one row
+// sparse document, or the set entries (or set bits) of a dense row.  A warp owns one row
 // and all its hashes: lane l holds q = q0 + l + 32 j for j < H in
 // registers.  H is 2, 8, 16 or 32 (K <= 64, 256, 512, 1024: Fig. 7's K
 // and the serving K each have their own; a K in between computes the

@@ -11,8 +11,9 @@ position p of a row folds pi[(p - q - off) mod D] into hash q.
   set positions of each row, then ``core.cminhash.cminhash_sparse``'s
   gather over them, in row chunks so its temporaries stay bounded.
 * ``cminhash_packed_kernel`` — the wrapper: the CUDA kernel
-  (``csrc/cminhash_packed.cu``) for a CUDA tensor, the plain version for a
-  CPU tensor.  Both take the fused ``pack_b`` epilogue.
+  (``csrc/cminhash_packed.cu``, on the sparse and dense int8 kernels'
+  window-min core ``csrc/window_fold.cuh``) for a CUDA tensor, the plain
+  version for a CPU tensor.  Both take the fused ``pack_b`` epilogue.
 * ``cminhash_packed`` — rows in, words packed, then the wrapper (the
   counterpart of ``repro.kernels.cminhash_packed.cminhash_packed_pallas``).
 """
@@ -97,7 +98,10 @@ def cminhash_packed_kernel(words: torch.Tensor, pi: torch.Tensor, k: int, *,
     int32 pi -> (B, K) int32 signatures, or (B, ceil(K*b/32)) int32 words
     when ``pack_b`` is set.  Bits at positions >= D are ignored.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel."""
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    pi must hold values in [0, D), as a permutation does: the kernel keeps
+    it as uint16 on the SM, so on the card a value outside gives other
+    codes than on the CPU."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from . import dispatch
-from .collision_kernel import collision_counts_kernel
+from .collision_kernel import (collision_counts_kernel,
+                               packed_collision_counts_kernel)
 from .packfmt import unpack_codes
 
 
@@ -52,9 +53,14 @@ def packed_collision_counts(words_q: torch.Tensor, words_n: torch.Tensor,
                             k: int, b: int, *,
                             unpack_block_n: int = 16384) -> torch.Tensor:
     """(Q, W) x (N, W) packed int32 words -> (Q, N) int32 matching-code
-    counts.  The index side is unpacked and scored in blocks of
-    ``unpack_block_n`` rows, so the unpacked (N', K) intermediate stays
-    bounded while the resident index keeps its packed footprint."""
+    counts.  On a CUDA device, one launch of the collision kernel over the
+    words as the index stores them.  On the CPU, the index side is unpacked
+    and scored in blocks of ``unpack_block_n`` rows, so the unpacked (N', K)
+    intermediate stays bounded while the resident index keeps its packed
+    footprint."""
+    if words_n.device.type != "cpu":
+        return packed_collision_counts_kernel(words_q.contiguous(),
+                                              words_n.contiguous(), k, b)
     uq = unpack_codes(words_q, k, b)
     n = words_n.shape[0]
     if n <= unpack_block_n:

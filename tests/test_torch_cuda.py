@@ -3,10 +3,13 @@
 Edge shapes the serving path does not reach every day: K not a multiple of
 32, empty index lists and rows, indices >= D, D past the uint16 range and
 not a multiple of 32, K = D, every pack width, int8/int32/bool rows, row
-offsets past 2^31, odd record strides, ragged collision tiles; for the
-signing kernels' window-min core, D on both sides of each table placement,
-rows longer than the compaction list, K past the hashes a lane holds.  Integer
-outputs: tolerance 0.
+offsets past 2^31, odd record strides; for the collision kernel, every
+pack width, the codes past K in a row's last word, ragged tiles, negative
+and sentinel codes, the whole serving index in one launch, outputs past
+2^31 entries and counts past 2^24; for the signing kernels' window-min core
+(sparse, dense int8 and bit-packed), D on both sides of each table
+placement, rows longer than the compaction list, K past the hashes a lane
+holds, set bits past D in the last word.  Integer outputs: tolerance 0.
 Also: the wrappers refuse what the kernels do not take, and the service
 answers the same on the card as on the CPU.  Imports neither jax nor repro,
 so it runs where the card is:
@@ -29,8 +32,9 @@ from repro_torch.kernels import cminhash_sparse as ks
 from repro_torch.kernels import collision_kernel as kc
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import lsh_probe as kp
+from repro_torch.kernels import ops
 from repro_torch.kernels import query_fused as kq
-from repro_torch.kernels.packfmt import PACK_BITS
+from repro_torch.kernels.packfmt import PACK_BITS, pack_codes, pack_geometry
 from repro_torch.store.table import BandedLSHTable
 
 pytestmark = pytest.mark.cuda
@@ -239,11 +243,15 @@ PLACEMENT_DS = [_pair_limit(_K_PLACE, 1), _pair_limit(_K_PLACE, 1) + 1,
                 1 << 16, (1 << 16) + 1]
 
 
-def _both_kernels(v, pi, k, cuda, **kw):
-    """The dense int8 and the sparse kernel on the same rows, each against
-    the dense plain version."""
+def _signing_kernels(v, pi, k, cuda, **kw):
+    """The dense int8, bit-packed and sparse kernels on the same rows, each
+    against the dense plain version."""
     want = kd.cminhash_dense_plain(v, pi, k, **kw)
     got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    got = kpk.cminhash_packed_kernel(kpk.pack_bits(v).to(cuda), pi.to(cuda),
+                                     k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     nnz = max(int((v > 0).sum(1).max()), 1)
@@ -263,7 +271,7 @@ def test_signing_kernels_on_both_sides_of_each_placement(cuda, d, off):
     """uint16 pairs up to their fit limit, the uint16 table past it and up
     to D = 65,536, pi in global memory past that."""
     v, pi = _dense_case(6, d, 0.003, seed=d + off)
-    _both_kernels(v, pi, _K_PLACE, cuda, shift_offset=off)
+    _signing_kernels(v, pi, _K_PLACE, cuda, shift_offset=off)
 
 
 @pytest.mark.parametrize("off", [0, 1])
@@ -295,7 +303,8 @@ def test_table_too_large_for_shared_memory_reads_pi_from_global(cuda, off):
 def test_dense_kernel_all_ones_rows_with_k_equal_d(cuda, d):
     """Rows longer than the compaction list (1024 positions), K = D past
     the hashes a lane holds: folds mid-row and passes over q.  D = 3000
-    scans a byte per lane, D = 2048 sixteen."""
+    scans a byte (the int8 kernel) or a word (the bit-packed one) per lane,
+    D = 2048 sixteen bytes or four words."""
     gen = torch.Generator().manual_seed(d)
     pi = torch.randperm(d, generator=gen).to(torch.int32)
     v = torch.ones((3, d), dtype=torch.int8)
@@ -304,6 +313,10 @@ def test_dense_kernel_all_ones_rows_with_k_equal_d(cuda, d):
         want = kd.cminhash_dense_plain(v, pi, d, pack_b=pack_b)
         got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), d,
                                        pack_b=pack_b)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        got = kpk.cminhash_packed_kernel(kpk.pack_bits(v).to(cuda),
+                                         pi.to(cuda), d, pack_b=pack_b)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
 
@@ -315,7 +328,7 @@ def test_only_entry_at_d_minus_1_with_shift_offset_1(cuda, d):
     pi = torch.randperm(d, generator=gen).to(torch.int32)
     v = torch.zeros((2, d), dtype=torch.int8)
     v[0, d - 1] = 1
-    _both_kernels(v, pi, min(d, 1100), cuda, shift_offset=1)
+    _signing_kernels(v, pi, min(d, 1100), cuda, shift_offset=1)
 
 
 @pytest.mark.parametrize("d", [4096, 1 << 16])
@@ -323,7 +336,7 @@ def test_only_entry_at_d_minus_1_with_shift_offset_1(cuda, d):
 def test_k_above_the_hashes_a_lane_holds(cuda, d, off):
     """K = 1100 > 32 x 32: two passes over q."""
     v, pi = _dense_case(5, d, 0.05, seed=d + off)
-    _both_kernels(v, pi, 1100, cuda, shift_offset=off)
+    _signing_kernels(v, pi, 1100, cuda, shift_offset=off)
 
 
 @pytest.mark.parametrize("pack_b", PACK_BITS)
@@ -331,7 +344,30 @@ def test_k_above_the_hashes_a_lane_holds(cuda, d, off):
                                  ((1 << 16) + 1, 100), (4096, 1100)])
 def test_signing_kernels_fused_pack_in_each_placement(cuda, pack_b, d, k):
     v, pi = _dense_case(4, d, 0.02, seed=pack_b + d)
-    _both_kernels(v, pi, k, cuda, pack_b=pack_b)
+    _signing_kernels(v, pi, k, cuda, pack_b=pack_b)
+
+
+@pytest.mark.parametrize("d", [33, 1000, 2047, (1 << 16) + 5])
+@pytest.mark.parametrize("off", [0, 1])
+def test_packed_kernel_ignores_bits_past_d(cuda, d, off):
+    """D % 32 != 0: the bits of the last word past D are set, and neither
+    the kernel (four words a load at D = 1000 and 2047, one at 33 and
+    65,541) nor the plain version reads them."""
+    v, pi = _dense_case(7, d, 0.05, seed=d + off)
+    words = kpk.pack_bits(v)
+    used = d - 32 * (words.shape[1] - 1)
+    junk = (0xFFFFFFFF << used) & 0xFFFFFFFF
+    words[:, -1] |= junk - (1 << 32) if junk >= 1 << 31 else junk
+    k = min(d, 300)
+    for pack_b in (None, 4):
+        want = kd.cminhash_dense_plain(v, pi, k, shift_offset=off,
+                                       pack_b=pack_b)
+        assert torch.equal(kpk.cminhash_packed_plain(
+            words, pi, k, shift_offset=off, pack_b=pack_b), want)
+        got = kpk.cminhash_packed_kernel(words.to(cuda), pi.to(cuda), k,
+                                         shift_offset=off, pack_b=pack_b)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 # (D, K) where each placement is offered: the pair table only at K > 64,
@@ -351,15 +387,18 @@ def test_each_forced_placement_matches_plain(cuda, placement, d, k):
     offered = {0: d <= 1 << 16, 1: True,
                2: k > 64 and d <= _pair_limit(k, 1)}[p]
     hooks = [m.KERNEL.entry("force_placement", [ctypes.c_int])
-             for m in (ks, kd)]
+             for m in (ks, kd, kpk)]
     try:
         for hook in hooks:
             hook(p)
         if offered:
-            _both_kernels(v, pi, k, cuda, pack_b=8)
+            _signing_kernels(v, pi, k, cuda, pack_b=8)
         else:
             with pytest.raises(RuntimeError, match="launch failed"):
                 kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kpk.cminhash_packed_kernel(kpk.pack_bits(v).to(cuda),
+                                           pi.to(cuda), k)
             with pytest.raises(RuntimeError, match="launch failed"):
                 ks.cminhash_sparse_kernel(
                     torch.zeros((5, 1), dtype=torch.int32, device=cuda),
@@ -408,12 +447,129 @@ def test_probe_kernel_matches_plain_and_host_walk(cuda, ns, w, mp, nb):
 
 
 @pytest.mark.parametrize("q,n,k", [(1, 1, 1), (37, 1001, 130),
-                                   (64, 16384, 256), (65, 63, 31)])
+                                   (64, 16384, 256), (65, 63, 31),
+                                   (1, 300, 33), (300, 1, 33),
+                                   (63, 127, 33), (64, 128, 64),
+                                   (129, 257, 33), (127, 255, 257)])
 def test_collision_kernel_matches_plain(cuda, q, n, k):
+    """Ragged Q and N on both sides of the 64 x 128 tile, K on both sides
+    of the 32-word chunk (16-byte copies where K % 4 == 0, 4-byte ones
+    otherwise)."""
     gen = torch.Generator().manual_seed(q * n + k)
     a = torch.randint(0, 4, (q, k), generator=gen, dtype=torch.int32)
     b = torch.randint(0, 4, (n, k), generator=gen, dtype=torch.int32)
     want = kc.collision_counts_plain(a, b)
+    got = kc.collision_counts_kernel(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def _words(rows, k, b, gen):
+    """(rows, W) words of K b-bit codes drawn from three values, so about a
+    third of the codes match."""
+    return pack_codes(torch.randint(0, 3, (rows, k), generator=gen,
+                                    dtype=torch.int32), b)
+
+
+def _set_bits_past_k(words, k, b):
+    """The same words with every bit of the last word past code K set: on
+    both sides of a pair those codes are equal, and must not count."""
+    cpw = 32 // b
+    if k % cpw == 0:
+        return words
+    junk = (0xFFFFFFFF << (k % cpw) * b) & 0xFFFFFFFF
+    out = words.clone()
+    out[:, -1] |= junk - (1 << 32) if junk >= 1 << 31 else junk
+    return out
+
+
+@pytest.mark.parametrize("b", PACK_BITS)
+@pytest.mark.parametrize("k", [1, 31, 33, 64, 257])
+@pytest.mark.parametrize("q,n", [(37, 300), (65, 129)])
+def test_packed_collision_kernel_matches_unpack_and_plain(cuda, b, k, q, n):
+    """Every pack width, K a multiple of 32/b or not: the codes past K in
+    the last word count neither as zeros nor as set bits."""
+    gen = torch.Generator().manual_seed(b * 1000 + k + q)
+    wq, wn = _words(q, k, b, gen), _words(n, k, b, gen)
+    wn[3] = wq[1]                                 # a row that matches fully
+    want = kc.packed_collision_counts_plain(wq, wn, k, b)
+    assert int(want[1, 3]) == k
+    for a, c in ((wq, wn), (_set_bits_past_k(wq, k, b),
+                            _set_bits_past_k(wn, k, b))):
+        got = kc.packed_collision_counts_kernel(a.to(cuda), c.to(cuda), k, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        got = ops.packed_collision_counts(a.to(cuda), c.to(cuda), k, b)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k", [33, 256])
+def test_collision_kernel_negative_and_sentinel_codes(cuda, k):
+    """int32 codes across the sign bit, 2^31-1 (an empty row's code) and
+    -2^31 on both sides: equality of the bits, nothing else."""
+    gen = torch.Generator().manual_seed(k)
+    pool = torch.tensor([-2 ** 31, -7, -1, 0, 1, 2 ** 31 - 1],
+                        dtype=torch.int32)
+    a = pool[torch.randint(0, 6, (70, k), generator=gen)]
+    b = pool[torch.randint(0, 6, (200, k), generator=gen)]
+    b[5] = a[0]
+    want = kc.collision_counts_plain(a, b)
+    got = kc.collision_counts_kernel(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b", [32, 8])
+def test_packed_collision_counts_whole_index_in_one_launch(cuda, b):
+    """The serving fallback's shape: 64 query rows against a 262,144-row
+    index in one launch, equal to the blocked unpack + plain count of
+    16,384 rows at a time (the CPU path's blocks)."""
+    q, n, k = 64, 262_144, 256
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    wq = torch.randint(-2 ** 31, 2 ** 31 - 1, (q, pack_geometry(k, b)[1]),
+                       generator=gen, device=cuda, dtype=torch.int32)
+    wn = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, wq.shape[1]),
+                       generator=gen, device=cuda, dtype=torch.int32)
+    wn[::4096] = wq[0]
+    wn[1::4096, : wq.shape[1] // 2] = wq[1, : wq.shape[1] // 2]
+    before = kc.KERNEL.launches
+    got = ops.packed_collision_counts(wq, wn, k, b)
+    assert kc.KERNEL.launches == before + 1
+    want = torch.cat([kc.packed_collision_counts_plain(
+        wq, wn[lo: lo + 16384], k, b) for lo in range(0, n, 16384)], dim=1)
+    assert torch.equal(got, want)
+    assert int(got[0, 0]) == k and int(got[1, 1]) >= k // 2
+
+
+def test_collision_output_past_2_31_entries(cuda):
+    """Q * N > 2^31 counts at K = 4: the last rows and columns sit past an
+    int32 offset."""
+    q, n, k = 65_536, 32_769, 4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randint(0, 2, (q, k), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    b = torch.randint(0, 2, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    got = kc.collision_counts_kernel(a, b)
+    assert q * n > 2 ** 31
+    rows = torch.tensor([0, 31_000, q - 2, q - 1], device=cuda)
+    want = kc.collision_counts_plain(a[rows].cpu(), b.cpu())
+    assert torch.equal(got[rows].cpu(), want)
+    want = kc.collision_counts_plain(a.cpu(), b[-3:].cpu())
+    assert torch.equal(got[:, -3:].cpu(), want)
+    del got
+
+
+def test_collision_count_past_2_24_codes(cuda):
+    """K = 2^24 + 40 with rows that match in every code: the count passes
+    2^24, where a float count would lose its ones, so the kernel counts in
+    segments of 2^24 codes."""
+    k = (1 << 24) + 40
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randint(0, 2, (2, k), generator=gen, dtype=torch.int32)
+    b = torch.randint(0, 2, (3, k), generator=gen, dtype=torch.int32)
+    b[0] = a[0]
+    b[2, :k - 5] = a[1, :k - 5]
+    want = kc.collision_counts_plain(a, b)
+    assert int(want[0, 0]) == k
     got = kc.collision_counts_kernel(a.to(cuda), b.to(cuda))
     assert torch.equal(got.cpu(), want)
 
@@ -426,6 +582,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kc.collision_counts_kernel(a.t(), a.t())
     with pytest.raises(ValueError, match="cuda|cpu"):
         kc.collision_counts_kernel(a, a.cpu())
+    with pytest.raises(ValueError, match=r"\(rows, 1\)"):
+        kc.packed_collision_counts_kernel(a, a, 8, 4)
     pi = torch.arange(64, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         ks.cminhash_sparse_kernel(a.long(), pi, 8)

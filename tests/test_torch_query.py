@@ -3,8 +3,9 @@
 Fold vs ``fold_planes_jnp`` and the host ``_poly_fold``; device probe meta
 vs ``meta_from_planes``; the probe vs ``lsh_probe_jnp`` over records built
 by the reference ``BandedLSHTable`` (sentinel hashes, a rebuilt wider
-table); collision counts vs ``ops.collision_counts``; ``score_topk`` vs the
-reference scorer.  One interpret-mode Pallas case per kernel.  All outputs
+table); collision counts vs ``ops.collision_counts`` and the packed
+counts vs ``ops.packed_collision_counts`` at every pack width;
+``score_topk`` vs the reference scorer.  One interpret-mode Pallas case per kernel.  All outputs
 are integers or count/k floats: tolerance 0.
 """
 
@@ -26,6 +27,7 @@ from repro_torch.kernels import dispatch as t_dispatch
 from repro_torch.kernels import lsh_probe as t_probe
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import query_fused as t_qf
+from repro_torch.kernels.packfmt import PACK_BITS
 from repro_torch.store.table import BandedLSHTable
 
 CPU = torch.device("cpu")
@@ -210,8 +212,10 @@ def test_collision_counts_match_pallas_kernel_interpret():
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("b", PACK_BITS)
 def test_packed_collision_counts_in_blocks(b):
+    """Every pack width, N = 50 above ``unpack_block_n`` = 16: the blocked
+    CPU path against the reference's, counts and scores."""
     rng = np.random.default_rng(b)
     k = 40
     sq = rng.integers(0, 2**31, (5, k), dtype=np.int32)
@@ -219,6 +223,8 @@ def test_packed_collision_counts_in_blocks(b):
     sn[3] = sq[1]
     wq = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sq), b))
     wn = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sn), b))
+    want_counts = np.asarray(ref_ops.packed_collision_counts(
+        jnp.asarray(wq), jnp.asarray(wn), k, b, unpack_block_n=16))
     want = np.asarray(ref_ops.packed_estimated_jaccard_matrix(
         jnp.asarray(wq), jnp.asarray(wn), k, b, unpack_block_n=16))
     got = t_ops.packed_estimated_jaccard_matrix(
@@ -226,8 +232,28 @@ def test_packed_collision_counts_in_blocks(b):
     blocked = t_ops.packed_collision_counts(
         u32_to_device(wq, CPU), u32_to_device(wn, CPU), k, b,
         unpack_block_n=16)
+    assert np.array_equal(blocked.numpy(), want_counts)
+    assert int(want_counts[1, 3]) == k
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(blocked.numpy().astype(np.float32) / k, want)
+
+
+@pytest.mark.parametrize("b", PACK_BITS)
+@pytest.mark.parametrize("k", [1, 33])
+def test_packed_collision_kernel_wrapper_on_cpu_matches_reference(b, k):
+    """The packed wrapper on CPU tensors (its plain version: unpack, then
+    count), K a multiple of 32/b or not, against the reference."""
+    rng = np.random.default_rng(b + k)
+    sq = rng.integers(0, 3, (7, k), dtype=np.int32)
+    sn = rng.integers(0, 3, (20, k), dtype=np.int32)
+    wq = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sq), b))
+    wn = np.asarray(ref_packfmt.pack_codes(jnp.asarray(sn), b))
+    want = np.asarray(ref_ops.packed_collision_counts(
+        jnp.asarray(wq), jnp.asarray(wn), k, b))
+    got = t_coll.packed_collision_counts_kernel(
+        u32_to_device(wq, CPU), u32_to_device(wn, CPU), k, b)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
 
 
 # -- scorer ------------------------------------------------------------------
