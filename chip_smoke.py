@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
 path (sparse and dense input) and the paper's Fig. 7 experiment on one
-NVIDIA card, with its six hand-written kernels.
+NVIDIA card, with its hand-written kernels (six CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
 Phases; any failure raises and exits non-zero, and no result line is
 printed then:
 
-1. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+1. Build the six CUDA sources in ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print nvcc's register report.
 2. Main path at full size, through the service a user calls: SearchConfig
    defaults (D = 2^16, K = 256, 32 bands x 8 rows, b = 32, n_slots 2048
@@ -20,28 +20,40 @@ printed then:
    must be > 0, and the collision kernel must have launched once per
    brute-force fallback call (one launch over the whole index).  Top-1
    self-hit on the indexed rows must be 100%, and some rows must take the
-   brute-force fallback.
+   brute-force fallback.  Then the same batch through the shard's own
+   ``SketchStore.query_packed`` (the library's single-store query), its
+   counts set to 0 just before and read just after (``store_path``): it
+   must answer as the service did, with one launch of the fold + probe
+   kernel a batch and none of the probe from hashes.
 3. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it: outputs must be equal (tolerance 0, all
    integers).  Times are medians of CUDA-event timings after warm-up.
    ``ms`` (as ``plain_ms`` and ``library_ms``) times the call as a caller
    makes it, the wrapper's host work included; ``device_ms`` has the card
    spin ~0.25 ms before each start event, so the host's work overlaps the
-   spin and the events time the device's work alone.
+   spin and the events time the device's work alone (a run whose enqueue
+   outlasts the spin is dropped; a kernel with no device-only time this
+   way fails the run).
    ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations / the
    int32 rate (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7e12 op/s, half
    the lanes behind the published 67 TFLOP/s float32 figure of the H100
    SXM), counted from this run's inputs.  ``library_ms`` is the collision
    count as one PyTorch call, ``K - torch.cdist(a.double(), b.double(),
    p=0)`` (float64 holds the int32 codes exactly; checked equal), timed
-   here only; no single PyTorch call computes the other three, so theirs
-   is null.  The collision kernel is timed at the fallback's real call,
-   the pow2-padded fallback rows against all 262,144 indexed rows in one
-   launch on the stored words, and on one 16,384-row block of unpacked
-   codes (the shape the earlier blocked fallback launched 16 times); its
-   bound counts one integer compare a pair of codes (a pair of words at
-   b < 32), the compare being the only part of the count that needs the
-   integer pipe.
+   here only; no single PyTorch call computes the others, so theirs is
+   null.  The probe runs from the fold's hashes on the card
+   (``lsh_probe``) and, folding the query words itself, as one launch
+   (``fold_probe``); its bound counts the function's own bytes (8 a hash
+   or R * 4 a band's words, 8 a probe step this run's walks take, W * 4 a
+   hit, the output), and the dependent reads of the earlier and the
+   current probe over this run's walks are printed beside it; then the fold -> candidates leg
+   as the service's shard runs it is timed.  The collision kernel is timed
+   at the fallback's real call, the pow2-padded fallback rows against all
+   262,144 indexed rows in one launch on the stored words, and on one
+   16,384-row block of unpacked codes (the shape the earlier blocked
+   fallback launched 16 times); its bound counts one integer compare a
+   pair of codes (a pair of words at b < 32), the compare being the only
+   part of the count that needs the integer pipe.
 4. One more query batch under ``torch.profiler``: the device-busy share
    of its wall time and device time by kernel (the timeline goes to
    ``chiprun_out/query_trace.json``).
@@ -82,8 +94,8 @@ printed then:
    both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
 
-``launches`` in the kernels line is the sum over the three counted paths
-(phases 2, 6 and 7).
+``launches`` in the kernels line is the sum over the four counted paths
+(phase 2's service and store paths, phases 6 and 7).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -101,8 +113,15 @@ serving fallback (b = 32 and 8), one 16,384-row block and Fig. 7's 4096 x
 ``DIR/src/repro_torch/csrc``'s source of it (an earlier checkout) behind
 the same wrapper.  Each variant is checked against the plain version and
 timed both ways; the collision kernel's count loop is profiled in SASS
-(instructions a compare, by opcode).  Output: ``chiprun_out/compare.json``
-and ``chiprun_out/collision.sass``.
+(instructions a compare, by opcode).  Then the query side at the main
+path's full-size shapes (a 2^19-slot, 32-band table of 262,144 documents,
+1088 x 32 x 8 query codes): the fold, the probe from the fold's hashes,
+the fold -> candidates leg as the service's shard runs it (fold, probe;
+DIR's sources on the earlier operand-row interface: fold, hashes to the
+host, ``probe_operands``, upload, probe) and as the single store runs it (one
+fold + probe launch; DIR's: fold, ``meta_from_hashes``, probe); each also
+timed with L2 flushed before every run.  Output:
+``chiprun_out/compare.json`` and ``chiprun_out/collision.sass``.
 """
 
 from __future__ import annotations
@@ -148,7 +167,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2, spin: bool = False) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, spin: bool = False,
+            flush: torch.Tensor | None = None) -> float | None:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up,
     the host's work to launch it included.
 
@@ -156,7 +176,13 @@ def time_ms(fn, reps: int, warmup: int = 2, spin: bool = False) -> float:
     before the start event of each run, so the host's work to launch
     ``fn`` (the wrapper's checks, the allocation, the ctypes call) overlaps
     the spin and the events time the device's work alone, as long as that
-    enqueue takes less than the spin."""
+    enqueue takes less than the spin.  A run whose enqueue outlasts it (the
+    card has passed the start event when ``fn`` returns: a long enqueue,
+    or an ``fn`` that waits for the card) holds host work, and is dropped;
+    if half the runs or more are, ``fn`` has no device-only time this way
+    and the result is None.  With ``flush`` (a tensor larger than the 50 MB
+    L2) the card rewrites it before each run, so ``fn`` finds its inputs in
+    device memory, not in L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -164,20 +190,33 @@ def time_ms(fn, reps: int, warmup: int = 2, spin: bool = False) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.add_(1)
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
+        overran = spin and start.query()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if not overran:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times) if 2 * len(times) > reps else None
 
 
-def both_ms(fn, reps: int) -> tuple[float, float]:
+def both_ms(fn, reps: int, host_bound_ok: bool = False
+            ) -> tuple[float, float | None]:
     """(``ms``, ``device_ms``) of ``fn``: with the host's launch work, and
-    without it."""
-    return time_ms(fn, reps), time_ms(fn, reps, spin=True)
+    without it.  A device time that cannot be separated from the host's
+    work (``time_ms`` gives None) fails the run unless ``host_bound_ok``."""
+    ms, device_ms = time_ms(fn, reps), time_ms(fn, reps, spin=True)
+    require(device_ms is not None or host_bound_ok,
+            "device time: the enqueue outlasted the card's spin")
+    return ms, device_ms
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "host-bound" if ms is None else f"{ms:.4f}"
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -214,6 +253,7 @@ def kernels():
     return {"cminhash_sparse": cminhash_sparse.KERNEL,
             "fold": query_fused.KERNEL,
             "lsh_probe": lsh_probe.KERNEL,
+            "fold_probe": query_fused.FOLD_PROBE_KERNEL,
             "collision": collision_kernel.KERNEL,
             "cminhash_dense": cminhash_kernel.KERNEL,
             "cminhash_packed": cminhash_packed.KERNEL}
@@ -307,6 +347,7 @@ def main_path(idx, fresh_idx, report: dict):
     for n in ("cminhash_sparse", "fold", "lsh_probe", "collision"):
         require(launches[n] > 0,
                 f"kernel {n} launched on the main path ({launches[n]})")
+    store_path(svc, qidx, ids, scores, report)
     n_shards = len(svc.store.shards)
     require(per_query["collision"] == n_shards
             and launches["collision"] == len(lat) * n_shards,
@@ -314,6 +355,38 @@ def main_path(idx, fresh_idx, report: dict):
             f"({launches['collision']} launches for {len(lat)} query batches "
             f"x {n_shards} shard)")
     return svc, qidx
+
+
+def store_path(svc, qidx, ids, scores, report: dict) -> None:
+    """Phase 2, second leg: the same query batch through the main path's
+    shard store, ``SketchStore.query_packed``, the library's single-store
+    query (fold and probe in one launch of the probe kernel), counted apart
+    from the service.  It must answer as the service did."""
+    ks = kernels()
+    store = svc.store.shards[0].store
+    qwords = svc.engine.sign(qidx, layout="sparse", pack_b=svc.cfg.b)
+    torch.cuda.synchronize()
+    zero_counts(ks)
+    # --- the store path: query batches --------------------------------------
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s_ids, s_scores = store.query_packed(qwords, top_k=TOP_K)
+        lat.append(time.perf_counter() - t0)
+    launches = read_counts(ks)
+    # -----------------------------------------------------------------------
+    report["store_path"] = {"query_rows": len(qidx),
+                            "query_latency_s_all": lat,
+                            "n_spilled": store.n_spilled,
+                            "launches": launches}
+    print(f"[store] SketchStore.query_packed, {len(qidx)} rows: "
+          + ", ".join(f"{t * 1e3:.3f}" for t in lat)
+          + f" ms; launches {launches}")
+    require(np.array_equal(s_ids, ids) and np.array_equal(s_scores, scores),
+            "the store's own query answers as the service")
+    require(launches["fold_probe"] == len(lat) and launches["lsh_probe"] == 0,
+            f"the store's query probes in one fold + probe launch a batch "
+            f"({launches['fold_probe']} for {len(lat)} batches)")
 
 
 def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
@@ -324,6 +397,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     from repro_torch.device import u32_to_host
     from repro_torch.kernels import cminhash_sparse as ks
     from repro_torch.kernels import collision_kernel as kc
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import lsh_probe as kp
     from repro_torch.kernels import query_fused as kq
     from repro_torch.kernels.packfmt import pack_codes, unpack_codes
@@ -385,6 +459,9 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     require(torch.equal(kq.fold_rows_kernel(sig, sign_extend=True),
                         kq.fold_rows_plain(sig, sign_extend=True)),
             "fold sign_extend")
+    moved = torch.cat([rows.new_zeros(1), rows.reshape(-1)])[1:]
+    require(torch.equal(kq.fold_rows_kernel(moved.view(rows.shape)), want),
+            "fold, rows off the 16-byte boundary (scalar loads)")
     ms, dev_ms = both_ms(lambda: kq.fold_rows_kernel(rows), 50)
     plain_ms = time_ms(lambda: kq.fold_rows_plain(rows), 10)
     entry("fold", "src/repro_torch/csrc/fold.cu",
@@ -392,28 +469,62 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
           rows.numel() * 4 + got.numel() * 8, rows.numel() * 5, dev_ms,
           {"shape": list(rows.shape)})
 
-    # 3. probe over the full-size resident records
+    # 3. probe over the full-size resident records, from the fold's hashes
+    # where the fold left them
     records = store.table.device_records()
-    hashes = kq.hashes_to_host(folded)
-    meta = torch.tensor(kp.probe_operands(hashes, store.table.n_slots),
-                        device=dev)
     ns, mp = store.table.n_slots, store.table.max_probes
-    got = kp.lsh_probe_kernel(records, meta, n_slots=ns, max_probes=mp)
-    want = kp.lsh_probe_plain(records, meta, n_slots=ns, max_probes=mp)
-    ms, dev_ms = both_ms(lambda: kp.lsh_probe_kernel(
-        records, meta, n_slots=ns, max_probes=mp), 50)
-    plain_ms = time_ms(lambda: kp.lsh_probe_plain(records, meta, n_slots=ns,
-                                                  max_probes=mp), 5)
-    # bytes this run's walk needs: 8 key bytes per probe step taken, the W
-    # posting ids of each hit, the operands and the output
+    got = kp.lsh_probe_hashes_kernel(records, folded, n_slots=ns,
+                                     max_probes=mp)
+    want = kp.lsh_probe_hashes_plain(records, folded, n_slots=ns,
+                                     max_probes=mp)
+    ms, dev_ms = both_ms(lambda: kp.lsh_probe_hashes_kernel(
+        records, folded, n_slots=ns, max_probes=mp), 50)
+    plain_ms = time_ms(lambda: kp.lsh_probe_hashes_plain(
+        records, folded, n_slots=ns, max_probes=mp), 5)
+    # the function's bytes: 8 a hash, 8 key bytes per probe step this run's
+    # walks take, the W posting ids of each hit, the output
     w = records.shape[1] - 2
-    steps, hits = probe_walk(records, meta, ns, mp)
+    walk = probe_walk(records, kp.hash_operands(folded, ns), ns, mp)
+    e = folded.numel()
+    walk_bytes = walk["probe_steps"] * 8 + walk["hits"] * w * 4
     entry("lsh_probe", "src/repro_torch/csrc/lsh_probe.cu",
           "src/repro/kernels/lsh_probe.py:137", got, want, ms, plain_ms,
-          steps * 8 + hits * w * 4 + meta.numel() * 4 + got.numel() * 4,
-          steps * 3, dev_ms, {"shape": [int(meta.shape[0]), w],
-                      "records_shape": list(records.shape),
-                      "probe_steps": steps, "hits": hits})
+          e * 8 + walk_bytes + got.numel() * 4, walk["probe_steps"] * 3,
+          dev_ms, {"shape": [e, w], "records_shape": list(records.shape),
+                   **walk})
+    print(f"[kernel] lsh_probe walk: {walk['probe_steps']} steps for {e} "
+          f"entries (most {walk['steps_max']}), {walk['hits']} hits; "
+          f"dependent round trips, mean / most: thread an entry "
+          f"{walk['round_trips_thread_an_entry']['mean']:.3f} / "
+          f"{walk['round_trips_thread_an_entry']['max']}, group walk "
+          f"{walk['round_trips_group_walk']['mean']:.3f} / "
+          f"{walk['round_trips_group_walk']['max']}")
+
+    # 3b. fold + probe in one launch, from the query words (the store's own
+    # query)
+    fused = kq.fold_probe_kernel(records, rows, n_slots=ns, max_probes=mp)
+    require(torch.equal(fused, got), "fold + probe == probe of the fold")
+    ms, dev_ms = both_ms(lambda: kq.fold_probe_kernel(
+        records, rows, n_slots=ns, max_probes=mp), 50)
+    plain_ms = time_ms(lambda: kq.fold_probe_plain(
+        records, rows, n_slots=ns, max_probes=mp), 5)
+    entry("fold_probe", "src/repro_torch/csrc/lsh_probe.cu",
+          "src/repro/kernels/lsh_probe.py:137", fused,
+          kq.fold_probe_plain(records, rows, n_slots=ns, max_probes=mp), ms,
+          plain_ms, rows.numel() * 4 + walk_bytes + fused.numel() * 4,
+          walk["probe_steps"] * 3 + rows.numel() * 5, dev_ms,
+          {"shape": list(rows.shape) + [w],
+           "also_replaces": "src/repro/kernels/query_fused.py:164"})
+
+    # the fold -> candidates leg as the main path's shard runs it: words on
+    # the card to candidate ids on the card
+    leg_ms, leg_dev_ms = both_ms(lambda: kp.lsh_probe_hashes_kernel(
+        records, dispatch.fold_hashes(qwords, n_bands=cfg.n_bands),
+        n_slots=ns, max_probes=mp), 50)
+    report["query_leg"] = {"service_ms": leg_ms,
+                           "service_device_ms": leg_dev_ms}
+    print(f"[kernel] fold -> candidates leg as the service runs it: "
+          f"{leg_ms:.4f} ms, device {leg_dev_ms:.4f} ms")
 
     # 4. collision counts: the brute-force fallback's call, the
     # pow2-padded fallback rows against the whole index in one launch, on
@@ -542,22 +653,36 @@ def trace_query(svc, qdata, report: dict, layout: str = "sparse") -> None:
           + ", ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top[:4]))
 
 
-def probe_walk(records, meta, n_slots, max_probes) -> tuple[int, int]:
-    """Probe steps and hits of the early-exit walk over these operands."""
+def probe_walk(records, meta, n_slots, max_probes) -> dict:
+    """The early-exit walk over these operands: probe steps read and hits,
+    and the dependent memory reads each design of the probe needs for it:
+    a thread an entry (the earlier kernel: the operand row, one key read a
+    step, the hit's ids) and the group walk (``csrc/lsh_probe.cu``: the
+    hash, one read of four steps' keys, the hit's ids)."""
     lin, base = meta[:, 0].long(), meta[:, 1].long()
     active = meta[:, 4] != 0
-    steps = hits = 0
+    steps = torch.zeros(meta.shape[0], dtype=torch.long, device=meta.device)
+    hit_any = torch.zeros_like(active)
     for t in range(max_probes):
-        n_act = int(active.sum().item())
-        if not n_act:
+        if not bool(active.any()):
             break
-        steps += n_act
+        steps += active.long()
         rec = records[lin + (base + t * (t + 1) // 2) % n_slots]
         hit = active & (rec[:, 0] == meta[:, 2]) & (rec[:, 1] == meta[:, 3])
         unused = (rec[:, 0] == -1) & (rec[:, 1] == -1)
-        hits += int(hit.sum().item())
+        hit_any |= hit
         active = active & ~hit & ~unused
-    return steps, hits
+    old = 1 + steps + hit_any.long()
+    new = 1 + (steps + 3) // 4 + hit_any.long()
+
+    def stats(trips):
+        return {"mean": float(trips.double().mean()),
+                "max": int(trips.max()) if trips.numel() else 0}
+    return {"probe_steps": int(steps.sum()), "hits": int(hit_any.sum()),
+            "steps_max": int(steps.max()) if steps.numel() else 0,
+            "steps_hist": torch.bincount(steps).tolist(),
+            "round_trips_thread_an_entry": stats(old),
+            "round_trips_group_walk": stats(new)}
 
 
 def card_vs_cpu(idx, fresh_idx, report: dict) -> None:
@@ -921,6 +1046,11 @@ PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
 UNPACKED_COLLISION_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+# The earlier probe interface: (records, (E, 5) operand rows, out, E,
+# n_slots, max_probes, W)
+OPERAND_ROW_PROBE_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 3)
+QUERY_SOURCES = ("fold", "lsh_probe")
 
 
 def build_baseline(baseline: str, names) -> dict[str, str]:
@@ -1012,12 +1142,14 @@ def compare(baseline: str | None, report: dict) -> None:
     dev = torch.device("cuda")
     mods = {"cminhash_sparse": ks, "cminhash_dense": kd,
             "cminhash_packed": kpk, "collision": kc}
-    base, unpacked_abi = {}, False
+    base, unpacked_abi, query_libs = {}, False, {}
     if baseline:
         with open(os.path.join(baseline, "src", "repro_torch", "csrc",
                                "collision.cu")) as f:
             unpacked_abi = "int bits" not in f.read()
-        for name, path in build_baseline(baseline, list(mods)).items():
+        libs = build_baseline(baseline, [*mods, *QUERY_SOURCES])
+        query_libs = {n: libs.pop(n) for n in QUERY_SOURCES}
+        for name, path in libs.items():
             args = (UNPACKED_COLLISION_ARGS if name == "collision"
                     and unpacked_abi else mods[name].KERNEL.argtypes)
             base[name] = _build.CudaKernel(name, args, library=path)
@@ -1178,6 +1310,155 @@ def compare(baseline: str | None, report: dict) -> None:
         f"{r['docs']} docs {r['ms']:.4f} ms (device {r['device_ms']:.4f})"
         for r in scaling))
     collision_sass(report)
+    compare_query(baseline, query_libs, report)
+
+
+def query_case(n_docs: int):
+    """The full-size table and a serving query batch, built directly: the
+    corpus signed on the card in serving batches, its band hashes inserted
+    in one call into a table at the geometry the main path's ingest grows
+    to at 262,144 documents (2^19 slots, bucket width 8, 16 probes).
+    Returns (table, query words on the card, n_bands)."""
+    from repro_torch.core.lsh import band_hashes_packed
+    from repro_torch.core.permutations import make_two_permutations
+    from repro_torch.device import u32_to_host
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.search import SearchConfig
+    from repro_torch.store.table import BandedLSHTable
+    dev = torch.device("cuda")
+    cfg = SearchConfig()
+    sigma, pi = make_two_permutations(torch.Generator().manual_seed(0),
+                                      cfg.d, device=dev)
+    idx, fresh = corpus(n_docs)
+
+    def sign(rows):
+        return dispatch.signatures_sparse(torch.tensor(rows, device=dev), pi,
+                                          cfg.k, sigma, pack_b=cfg.b)
+    words = torch.cat([sign(idx[lo: lo + BATCH])
+                       for lo in range(0, len(idx), BATCH)])
+    table = BandedLSHTable(cfg.n_bands, n_slots=1 << 19,
+                           bucket_width=cfg.bucket_width, max_probes=16,
+                           device=dev)
+    table.insert(band_hashes_packed(u32_to_host(words), cfg.n_bands),
+                 np.arange(len(idx)))
+    qwords = sign(np.concatenate([idx[:N_QUERY_INDEXED], fresh]))
+    return table, qwords, cfg.n_bands
+
+
+def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
+    """``--compare``, the query side: the fold, the probe and the fold ->
+    candidates leg at the main path's full-size shapes (1088 x 32 x 8 query
+    codes, a 2^19-slot, 32-band table of 262,144 documents).  With
+    ``--baseline DIR``, beside each the previous ``fold.cu`` /
+    ``lsh_probe.cu`` built from DIR, called as the earlier wrappers called
+    them: a probe with the earlier operand-row interface gets its operands
+    built as those wrappers built them, on the host (``probe_operands``,
+    then an upload) in the service's leg and on the card
+    (``meta_from_hashes``) in the single store's.  Each variant is
+    checked against the plain version and timed in turns, with and
+    without the host's launch work, and with L2 flushed."""
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import lsh_probe as kp
+    from repro_torch.kernels import query_fused as kq
+    dev = torch.device("cuda")
+    table, qwords, nb = query_case(BATCH * 64)
+    records = table.device_records()
+    ns, mp = table.n_slots, table.max_probes
+    w = records.shape[1] - 2
+    rows = kq.words_to_rows(qwords, nb).contiguous()
+    q, _, r = rows.shape
+    hashes = kq.fold_rows_kernel(rows)
+    meta = torch.tensor(kp.probe_operands(kq.hashes_to_host(hashes), ns),
+                        device=dev)
+    new = {"fold": lambda: kq.fold_rows_kernel(rows),
+           "probe": lambda: kp.lsh_probe_hashes_kernel(
+               records, hashes, n_slots=ns, max_probes=mp),
+           "service leg": lambda: kp.lsh_probe_hashes_kernel(
+               records, dispatch.fold_hashes(qwords, n_bands=nb),
+               n_slots=ns, max_probes=mp),
+           "store leg": lambda: kq.fold_probe_kernel(
+               records, rows, n_slots=ns, max_probes=mp)}
+    old = {}
+    if libs:
+        with open(os.path.join(baseline, "src", "repro_torch", "csrc",
+                               "lsh_probe.cu")) as f:
+            meta_abi = "const int* meta" in f.read()
+        fold_k = _build.CudaKernel("fold", kq.KERNEL.argtypes,
+                                   library=libs["fold"])
+
+        def old_fold():
+            out = torch.empty((q, nb), dtype=torch.int64, device=dev)
+            fold_k.launch(dev, _build.ptr(rows), _build.ptr(out), q, nb, r, 0)
+            return out
+        if meta_abi:
+            probe_k = _build.CudaKernel("lsh_probe", OPERAND_ROW_PROBE_ARGS,
+                                        library=libs["lsh_probe"])
+
+            def old_probe(m):
+                out = torch.empty((m.shape[0], w), dtype=torch.int32,
+                                  device=dev)
+                probe_k.launch(dev, _build.ptr(records), _build.ptr(m),
+                               _build.ptr(out), m.shape[0], ns, mp, w)
+                return out
+            old = {"fold": old_fold,
+                   "probe": lambda: old_probe(meta),
+                   "service leg": lambda: old_probe(torch.tensor(
+                       kp.probe_operands(kq.hashes_to_host(old_fold()), ns),
+                       device=dev)),
+                   "store leg": lambda: old_probe(kq.meta_from_hashes(
+                       old_fold(), n_slots=ns).contiguous())}
+        else:
+            probe_k = _build.CudaKernel("lsh_probe", kp.KERNEL.argtypes,
+                                        library=libs["lsh_probe"])
+
+            def old_probe(h):
+                out = torch.empty((h.numel(), w), dtype=torch.int32,
+                                  device=dev)
+                probe_k.launch(dev, _build.ptr(records), _build.ptr(h),
+                               _build.ptr(out), h.numel(), nb, ns, mp, w)
+                return out
+            old = {"fold": old_fold, "probe": lambda: old_probe(hashes),
+                   "service leg": lambda: old_probe(old_fold())}
+    want = {"fold": kq.fold_rows_plain(rows),
+            "probe": kp.lsh_probe_hashes_plain(records, hashes, n_slots=ns,
+                                               max_probes=mp)}
+    want["service leg"] = want["store leg"] = want["probe"]
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    cases = [(case, {"new": fn, **({"old": old[case]} if case in old
+                                   else {})}, want[case])
+             for case, fn in new.items()]
+    rows_out = []
+    for case, variants, expect in cases:
+        for label, call in variants.items():
+            require(torch.equal(call(), expect), f"{case} ({label}) == plain")
+        times = {lbl: {"ms": [], "device_ms": [], "cold_device_ms": []}
+                 for lbl in variants}
+        for order in (list(variants), list(variants)[::-1]):
+            for label in order:
+                t = times[label]
+                # the earlier legs wait for the card or enqueue longer
+                # than the spin: they have an as-called time only
+                ms, dev_ms = both_ms(variants[label], 50, host_bound_ok=True)
+                t["ms"].append(ms)
+                t["device_ms"].append(dev_ms)
+                t["cold_device_ms"].append(time_ms(variants[label], 30,
+                                                   spin=True, flush=flush))
+        row = {"case": case, "rounds": times,
+               **{key: {lbl: None if None in t[key]
+                        else statistics.median(t[key])
+                        for lbl, t in times.items()}
+                  for key in ("ms", "device_ms", "cold_device_ms")}}
+        rows_out.append(row)
+        print(f"[compare] {case}: " + "; ".join(
+            f"{lbl} {row['ms'][lbl]:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'][lbl])}, L2 flushed "
+            f"{fmt_ms(row['cold_device_ms'][lbl])})" for lbl in variants))
+    walk = probe_walk(records, meta, ns, mp)
+    report["compare_query"] = {"rows": rows_out, "shape": list(rows.shape),
+                               "records_shape": list(records.shape),
+                               "n_spilled": table.n_spilled, **walk}
+    print(f"[compare] probe walk: {walk['probe_steps']} steps, "
+          f"{walk['hits']} hits, steps by entry {walk['steps_hist']}")
 
 
 def pack_codes_dev(codes: torch.Tensor, b: int) -> torch.Tensor:
@@ -1194,12 +1475,12 @@ def main() -> None:
                     help="documents to ingest on the main path")
     ap.add_argument("--compare", action="store_true",
                     help="only compare the signing kernels' table "
-                         "placements and the collision kernel (and "
-                         "--baseline's builds)")
+                         "placements, the collision kernel, the fold, the "
+                         "probe (and --baseline's builds)")
     ap.add_argument("--baseline", default=None,
-                    help="with --compare: a checkout whose three signing "
-                         "sources and collision source are timed behind "
-                         "the same wrappers")
+                    help="with --compare: a checkout whose signing, "
+                         "collision, fold and probe sources are timed "
+                         "behind the same wrappers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1254,7 +1535,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense_card_vs_cpu(idx, fresh_idx, report)
 
-    paths = ("main_path", "dense_path", "paper_path")
+    paths = ("main_path", "store_path", "dense_path", "paper_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

@@ -5,44 +5,35 @@
 //   fold_planes_pallas (:164; pallas_call at :179).
 //
 // Computes, for each (row, band), the polynomial fold of the band's R codes
-//     h = 0;  for r < R:  h = h * 0x9E3779B97F4A7C15 + x_r + 1;  h ^= h >> 29
-// in wrapping uint64 arithmetic, bit-identical to core.lsh._poly_fold.  The
-// TPU has no 64-bit lanes and emulates this on two uint32 planes with a
-// 16-bit-limb multiply and explicit carries; Hopper has native 64-bit
-// integers, so one thread folds one band with unsigned long long.  The codes
-// arrive as int32 (uint32 bits): packed words zero-extend (sign_extend = 0),
-// raw int32 signature codes sign-extend (sign_extend = 1), as the host
-// fold's astype(np.uint64) does for each.
+// (band_fold.cuh, shared with the probe kernel's words-in prologue) and
+// writes it as int64 with the uint64 bits.  The hashes stay on the card:
+// the probe kernel (lsh_probe.cu) reads them there, and only a consumer on
+// the host (the spill leg, the host walk) copies them out.  The TPU has no
+// 64-bit lanes and emulates the fold on two uint32 planes; Hopper folds in
+// native 64-bit integers, one thread a band.
 //
 // What bounds it on an H100: bytes.  It reads Q*nb*R*4 bytes and writes
 // Q*nb*8, a few operations per byte, and at the serving shapes (Q ~ 1088,
 // nb = 32, R = 8: ~1.4 MB) the launch itself costs more than the traffic.
 // Consecutive threads take consecutive bands, so a warp's reads cover one
-// contiguous span of rows.
+// contiguous span of rows; a band of R = 8 codes is two 16-byte loads,
+// both in flight before the chain starts.
 
 #include <cuda_runtime.h>
+
+#include "band_fold.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned long long kBase = 0x9E3779B97F4A7C15ull;
 
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const int* __restrict__ x, long long* __restrict__ out,
             long long n_bands_total, int R, int sign_extend) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_bands_total) return;
-  const int* __restrict__ row = x + e * R;
-  unsigned long long h = 0;
-  for (int r = 0; r < R; ++r) {
-    const int v = __ldg(row + r);
-    const unsigned long long c =
-        sign_extend ? static_cast<unsigned long long>(static_cast<long long>(v))
-                    : static_cast<unsigned long long>(static_cast<unsigned>(v));
-    h = h * kBase + c + 1ull;
-    h ^= h >> 29;
-  }
-  out[e] = static_cast<long long>(h);
+  out[e] = static_cast<long long>(band_fold::fold(x + e * R, R,
+                                                  sign_extend != 0));
 }
 
 }  // namespace

@@ -57,3 +57,12 @@ def as_host_words(words) -> np.ndarray:
     if isinstance(words, torch.Tensor):
         return u32_to_host(words)
     return np.asarray(words, np.uint32)
+
+
+def take_rows(words, rows: np.ndarray):
+    """``words[rows]`` for a host array, or a tensor indexed on its own
+    device (the row indices go there, the rows stay)."""
+    if isinstance(words, torch.Tensor):
+        return words[torch.from_numpy(np.asarray(rows, np.int64))
+                     .to(words.device)]
+    return words[rows]

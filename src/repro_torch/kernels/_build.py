@@ -99,11 +99,17 @@ class CudaKernel:
     ``launches`` goes up by one for every launch the card accepted, and
     nowhere else: it is how a run shows that a path went through the
     kernel.  A launch the runtime refuses raises ``RuntimeError``.
-    ``library`` binds an already built library instead of building the
-    checkout's source (to time another version behind the same wrapper)."""
+    The entry point is ``<name>_launch`` in the library built from
+    ``csrc/<source>.cu`` (``source`` defaults to ``name``; a source may
+    hold several entry points, each with its own count) and its errors are
+    named by ``<source>_error``.  ``library`` binds an already built
+    library instead of building the checkout's source (to time another
+    version behind the same wrapper)."""
 
-    def __init__(self, name: str, argtypes: list, library: str | None = None):
+    def __init__(self, name: str, argtypes: list, library: str | None = None,
+                 *, source: str | None = None):
         self.name = name
+        self.source = source or name
         self.argtypes = argtypes
         self.library = library
         self.launches = 0
@@ -112,12 +118,12 @@ class CudaKernel:
         self._err = None
 
     def _bind(self) -> None:
-        path = self.library or build([self.name])[self.name]["path"]
+        path = self.library or build([self.source])[self.source]["path"]
         lib = self._lib = ctypes.CDLL(path)
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = [*self.argtypes, ctypes.c_void_p]     # + stream
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{self.name}_error")
+        err = getattr(lib, f"{self.source}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err

@@ -88,43 +88,48 @@ def signatures_sparse(idx: torch.Tensor, pi: torch.Tensor, k: int,
 def lsh_probe(records_dev: torch.Tensor, hashes: np.ndarray, *,
               n_slots: int, max_probes: int) -> np.ndarray:
     """(Q, n_bands) uint64 band hashes -> (Q, n_bands * W) candidate ids
-    over the table's uploaded records (``BandedLSHTable.device_records``)."""
+    over the table's uploaded records (``BandedLSHTable.device_records``).
+    The hashes go up as int64, 8 bytes an entry; the kernel derives the
+    probe's operands from them."""
     obs_metrics.default().counter(f"kernel.probe.{_impl(records_dev)}").inc()
     q, nb = hashes.shape
     w = records_dev.shape[1] - 2
-    meta = torch.tensor(_lsh_probe.probe_operands(hashes, n_slots),
-                        device=records_dev.device)
-    out = _lsh_probe.lsh_probe_kernel(records_dev, meta, n_slots=n_slots,
-                                      max_probes=max_probes)
+    h = torch.from_numpy(np.ascontiguousarray(hashes, np.uint64)
+                         .view(np.int64)).to(records_dev.device)
+    out = _lsh_probe.lsh_probe_hashes_kernel(records_dev, h, n_slots=n_slots,
+                                             max_probes=max_probes)
     return out.cpu().numpy().reshape(q, nb * w)
 
 
-def fold_hashes(qwords: torch.Tensor, *, n_bands: int) -> np.ndarray:
-    """(Q, W) int32 packed query words -> (Q, n_bands) uint64 band hashes
-    via the device fold; bit-identical to ``core.lsh.band_hashes_packed``.
-    The coordinator's fold leg: the hashes go to the host for the shard
-    broadcast anyway."""
+def fold_hashes(qwords: torch.Tensor, *, n_bands: int) -> torch.Tensor:
+    """(Q, W) int32 packed query words -> (Q, n_bands) int64 band hashes
+    (uint64 bits) on the words' device, via the fold kernel; bit-identical
+    to ``core.lsh.band_hashes_packed``.  The coordinator's fold leg: the
+    hashes stay on the device for the shards' probes, and nothing here
+    waits for the card."""
     obs_metrics.default().counter(f"kernel.fold.{_impl(qwords)}").inc()
     rows = _query_fused.words_to_rows(qwords.contiguous(), n_bands)
-    h = _query_fused.fold_rows_kernel(rows.contiguous())
-    return _query_fused.hashes_to_host(h)
+    return _query_fused.fold_rows_kernel(rows.contiguous())
 
 
 def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
                 qwords: torch.Tensor, *, n_bands: int, n_slots: int,
                 max_probes: int, k: int, b: int, top_k: int,
-                hashes: np.ndarray | None = None, spill_lookup=None,
+                hashes: _query_fused.BandHashes | None = None,
+                spill_lookup=None,
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Fold -> probe -> score over resident store state: (Q, W) packed
     query words -> ``(ids, scores, has_candidates)`` host arrays.
 
-    * ``hashes=None``: fold and probe meta on the device (power-of-two
-      ``n_slots``; the store gates).
-    * ``hashes=`` host uint64 band hashes (the coordinator folded once and
-      broadcast them): the fold is skipped and the meta is built on the
-      host (``probe_operands``, any ``n_slots``).
+    * ``hashes=None``: the probe kernel folds the words itself, one launch
+      (power-of-two ``n_slots``: the store gates, as the reference does).
+    * ``hashes=`` the coordinator's ``BandHashes`` (folded once for every
+      shard): the probe reads their device tensor directly.
     * ``spill_lookup``: optional ``hashes -> (Q, M) int64`` host callable
-      for the table's spilled keys, concatenated before scoring.
+      for the table's spilled keys, given the host uint64 hashes and
+      concatenated before scoring.  Only this leg makes a host copy of the
+      hashes (once a batch, ``BandHashes.host``); without ``hashes`` the
+      fold kernel runs once more for it.
 
     Returns ids (Q, top_k) int64 (-1 pad), scores (Q, top_k) float32
     (-inf pad), has_candidates (Q,) bool."""
@@ -136,19 +141,19 @@ def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
     w = records_dev.shape[1] - 2
     if hashes is None:
         rows = _query_fused.words_to_rows(qwords, n_bands)
-        h = _query_fused.fold_rows_kernel(rows.contiguous())
-        meta = _query_fused.meta_from_hashes(h, n_slots=n_slots)
-        if spill_lookup is not None:
-            hashes = _query_fused.hashes_to_host(h)
+        cand = _query_fused.fold_probe_kernel(records_dev, rows,
+                                              n_slots=n_slots,
+                                              max_probes=max_probes)
     else:
-        meta = torch.tensor(_lsh_probe.probe_operands(hashes, n_slots),
-                            device=dev)
-    cand = _lsh_probe.lsh_probe_kernel(records_dev, meta.contiguous(),
-                                       n_slots=n_slots,
-                                       max_probes=max_probes)
+        cand = _lsh_probe.lsh_probe_hashes_kernel(records_dev, hashes.dev,
+                                                  n_slots=n_slots,
+                                                  max_probes=max_probes)
     cand = cand.reshape(q, n_bands * w)
     if spill_lookup is not None:
-        spill = np.asarray(spill_lookup(hashes))
+        if hashes is None:
+            hashes = _query_fused.BandHashes(fold_hashes(qwords,
+                                                         n_bands=n_bands))
+        spill = np.asarray(spill_lookup(hashes.host()))
         if spill.size:
             cand = torch.cat([cand, torch.tensor(spill.astype(np.int32),
                                                  device=dev)], dim=1)

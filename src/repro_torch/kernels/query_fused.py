@@ -1,14 +1,21 @@
-"""Device query pipeline pieces: band-hash fold, probe meta, top-k scoring.
+"""Device query pipeline pieces: band-hash fold, fused fold + probe, top-k
+scoring.
 
 * **fold** — the polynomial band-hash fold ``h = h * BASE + x + 1;
   h ^= h >> 29`` over each band's R codes, in uint64.  The reference
-  emulates it on two uint32 planes; the CUDA kernel (``csrc/fold.cu``) uses
-  native 64-bit integers and the plain version wrapping int64 (with the
-  logical shift written as an arithmetic shift and a mask).  Hashes travel
-  as int64 tensors with uint64 bits.  Packed words zero-extend, raw int32
-  signature codes sign-extend, as the host fold does.
-* **probe meta** — ``meta_from_hashes`` builds the ``lsh_probe`` operand
-  block on the device (power-of-two ``n_slots``).
+  emulates it on two uint32 planes; the CUDA kernel (``csrc/fold.cu`` on
+  ``csrc/band_fold.cuh``) uses native 64-bit integers and the plain
+  version wrapping int64 (with the logical shift written as an arithmetic
+  shift and a mask).  Hashes travel as int64 tensors with uint64 bits and
+  stay on the device (``BandHashes``); a host uint64 copy is made only for
+  a host consumer.  Packed words zero-extend, raw int32 signature codes
+  sign-extend, as the host fold does.
+* **fold + probe** — ``fold_probe_kernel``: the probe kernel
+  (``csrc/lsh_probe.cu``) folding each entry's packed words itself, so
+  fold, operands and probe are one launch (the single store's own query).
+* **probe meta** — ``meta_from_hashes`` is the port of the reference's
+  ``meta_from_planes`` (power-of-two ``n_slots``), held by its parity test;
+  the probe kernel derives its operands itself and no card path calls it.
 * **scorer** — ``score_topk`` ranks (Q, C) -1-padded candidate rows against
   the resident packed words: sort-by-id dedup, one row gather, b-bit
   unpack, integer collision counts, then a stable sort by id and a stable
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .lsh_probe import META_COLS
+from .lsh_probe import META_COLS, check_geometry, lsh_probe_hashes_plain
 from .packfmt import unpack_codes
 
 BASE = 0x9E3779B97F4A7C15
@@ -38,6 +45,11 @@ KERNEL = _build.CudaKernel("fold", [
     ctypes.c_void_p, ctypes.c_void_p,                    # rows, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # n_rows, nb, R
     ctypes.c_int])                                       # sign_extend
+FOLD_PROBE_KERNEL = _build.CudaKernel("fold_probe", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # records, rows, out
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # E, n_bands, n_slots
+    ctypes.c_int, ctypes.c_int, ctypes.c_int],           # max_probes, W, R
+    source="lsh_probe")
 
 
 def words_to_rows(words: torch.Tensor, n_bands: int) -> torch.Tensor:
@@ -88,6 +100,39 @@ def fold_rows_kernel(rows: torch.Tensor, *,
     return out
 
 
+def fold_probe_plain(flat_records: torch.Tensor, rows: torch.Tensor, *,
+                     n_slots: int, max_probes: int) -> torch.Tensor:
+    """(Q, nb, R) int32 packed words -> (Q * nb, W) candidate ids, -1
+    padded: ``fold_rows_plain``, then ``lsh_probe_hashes_plain``."""
+    return lsh_probe_hashes_plain(flat_records, fold_rows_plain(rows),
+                                  n_slots=n_slots, max_probes=max_probes)
+
+
+def fold_probe_kernel(flat_records: torch.Tensor, rows: torch.Tensor, *,
+                      n_slots: int, max_probes: int) -> torch.Tensor:
+    """(n_bands * n_slots, 2 + W) int32 records and (Q, nb, R) int32 packed
+    words -> (Q * nb, W) int32 candidate ids: the probe kernel with the
+    fold in its prologue (one launch) for CUDA tensors, the plain version
+    for CPU tensors."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return fold_probe_plain(flat_records, rows, n_slots=n_slots,
+                                max_probes=max_probes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _build.check_cuda_operand(flat_records, "records", torch.int32, 2, dev)
+    _build.check_cuda_operand(rows, "rows", torch.int32, 3, dev)
+    q, nb, r = rows.shape
+    w = flat_records.shape[1] - 2
+    check_geometry(flat_records, nb, n_slots)
+    out = torch.empty((q * nb, w), dtype=torch.int32, device=dev)
+    if q * nb:
+        FOLD_PROBE_KERNEL.launch(dev, _build.ptr(flat_records),
+                                 _build.ptr(rows), _build.ptr(out), q * nb,
+                                 nb, n_slots, max_probes, w, r)
+    return out
+
+
 def meta_from_hashes(h: torch.Tensor, *, n_slots: int) -> torch.Tensor:
     """(Q, nb) int64 fold keys -> (Q * nb, 5) int32 probe operands on the
     device: [band * n_slots, key & (n_slots - 1), key halves, valid].
@@ -113,9 +158,34 @@ def meta_from_hashes(h: torch.Tensor, *, n_slots: int) -> torch.Tensor:
 
 
 def hashes_to_host(h: torch.Tensor) -> np.ndarray:
-    """(Q, nb) int64 fold keys -> host uint64 hashes (the spill leg and
-    the shard broadcast want uint64)."""
+    """(Q, nb) int64 fold keys -> host uint64 hashes (waits for the device
+    work that produces ``h``)."""
     return np.array(h.cpu().numpy(), copy=True).view(np.uint64)
+
+
+class BandHashes:
+    """A query batch's (Q, n_bands) band hashes: ``dev``, int64 with the
+    uint64 bits on the device, which the probe reads; and the host uint64
+    copy, made at the first ``host()`` and kept, for the host consumers
+    (the spill leg, the host walk).  So the copy is made once a batch, and
+    only when a consumer needs it.  ``BandHashes(host=...)`` holds hashes
+    folded on the host (``query_impl="host"``), which have no device
+    tensor."""
+
+    __slots__ = ("dev", "_host")
+
+    def __init__(self, dev: torch.Tensor | None = None, *,
+                 host: np.ndarray | None = None):
+        if (dev is None) == (host is None):
+            raise ValueError("BandHashes takes a device tensor or host "
+                             "hashes")
+        self.dev = dev
+        self._host = host
+
+    def host(self) -> np.ndarray:
+        if self._host is None:
+            self._host = hashes_to_host(self.dev)
+        return self._host
 
 
 def score_topk(cand: torch.Tensor, words: torch.Tensor, qwords: torch.Tensor,

@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import u32_to_device
+from ..device import as_device_words, u32_to_device
 from ..kernels import ops
 from .packed import PackedSignatureBuffer
 
@@ -107,29 +107,30 @@ class QueryPlanner:
                 candidate_mask(rows, union_ids), top_k)
         return TopKPartial(ids, scores, has)
 
-    def brute_partial_packed(self, qwords: np.ndarray,
-                             top_k: int) -> TopKPartial:
+    def brute_partial_packed(self, qwords, top_k: int) -> TopKPartial:
         """Brute-force partial: every stored item scored for every row,
-        against the resident device words.  ``has_candidates`` is False
-        throughout.  Query rows are padded to the next power of two
-        (repeating row 0), as in the reference, so the scoring shapes take
-        few distinct values; the pad rows' results are sliced off."""
+        against the resident device words.  ``qwords`` is a host array or
+        a tensor; a tensor on the buffer's device is padded and scored
+        there, with no host copy.  ``has_candidates`` is False throughout.
+        Query rows are padded to the next power of two (repeating row 0),
+        as in the reference, so the scoring shapes take few distinct
+        values; the pad rows' results are sliced off."""
         q = qwords.shape[0]
         ids = np.full((q, top_k), -1, np.int64)
         scores = np.full((q, top_k), NEG_INF, np.float32)
         if self.buffer.size and q:
             union_ids = np.arange(self.buffer.size, dtype=np.int64)
             n_pad = (1 << (q - 1).bit_length()) - q
-            qp = qwords if not n_pad else np.concatenate(
-                [qwords, np.broadcast_to(qwords[:1],
-                                         (n_pad,) + qwords.shape[1:])])
+            qp = as_device_words(qwords, self.buffer.device)
+            if n_pad:
+                qp = torch.cat([qp, qp[:1].expand(n_pad, -1)])
             ids_p, scores_p = self._rank(qp, union_ids,
                                          self.buffer.device_words(), None,
                                          top_k)
             ids, scores = ids_p[:q], scores_p[:q]
         return TopKPartial(ids, scores, np.zeros(q, bool))
 
-    def _rank(self, qwords: np.ndarray, union_ids: np.ndarray,
+    def _rank(self, qwords, union_ids: np.ndarray,
               words_n: torch.Tensor, mask: np.ndarray | None,
               top_k: int) -> tuple[np.ndarray, np.ndarray]:
         """Score (Q', U) on the device and select top-k per row from the
@@ -140,8 +141,8 @@ class QueryPlanner:
         cfg = self.buffer.cfg
         dev = words_n.device
         q = qwords.shape[0]
-        counts = ops.packed_collision_counts(u32_to_device(qwords, dev),
-                                             words_n, cfg.k, cfg.b)
+        counts = ops.packed_collision_counts(
+            as_device_words(qwords, dev).contiguous(), words_n, cfg.k, cfg.b)
         if mask is not None:
             counts = torch.where(torch.tensor(mask, device=dev), counts, -1)
         kk = min(top_k, counts.shape[1])

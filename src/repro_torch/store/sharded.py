@@ -2,7 +2,10 @@
 
 Items are partitioned across S in-process shards, each a full
 ``SketchStore`` on the plane's device.  A query batch is folded to band
-hashes **once** (the fold kernel), broadcast to every shard, and each shard
+hashes **once** (the fold kernel), and every shard gets the hashes and
+the query words as the device tensors (``BandHashes``: the probe reads the
+hashes where the fold wrote them; a host copy is made once a batch, and
+only for a shard with spilled keys or on the host walk).  Each shard
 answers with a mergeable ``TopKPartial`` (local ids mapped to global);
 ``distributed.collectives.merge_topk`` reduces the S partials to the global
 top-k, so S-shard answers equal the single-shard store's bit for bit.  A row
@@ -29,8 +32,9 @@ import torch
 
 from ..core.lsh import band_hashes_packed
 from ..device import (DEFAULT_DEVICE, as_device_words, as_host_words,
-                      resolve_device)
+                      resolve_device, take_rows)
 from ..distributed.collectives import merge_topk
+from ..kernels.query_fused import BandHashes
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ._growth import grown
@@ -71,12 +75,12 @@ class InProcessShard:
     def start_add(self, batch: np.ndarray) -> _Lazy:
         return _Lazy(lambda: self.add_packed(batch))
 
-    def start_query(self, hashes: np.ndarray, qwords: np.ndarray,
+    def start_query(self, hashes: BandHashes, qwords,
                     top_k: int) -> _Lazy:
         return _Lazy(lambda: self.store.partial_topk_packed_hashed(
             hashes, qwords, top_k))
 
-    def start_brute(self, qwords: np.ndarray, top_k: int) -> _Lazy:
+    def start_brute(self, qwords, top_k: int) -> _Lazy:
         return _Lazy(lambda: self.store.planner.brute_partial_packed(
             qwords, top_k))
 
@@ -221,11 +225,16 @@ class ShardedSketchStore:
         self._h_partial.observe(t2 - t1)
         return parts
 
-    def _merged_query(self, hashes: np.ndarray, qwords: np.ndarray,
-                      top_k: int, fold_s: float) -> tuple[np.ndarray,
-                                                          np.ndarray]:
+    def _merged_query(self, hashes: BandHashes, qwords, top_k: int,
+                      fold_s: float) -> tuple[np.ndarray, np.ndarray]:
         """Per-shard candidate partials -> merge -> global brute-force leg
-        for rows with no candidates anywhere."""
+        for rows with no candidates anywhere (their query words indexed
+        where they lie: on the device unless ``query_impl="host"``).
+
+        Spans: ``query.broadcast`` submits the shards' legs (lazy, so it
+        costs next to nothing in process), ``query.partial`` gathers them
+        (the probe, the scorer and the copy of each partial to the host),
+        ``query.merge`` reduces the partials on the host."""
         wall_t0 = time.perf_counter()
         tally = {"fold_s": fold_s, "broadcast_s": 0.0, "partial_s": 0.0,
                  "merge_s": 0.0}
@@ -243,7 +252,8 @@ class ShardedSketchStore:
         em = np.flatnonzero(~has_any)
         if len(em) and self.n_items:
             brute = self._fanout(
-                lambda sh: sh.start_brute(qwords[em], top_k), tally)
+                lambda sh: sh.start_brute(take_rows(qwords, em), top_k),
+                tally)
             t0 = time.perf_counter()
             with self._tracer.span("query.merge"):
                 b_scores, b_ids = merge_topk([p.scores for p in brute],
@@ -262,22 +272,30 @@ class ShardedSketchStore:
         """(Q, W) packed query words (a device tensor or a host array) ->
         (ids (Q, top_k) [-1 pad], scores (Q, top_k)).  The coordinator
         folds band hashes once (the fold kernel, or the host uint64 loop
-        when ``query_impl="host"``) and broadcasts them."""
+        when ``query_impl="host"``) and hands them to every shard.
+
+        ``query.fold`` times the fold's launch: the hashes stay on the
+        device, so the span no longer waits for the card (the fold's device
+        time lands in the first shard's ``query.partial``)."""
         self._check_consistent()
         with self._tracer.span("store.query"):
             t0 = time.perf_counter()
             with self._tracer.span("query.fold"):
-                hashes = self._fold_packed(qwords)
+                qwords, hashes = self._fold_packed(qwords)
             fold_s = time.perf_counter() - t0
-            return self._merged_query(hashes, as_host_words(qwords), top_k,
-                                      fold_s)
+            return self._merged_query(hashes, qwords, top_k, fold_s)
 
-    def _fold_packed(self, qwords) -> np.ndarray:
+    def _fold_packed(self, qwords) -> tuple[object, BandHashes]:
+        """The query words where the shards read them, and their hashes:
+        device words and device hashes, or host ones for the host walk."""
         if self.query_impl != "host":
             from ..kernels.dispatch import fold_hashes
-            return fold_hashes(as_device_words(qwords, self.device),
-                               n_bands=self.cfg.n_bands)
-        return band_hashes_packed(as_host_words(qwords), self.cfg.n_bands)
+            qdev = as_device_words(qwords, self.device)
+            return qdev, BandHashes(fold_hashes(qdev,
+                                                n_bands=self.cfg.n_bands))
+        qnp = as_host_words(qwords)
+        return qnp, BandHashes(host=band_hashes_packed(qnp,
+                                                       self.cfg.n_bands))
 
     def close(self) -> None:
         for sh in self.shards:

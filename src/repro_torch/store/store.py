@@ -27,8 +27,9 @@ import torch
 
 from ..core.lsh import band_hashes_packed
 from ..device import (DEFAULT_DEVICE, as_device_words, as_host_words,
-                      resolve_device)
+                      resolve_device, take_rows)
 from ..kernels.packfmt import PACK_BITS
+from ..kernels.query_fused import BandHashes
 from ..obs import metrics as obs_metrics
 from .packed import PackedConfig, PackedSignatureBuffer
 from .planner import QueryPlanner, TopKPartial, finalize_topk
@@ -215,11 +216,12 @@ class SketchStore:
         return "device"
 
     def _fused_partial(self, qwords, top_k: int, *,
-                       hashes: np.ndarray | None) -> TopKPartial:
+                       hashes: BandHashes | None) -> TopKPartial:
         """Run the fused pipeline over the resident state and wrap it as a
-        planner partial.  ``hashes=None`` folds on the device; shard
-        workers pass the coordinator's broadcast hashes.  Spilled keys stay
-        a host leg, invoked only when the spill is non-empty."""
+        planner partial.  ``hashes=None`` folds inside the probe kernel;
+        shard workers pass the coordinator's ``BandHashes``, whose device
+        tensor the probe reads.  Spilled keys stay a host leg, invoked only
+        when the spill is non-empty (the one reader of host hashes)."""
         from ..kernels import dispatch
         spill = None
         if self.table.n_spilled:
@@ -232,14 +234,16 @@ class SketchStore:
             top_k=top_k, hashes=hashes, spill_lookup=spill)
         return TopKPartial.from_device(ids, scores, has)
 
-    def partial_topk_packed_hashed(self, hashes: np.ndarray, qwords,
+    def partial_topk_packed_hashed(self, hashes: BandHashes, qwords,
                                    top_k: int) -> TopKPartial:
         """Per-shard candidate partial from pre-folded band hashes: device
-        probe + score, or the host walk when the query knob says so."""
+        probe + score, or the host walk (on ``hashes.host()``) when the
+        query knob or the table's geometry says so."""
         if self._resolve_query_impl() == "host":
             return self.planner.partial_topk_packed(
                 as_host_words(qwords),
-                self.candidate_rows_hashed(hashes, spill_cap=top_k), top_k)
+                self.candidate_rows_hashed(hashes.host(), spill_cap=top_k),
+                top_k)
         return self._fused_partial(qwords, top_k, hashes=hashes)
 
     def query_packed(self, qwords,
@@ -251,11 +255,12 @@ class SketchStore:
             qnp = as_host_words(qwords)
             return self.planner.topk_packed(
                 qnp, self.candidate_rows_packed(qnp, spill_cap=top_k), top_k)
-        part = self._fused_partial(qwords, top_k, hashes=None)
+        qdev = as_device_words(qwords, self.device)
+        part = self._fused_partial(qdev, top_k, hashes=None)
         em = np.flatnonzero(~part.has_candidates)
         if len(em):
-            brute = self.planner.brute_partial_packed(
-                as_host_words(qwords)[em], top_k)
+            brute = self.planner.brute_partial_packed(take_rows(qdev, em),
+                                                      top_k)
             part.ids[em] = brute.ids
             part.scores[em] = brute.scores
         return finalize_topk(part)

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.lsh import band_hashes
+from repro_torch.core.lsh import band_hashes, band_hashes_packed
 from repro_torch.kernels import cminhash_kernel as kd
 from repro_torch.kernels import cminhash_packed as kpk
 from repro_torch.kernels import cminhash_sparse as ks
@@ -436,14 +436,247 @@ def test_probe_kernel_matches_plain_and_host_walk(cuda, ns, w, mp, nb):
     qh = hashes[:70].copy()
     qh[3, 1] = kp.SENTINEL_KEY
     qh[60:] = rng.integers(0, 1 << 60, (10, nb)).astype(np.uint64)
-    meta = torch.tensor(kp.probe_operands(qh, ns))
+    h = torch.from_numpy(qh.view(np.int64))
     flat = torch.tensor(table.records.reshape(-1, 2 + w))
-    want = kp.lsh_probe_plain(flat, meta, n_slots=ns, max_probes=mp)
-    got = kp.lsh_probe_kernel(flat.to(cuda), meta.to(cuda), n_slots=ns,
-                              max_probes=mp)
+    want = kp.lsh_probe_plain(flat, torch.tensor(kp.probe_operands(qh, ns)),
+                              n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(flat.to(cuda), h.to(cuda), n_slots=ns,
+                                     max_probes=mp)
     assert torch.equal(got.cpu(), want)
     assert np.array_equal(table.lookup(qh, impl="device"),
                           table.lookup(qh, impl="numpy"))
+
+
+@pytest.mark.parametrize("r", [4, 12, 20])
+@pytest.mark.parametrize("sign_extend", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_fold_kernel_vector_and_scalar_rows(cuda, r, sign_extend, offset):
+    """Rows of whole 16-byte vectors (R % 4 == 0), past one batch of
+    vector loads (R = 20), and rows that a storage offset moves off the
+    16-byte boundary (read as scalars)."""
+    gen = torch.Generator().manual_seed(r + offset)
+    q, nb = 33, 7
+    buf = torch.randint(-2**31, 2**31 - 1, (q * nb * r + offset,),
+                        generator=gen, dtype=torch.int32)
+    rows = buf[offset:].view(q, nb, r)
+    want = kq.fold_rows_plain(rows, sign_extend=sign_extend)
+    got = kq.fold_rows_kernel(buf.to(cuda)[offset:].view(q, nb, r),
+                              sign_extend=sign_extend)
+    assert torch.equal(got.cpu(), want)
+
+
+# -- the probe from device hashes and from words ------------------------------
+
+def _full_range_table(ns, w, mp, load, nb=3, seed=0, device="cpu"):
+    """The port's table loaded to ``load`` of its slots with full-range
+    uint64 hashes (about half >= 2^63), duplicate keys and a sentinel;
+    queries: stored keys, absent keys, the sentinel, keys >= 2^63."""
+    rng = np.random.default_rng(seed + ns + w + mp)
+    n = max(8, int(load * ns))
+    hashes = rng.integers(0, 2**64, (n, nb), dtype=np.uint64)
+    hashes[n // 2: n // 2 + n // 8] = hashes[: n // 8]
+    hashes[3, 1] = kp.SENTINEL_KEY
+    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp,
+                           device=device)
+    table.insert(hashes, np.arange(n))
+    absent = rng.integers(0, 2**64, (12, nb), dtype=np.uint64)
+    absent[0, 0] = kp.SENTINEL_KEY
+    absent[1] = 2**63 + np.arange(nb, dtype=np.uint64)
+    return table, np.ascontiguousarray(np.concatenate([hashes, absent]))
+
+
+# (n_slots, W, max_probes, load): pow2 and not; W even and odd, at and past
+# the widths whose ids the fused walk holds (16 even, 8 odd); max_probes 1
+# and 16; nearly full tables (chains past four steps, wrapping)
+PROBE_SWEEP = [(2048, 8, 16, 0.93), (3001, 8, 16, 0.93), (2048, 3, 16, 0.6),
+               (3001, 5, 16, 0.95), (2048, 8, 1, 0.5), (3001, 1, 1, 0.3),
+               (2048, 16, 16, 0.9), (3001, 18, 16, 0.9), (1021, 7, 16, 0.95),
+               (1024, 9, 16, 0.9)]
+
+
+@pytest.mark.parametrize("ns,w,mp,load", PROBE_SWEEP)
+def test_probe_kernel_from_hashes_matches_plain(cuda, ns, w, mp, load):
+    table, qh = _full_range_table(ns, w, mp, load, device=cuda)
+    flat = torch.tensor(table.records.reshape(-1, 2 + w))
+    h = torch.from_numpy(qh.view(np.int64))
+    want = kp.lsh_probe_hashes_plain(flat, h, n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(flat.to(cuda), h.to(cuda), n_slots=ns,
+                                     max_probes=mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any()
+    assert np.array_equal(table.lookup(qh, impl="device"),
+                          table.lookup(qh, impl="numpy"))
+
+
+@pytest.mark.parametrize("ns,w,mp,r", [(2048, 8, 16, 2), (3001, 8, 16, 8),
+                                       (1021, 3, 16, 3), (2048, 18, 1, 8),
+                                       (4096, 7, 16, 20)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_kernel_from_words_matches_plain(cuda, ns, w, mp, r, offset):
+    """Fold + probe in one launch: R = 8 (16-byte rows), R not a multiple of
+    4, R past one batch of vector loads, rows moved off the 16-byte
+    boundary by a storage offset."""
+    rng = np.random.default_rng(ns + r + offset)
+    nb = 4
+    words = rng.integers(0, 2**32, (int(0.8 * ns), nb * r), dtype=np.uint32)
+    words[len(words) // 2:][: len(words) // 4] = words[: len(words) // 4]
+    table = BandedLSHTable(nb, n_slots=ns, bucket_width=w, max_probes=mp,
+                           device="cpu")
+    table.insert(band_hashes_packed(words, nb), np.arange(len(words)))
+    q = np.concatenate([words[::3], rng.integers(
+        0, 2**32, (9, nb * r), dtype=np.uint32)])
+    buf = torch.zeros(q.size + offset, dtype=torch.int32)
+    buf[offset:] = torch.from_numpy(q.view(np.int32).reshape(-1))
+    rows = buf[offset:].view(len(q), nb, r)
+    flat = torch.tensor(table.records.reshape(-1, 2 + w))
+    want = kq.fold_probe_plain(flat, rows, n_slots=ns, max_probes=mp)
+    got = kq.fold_probe_kernel(flat.to(cuda),
+                               buf.to(cuda)[offset:].view(len(q), nb, r),
+                               n_slots=ns, max_probes=mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any() and (want < 0).all(dim=1).any()
+
+
+def _keys_with_base(base: np.ndarray, ns: int, rng) -> np.ndarray:
+    """uint64 keys with ``key mod ns == base``, every other one >= 2^63."""
+    top = rng.integers(0, 2**32, len(base), dtype=np.uint64)
+    top[::2] |= np.uint64(1 << 31)
+    key = top * np.uint64(2**32)
+    key = key + (base + np.uint64(ns) - key % np.uint64(ns)) % np.uint64(ns)
+    assert (key % np.uint64(ns) == base).all()
+    return key
+
+
+def _plant(rec, row, key, ids) -> None:
+    rec[row, :2] = torch.from_numpy(np.array([key], np.uint64)
+                                    .view(np.int32)).to(rec.device)
+    rec[row, 2:] = ids
+
+
+def _planted(ns, w, mp, nb, rng, full):
+    """Records of ``nb`` bands that are full (every slot holds another key:
+    walks run to ``max_probes``) or empty (every slot unused), and queries
+    whose keys sit in the last band at each probe step t < max_probes, half
+    of them with a base slot in the last 7 slots (their four-step spans
+    cross the table's end).  Returns the records, the queries and the
+    (query, row) of each planted key that no later one overwrote."""
+    rows = nb * ns
+    if full:
+        rec = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, 2 + w),
+                                            dtype=np.int64).astype(np.int32))
+        rec[(rec[:, 0] == -1) & (rec[:, 1] == -1), 0] = 0
+    else:
+        rec = torch.full((rows, 2 + w), -1, dtype=torch.int32)
+    n_q = 4 * mp
+    base = rng.integers(0, ns, n_q).astype(np.uint64)
+    base[::2] = np.uint64(ns - 1) - np.arange(0, n_q, 2, dtype=np.uint64) % 7
+    key = _keys_with_base(base, ns, rng)
+    qh = rng.integers(0, 2**64, (n_q, nb), dtype=np.uint64)
+    qh[:, nb - 1] = key
+    owner = {}
+    if full:
+        for i in range(n_q):
+            t = i % mp
+            row = (nb - 1) * ns + (int(base[i]) + t * (t + 1) // 2) % ns
+            _plant(rec, row, key[i], torch.arange(w, dtype=torch.int32)
+                   + 1000 * i)
+            owner[row] = i
+    return rec, np.ascontiguousarray(qh), [(i, r) for r, i in owner.items()]
+
+
+@pytest.mark.parametrize("ns,w", [(3001, 8), (2048, 8), (61, 3), (64, 18),
+                                  (1000, 7)])
+@pytest.mark.parametrize("full", [True, False])
+def test_probe_kernel_full_empty_and_wrapping_tables(cuda, ns, w, full):
+    rng = np.random.default_rng(ns + w + int(full))
+    mp, nb = 16, 2
+    rec, qh, planted = _planted(ns, w, mp, nb, rng, full)
+    h = torch.from_numpy(qh.view(np.int64))
+    want = kp.lsh_probe_hashes_plain(rec, h, n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(rec.to(cuda), h.to(cuda), n_slots=ns,
+                                     max_probes=mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if full:           # every planted key found, at whichever step it sits
+        assert len(planted) > mp
+        for i, row in planted:
+            assert torch.equal(want[i * nb + nb - 1], rec[row, 2:])
+    else:
+        assert (want == -1).all()
+
+
+def test_probe_kernels_on_no_entries(cuda):
+    rec = torch.full((3 * 64, 10), -1, dtype=torch.int32, device=cuda)
+    got = kp.lsh_probe_hashes_kernel(
+        rec, torch.zeros((0, 3), dtype=torch.int64, device=cuda), n_slots=64,
+        max_probes=16)
+    assert got.shape == (0, 8)
+    got = kq.fold_probe_kernel(
+        rec, torch.zeros((0, 3, 8), dtype=torch.int32, device=cuda),
+        n_slots=64, max_probes=16)
+    assert got.shape == (0, 8)
+
+
+def test_probe_kernel_record_offsets_past_2_31(cuda):
+    """Records of more than 2^31 int32 elements (~8.6 GB, built on the
+    card): keys at probe steps 0-4 from base slots in the band's last 12
+    (the slots whose offsets need 64 bits), with their chains' earlier
+    slots taken by other keys, and spans that wrap from there to the
+    band's start."""
+    ns, w, nb, mp = (1 << 27) + 5, 6, 2, 16
+    rec = torch.full((nb * ns, 2 + w), -1, dtype=torch.int32, device=cuda)
+    assert rec.numel() > 2**31
+    rng = np.random.default_rng(5)
+    n_q = 40
+    base = np.uint64(ns - 1) - np.arange(n_q, dtype=np.uint64) % 12
+    key = _keys_with_base(base, ns, rng)
+    qh = rng.integers(0, 2**64, (n_q, nb), dtype=np.uint64)
+    qh[:, 1] = key
+    owner = {}
+    for i in range(0, n_q, 2):                  # odd queries stay absent
+        t = i % 5
+        chain = [ns + (int(base[i]) + s * (s + 1) // 2) % ns
+                 for s in range(t + 1)]
+        for row in chain[:-1]:                  # the chain's earlier slots
+            if int(rec[row, 0]) == -1 and int(rec[row, 1]) == -1:
+                _plant(rec, row, int(rng.integers(0, 2**62)),
+                       torch.full((w,), -7, dtype=torch.int32))
+                owner[row] = -1
+        _plant(rec, chain[-1], key[i], torch.arange(w, dtype=torch.int32)
+               + 100 * i)
+        owner[chain[-1]] = i
+    h = torch.from_numpy(qh.view(np.int64)).to(cuda)
+    want = kp.lsh_probe_hashes_plain(rec, h, n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(rec, h, n_slots=ns, max_probes=mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    found = [(row, i) for row, i in owner.items() if i >= 0]
+    assert any(row * (2 + w) >= 2**31 for row, _ in found)
+    for row, i in found:
+        assert torch.equal(want[i * nb + 1].cpu(),
+                           torch.arange(w, dtype=torch.int32) + 100 * i)
+    assert (want[1::nb][1::2] == -1).all()
+    del rec, want, got
+    torch.cuda.empty_cache()
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rec = torch.full((3 * 64, 10), -1, dtype=torch.int32, device=cuda)
+    h = torch.zeros((5, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        kp.lsh_probe_hashes_kernel(rec, h.int(), n_slots=64, max_probes=4)
+    with pytest.raises(ValueError, match="are not"):
+        kp.lsh_probe_hashes_kernel(rec, h, n_slots=32, max_probes=4)
+    with pytest.raises(ValueError, match="are not"):
+        kp.lsh_probe_hashes_kernel(rec[:0], h, n_slots=0, max_probes=4)
+    with pytest.raises(ValueError, match="cuda|cpu"):
+        kp.lsh_probe_hashes_kernel(rec.cpu(), h, n_slots=64, max_probes=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kq.fold_probe_kernel(rec, torch.zeros(
+            (5, 8, 3), dtype=torch.int32, device=cuda).transpose(1, 2),
+            n_slots=64, max_probes=4)
 
 
 @pytest.mark.parametrize("q,n,k", [(1, 1, 1), (37, 1001, 130),

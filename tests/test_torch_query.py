@@ -52,8 +52,8 @@ def test_fold_words_matches_reference(seed):
     rows = t_qf.words_to_rows(u32_to_device(words, CPU), nb)
     got = t_qf.hashes_to_host(t_qf.fold_rows_kernel(rows))
     assert np.array_equal(got, want)
-    assert np.array_equal(
-        t_dispatch.fold_hashes(u32_to_device(words, CPU), n_bands=nb), want)
+    assert np.array_equal(t_qf.hashes_to_host(
+        t_dispatch.fold_hashes(u32_to_device(words, CPU), n_bands=nb)), want)
 
 
 @pytest.mark.parametrize("nb,r", [(8, 3), (5, 7), (1, 13), (16, 1)])
@@ -127,9 +127,8 @@ def _probe_both(ref_table, qh):
     want = np.asarray(ref_probe.lsh_probe_jnp(
         jnp.asarray(flat), jnp.asarray(meta), n_slots=ref_table.n_slots,
         max_probes=ref_table.max_probes))
-    got = t_probe.lsh_probe_kernel(
-        torch.tensor(flat), torch.tensor(t_probe.probe_operands(
-            qh, ref_table.n_slots)),
+    got = t_probe.lsh_probe_hashes_kernel(
+        torch.tensor(flat), torch.from_numpy(qh.view(np.int64)),
         n_slots=ref_table.n_slots, max_probes=ref_table.max_probes)
     return want, got.numpy()
 
@@ -161,8 +160,9 @@ def test_probe_matches_pallas_kernel_interpret():
     want = np.asarray(ref_probe.lsh_probe_pallas(
         jnp.asarray(flat), jnp.asarray(meta), n_slots=16, max_probes=4,
         block_e=4, interpret=True))
-    got = t_probe.lsh_probe_kernel(torch.tensor(flat), torch.tensor(meta),
-                                   n_slots=16, max_probes=4)
+    got = t_probe.lsh_probe_hashes_kernel(
+        torch.tensor(flat), torch.from_numpy(qh.view(np.int64)),
+        n_slots=16, max_probes=4)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -184,6 +184,156 @@ def test_port_table_state_and_lookups_match_reference(ns, w, mp, nb):
     table.rebuild(n_slots=2 * ns, bucket_width=2 * w)
     ref_table.rebuild(n_slots=2 * ns, bucket_width=2 * w)
     assert np.array_equal(table.records, ref_table.records)
+
+
+# -- probe from device hashes and from words (operands built in the probe) ---
+
+SENTINEL = int(ref_probe.SENTINEL_KEY)
+
+
+def _full_range_table(ns, w, mp, load, nb=3, seed=0):
+    """A reference table loaded to ``load`` of its slots with full-range
+    uint64 hashes (about half >= 2^63), duplicate keys (buckets of several
+    ids) and one sentinel hash; queries: stored keys, absent keys, the
+    sentinel and keys of 2^63 and above."""
+    rng = np.random.default_rng(seed + ns + w + mp)
+    n = max(8, int(load * ns))
+    hashes = rng.integers(0, 2**64, (n, nb), dtype=np.uint64)
+    hashes[n // 2: n // 2 + n // 8] = hashes[: n // 8]        # duplicates
+    hashes[3, 1] = ref_probe.SENTINEL_KEY
+    t = RefTable(nb, n_slots=ns, bucket_width=w, max_probes=mp)
+    t.insert(hashes, np.arange(n))
+    absent = rng.integers(0, 2**64, (12, nb), dtype=np.uint64)
+    absent[0, 0] = ref_probe.SENTINEL_KEY
+    absent[1] = 2**63 + np.arange(nb, dtype=np.uint64)
+    qh = np.ascontiguousarray(np.concatenate([hashes, absent]))
+    return t, qh
+
+
+def _walk_reach(records, qh, ns, mp):
+    """(last step each entry's early-exit walk reads, whether it wrapped
+    past the table's end) over host records, as the port's table walks."""
+    flat = records.reshape(-1, records.shape[-1])
+    nb = qh.shape[1]
+    key = qh.reshape(-1)
+    base = (key % np.uint64(ns)).astype(np.int64)
+    lin = np.tile(np.arange(nb) * ns, len(qh))
+    key64 = key.view(np.int64)
+    last = np.zeros(len(key), np.int64)
+    wrapped = np.zeros(len(key), bool)
+    active = key != ref_probe.SENTINEL_KEY
+    for t in range(mp):
+        slot = base + t * (t + 1) // 2
+        wrapped |= active & (slot >= ns)
+        k64 = flat[lin + slot % ns, :2].copy().view(np.int64)[:, 0]
+        last[active] = t
+        active &= (k64 != key64) & (k64 != -1)
+    return last, wrapped
+
+
+@pytest.mark.parametrize("ns,w,mp,load", [
+    (2048, 8, 16, 0.93), (3001, 8, 16, 0.93), (2048, 3, 16, 0.6),
+    (3001, 5, 16, 0.95), (2048, 8, 1, 0.5), (3001, 1, 1, 0.3)])
+def test_probe_from_hashes_matches_reference(ns, w, mp, load):
+    """The probe's plain version from int64 hashes (operands built with
+    torch, unsigned mod for any n_slots) against ``probe_operands`` +
+    ``lsh_probe_jnp``: pow2 and not, hashes >= 2^63, the sentinel, W even
+    and odd, max_probes 1 and 16, a nearly full table."""
+    t, qh = _full_range_table(ns, w, mp, load)
+    assert (qh >= np.uint64(2**63)).any()
+    flat = t.records.reshape(-1, 2 + w)
+    want = np.asarray(ref_probe.lsh_probe_jnp(
+        jnp.asarray(flat), jnp.asarray(ref_probe.probe_operands(qh, ns)),
+        n_slots=ns, max_probes=mp))
+    h = torch.from_numpy(qh.view(np.int64))
+    got = t_probe.lsh_probe_hashes_kernel(torch.tensor(flat), h, n_slots=ns,
+                                          max_probes=mp)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy().reshape(len(qh), -1), t.lookup(qh))
+    meta = t_probe.hash_operands(h, ns)
+    assert np.array_equal(meta.numpy(), ref_probe.probe_operands(qh, ns))
+    assert (want >= 0).any() and (want < 0).all(axis=1).any()
+    if load > 0.9 and mp == 16:                # chains past 4 steps, wraps
+        last, wrapped = _walk_reach(t.records, qh, ns, mp)
+        assert last.max() >= 4 and wrapped.any()
+
+
+def test_probe_from_hashes_matches_pallas_kernel_interpret():
+    t, qh = _full_range_table(61, 3, 16, 0.95)
+    qh = np.ascontiguousarray(qh[::9][:7])
+    assert (qh >= np.uint64(2**63)).any()
+    flat = t.records.reshape(-1, 5)
+    want = np.asarray(ref_probe.lsh_probe_pallas(
+        jnp.asarray(flat), jnp.asarray(ref_probe.probe_operands(qh, 61)),
+        n_slots=61, max_probes=16, block_e=8, interpret=True))
+    got = t_probe.lsh_probe_hashes_kernel(
+        torch.tensor(flat), torch.from_numpy(qh.view(np.int64)), n_slots=61,
+        max_probes=16)
+    assert np.array_equal(got.numpy(), want)
+    assert (want >= 0).any()
+
+
+@pytest.mark.parametrize("ns,w,mp", [(2048, 8, 16), (4096, 3, 16),
+                                     (2048, 2, 1)])
+def test_probe_from_words_matches_reference(ns, w, mp):
+    """Fold + probe from packed words (one launch on the card) against the
+    reference's device pipeline: fold planes, ``meta_from_planes``,
+    ``lsh_probe_jnp``."""
+    rng = np.random.default_rng(ns + w)
+    nb, wpb = 4, 2
+    words = rng.integers(0, 2**32, (900, nb * wpb), dtype=np.uint32)
+    words[600:800] = words[:200]                              # duplicates
+    t = RefTable(nb, n_slots=ns, bucket_width=w, max_probes=mp)
+    t.insert(band_hashes_packed(words[:800], nb), np.arange(800))
+    q = words[::5]                                            # 20 absent
+    hi, lo = ref_qf.fold_planes_jnp(*ref_qf.words_to_planes(
+        jnp.asarray(q), nb))
+    flat = t.records.reshape(-1, 2 + w)
+    want = np.asarray(ref_probe.lsh_probe_jnp(
+        jnp.asarray(flat), ref_qf.meta_from_planes(hi, lo, n_slots=ns),
+        n_slots=ns, max_probes=mp))
+    rows = t_qf.words_to_rows(u32_to_device(q, CPU), nb)
+    got = t_qf.fold_probe_kernel(torch.tensor(flat), rows, n_slots=ns,
+                                 max_probes=mp)
+    assert np.array_equal(got.numpy(), want)
+    assert (want >= 0).any() and (want < 0).all(axis=1).any()
+
+
+@pytest.mark.parametrize("spilled", [False, True])
+@pytest.mark.parametrize("with_hashes", [False, True])
+def test_query_fused_matches_reference_dispatch(spilled, with_hashes):
+    """``dispatch.query_fused`` from words (the fused fold + probe) and from
+    the coordinator's device hashes, with and without a spill leg, against
+    the reference's ``dispatch.query_fused``."""
+    from repro.kernels import dispatch as ref_dispatch
+    rng = np.random.default_rng(int(spilled) + 2 * int(with_hashes))
+    k, b, nb, ns, w = 32, 8, 4, 512, 2
+    codes = rng.integers(0, 3, (300, k), dtype=np.int32)
+    codes[200:] = codes[:100]                                 # duplicates
+    words = np.asarray(ref_packfmt.pack_codes(jnp.asarray(codes), b))
+    t = RefTable(nb, n_slots=ns, bucket_width=w, max_probes=16)
+    t.insert(band_hashes_packed(words, nb), np.arange(300))
+    assert t.n_spilled > 0                          # a spill leg to take
+    q = np.concatenate([words[:30], rng.integers(0, 2**32, (5, words.shape[1]),
+                                                 dtype=np.uint32)])
+    hashes = band_hashes_packed(q, nb)
+    spill = (lambda h: t.spilled_candidates(h, cap=4)) if spilled else None
+    want = ref_dispatch.query_fused(
+        jnp.asarray(t.records.reshape(-1, 2 + w)), jnp.asarray(words),
+        jnp.asarray(q), n_bands=nb, n_slots=ns, max_probes=16, k=k, b=b,
+        top_k=4, impl="jnp", hashes=hashes if with_hashes else None,
+        spill_lookup=spill)
+    qdev = u32_to_device(q, CPU)
+    band = (t_qf.BandHashes(t_dispatch.fold_hashes(qdev, n_bands=nb))
+            if with_hashes else None)
+    got = t_dispatch.query_fused(
+        torch.tensor(t.records.reshape(-1, 2 + w)), u32_to_device(words, CPU),
+        qdev, n_bands=nb, n_slots=ns, max_probes=16, k=k, b=b, top_k=4,
+        hashes=band, spill_lookup=spill)
+    for g, r in zip(got, want):
+        assert np.array_equal(g, np.asarray(r))
+    if with_hashes:
+        assert np.array_equal(band.host(), hashes)
 
 
 # -- collision counts --------------------------------------------------------

@@ -24,6 +24,8 @@ from repro_torch.data.shingle import batch_shingles as t_batch_shingles
 from repro_torch.data.synthetic import \
     corpus_with_duplicates as t_corpus_with_duplicates
 from repro_torch.device import u32_to_device
+from repro_torch.kernels import lsh_probe as t_probe
+from repro_torch.kernels import query_fused as t_qf
 from repro_torch.serve.search import SearchConfig, SimilaritySearchService
 from repro_torch.store import SketchStore, StoreConfig
 
@@ -77,6 +79,46 @@ def test_service_answers_like_the_reference(s, depth, ref_q, port_q, bw,
     assert port.store.last_timings["n_fallback"] > 0        # fresh docs
     if bw == 1:
         assert port.store.n_spilled > 0
+
+
+@pytest.mark.parametrize("bw", [8, 1])
+def test_service_probes_the_folds_hashes_where_they_lie(monkeypatch, bw):
+    """The service's query leg on the fused path, with the host operand
+    function patched to raise: the shards probe the coordinator's hashes
+    where the fold wrote them.  With no spilled entry (bw = 8) no hash is
+    copied to the host; with spilled entries (bw = 1) the spill leg's host
+    copy is made once a query batch, for all three shards.  Answers equal
+    the JAX service's."""
+    def refuse(*a, **kw):
+        raise AssertionError("probe_operands on the query path")
+    copies = []
+    to_host = t_qf.hashes_to_host
+
+    def counted(h):
+        if bw == 8:
+            raise AssertionError("band hashes copied to the host")
+        copies.append(h.shape)
+        return to_host(h)
+    monkeypatch.setattr(t_probe, "probe_operands", refuse)
+    monkeypatch.setattr(t_qf, "hashes_to_host", counted)
+    idx, qidx = _corpus()
+    common = dict(d=D, k=K, n_bands=NB, rows_per_band=R, n_shards=3,
+                  bucket_width=bw)
+    ref = RefService(RefSearchConfig(query_impl="jnp", **common))
+    params = convert.permutations_from_jax(np.asarray(ref.engine.sigma),
+                                           np.asarray(ref.engine.pi), "cpu")
+    port = SimilaritySearchService(SearchConfig(device="cpu", **common),
+                                   params=params)
+    _ingest(ref, idx, 2)
+    _ingest(port, idx, 2)
+    assert (port.store.n_spilled > 0) == (bw == 1)
+    for _ in range(2):
+        got = port.query_sparse(qidx, top_k=5)
+        want = ref.query_sparse(qidx, top_k=5)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    assert port.store.last_timings["n_fallback"] > 0
+    assert len(copies) == (2 if bw == 1 else 0)
 
 
 def test_port_data_helpers_match_reference():
