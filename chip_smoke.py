@@ -59,6 +59,32 @@ printed then:
    ``chiprun_out/query_trace.json``).
 5. The card against the port's own CPU path on the first 4096 documents:
    ids and scores must be identical.
+5b. Raw-signature serving and snapshots, three legs.  (1) ``raw_path``:
+   ``SearchConfig(device="cuda", b=2)``, otherwise the defaults; 8 rows a
+   band are not word-aligned at b = 2, so ingest and query run on raw
+   signatures (the sparse kernel's unpacked output, band keys folded on
+   the host, the probe from the coordinator's uploaded keys, the collision
+   count on 2-bit words).  The same 262,144 documents through
+   ``IngestPipeline(depth=2)``, the same 1088-row batch five times; counts
+   set to 0 just before and read just after: the sparse kernel and the
+   probe must have launched, the fold and fold + probe kernels not at all,
+   the collision kernel once per fallback call per shard.  Every indexed
+   row must find its own id in its top 5 at score 1.0, and some rows must
+   take the fallback.  The query side's registry histograms over batches
+   2-5 (``QUERY_SPANS``: the sign leg, the coordinator's fold, the shards'
+   submit and gather, the merge) are printed a batch beside phase 2's.
+   Then the three kernels at this leg's own shapes against their plain
+   versions, timed and bounded as in phase 3 (in ``chip_smoke.json`` under
+   ``raw_path``), the query batch's words packed on the host and on the
+   card, timed, and one more query batch under the profiler, as in phase 4
+   (``chiprun_out/query_trace_raw.json``).
+   (2) Phase 5 at b = 2.
+   (3) ``snapshot_path``: phase 2's b = 32 plane and leg 1's b = 2 plane
+   each saved with ``ShardedSketchStore.save`` to a temporary directory,
+   loaded onto the card with ``ShardedSketchStore.load`` and served by a
+   service with the same permutations: the same batch must get the live
+   plane's ids and scores, and every shard the live shard's ``digest()``;
+   the save and load seconds and the snapshot's bytes are printed.
 6. Dense serving path: a fresh service with the same defaults ingests the
    first 65,536 documents as dense 0/1 int8 rows (16 batches of 4096 x
    2^16, built on the host) through ``pipeline(layout="dense", depth=2)``
@@ -94,8 +120,9 @@ printed then:
    both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
 
-``launches`` in the kernels line is the sum over the four counted paths
-(phase 2's service and store paths, phases 6 and 7).
+``launches`` in the kernels line is the sum over the six counted paths
+(phase 2's service and store paths, phase 5b's raw and snapshot paths,
+phases 6 and 7).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -134,6 +161,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -278,6 +306,27 @@ def dense_rows(idx: np.ndarray, d: int = 1 << 16) -> np.ndarray:
     return v
 
 
+# The query side's registry histograms: the service's sign leg (the span
+# query.sign), the coordinator's fold (host keys and words for raw
+# signatures), the shards' submit and gather (probe, scoring, the partials'
+# host copies), the host merge, and the service's whole batch.
+QUERY_SPANS = ("service.sign", "query.fold", "query.broadcast",
+               "query.partial", "query.merge", "service.query")
+
+
+def span_sums() -> dict:
+    """Seconds summed so far in each of ``QUERY_SPANS``' histograms."""
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.default()
+    return {n: reg.histogram(n).sum for n in QUERY_SPANS}
+
+
+def span_ms(before: dict, n_batches: int) -> dict:
+    """Each of ``QUERY_SPANS`` in ms a query batch since ``before``."""
+    now = span_sums()
+    return {n: (now[n] - before[n]) * 1e3 / n_batches for n in QUERY_SPANS}
+
+
 def ingest(svc, idx, batch: int) -> float:
     t0 = time.perf_counter()
     with svc.pipeline(depth=2) as pipe:
@@ -298,12 +347,15 @@ def main_path(idx, fresh_idx, report: dict):
     t_ingest = ingest(svc, idx, BATCH)
     after_ingest = {n: k.launches for n, k in ks.items()}
     lat = []
-    for _ in range(5):
+    for i in range(5):
         before = {n: k.launches for n, k in ks.items()}
+        if i == 1:                  # the spans of batches 2-5
+            spans0 = span_sums()
         t0 = time.perf_counter()
         ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
         lat.append(time.perf_counter() - t0)
     launches = read_counts(ks)
+    spans = span_ms(spans0, len(lat) - 1)
     # -----------------------------------------------------------------------
     per_query = {n: launches[n] - before[n] for n in ks}
     n_batches = -(-len(idx) // BATCH)
@@ -327,6 +379,7 @@ def main_path(idx, fresh_idx, report: dict):
         "launches_per_ingest_batch": {n: after_ingest[n] / n_batches
                                       for n in ks},
         "launches_per_query_batch": per_query,
+        "query_spans_ms_next4": spans,
         "registry": obs_metrics.default().snapshot(),
     }
     print(f"[main] ingest {len(idx)} docs in {t_ingest:.3f} s "
@@ -473,32 +526,17 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     # where the fold left them
     records = store.table.device_records()
     ns, mp = store.table.n_slots, store.table.max_probes
-    got = kp.lsh_probe_hashes_kernel(records, folded, n_slots=ns,
-                                     max_probes=mp)
-    want = kp.lsh_probe_hashes_plain(records, folded, n_slots=ns,
-                                     max_probes=mp)
-    ms, dev_ms = both_ms(lambda: kp.lsh_probe_hashes_kernel(
-        records, folded, n_slots=ns, max_probes=mp), 50)
-    plain_ms = time_ms(lambda: kp.lsh_probe_hashes_plain(
-        records, folded, n_slots=ns, max_probes=mp), 5)
-    # the function's bytes: 8 a hash, 8 key bytes per probe step this run's
-    # walks take, the W posting ids of each hit, the output
-    w = records.shape[1] - 2
-    walk = probe_walk(records, kp.hash_operands(folded, ns), ns, mp)
-    e = folded.numel()
-    walk_bytes = walk["probe_steps"] * 8 + walk["hits"] * w * 4
-    entry("lsh_probe", "src/repro_torch/csrc/lsh_probe.cu",
-          "src/repro/kernels/lsh_probe.py:137", got, want, ms, plain_ms,
-          e * 8 + walk_bytes + got.numel() * 4, walk["probe_steps"] * 3,
-          dev_ms, {"shape": [e, w], "records_shape": list(records.shape),
-                   **walk})
-    print(f"[kernel] lsh_probe walk: {walk['probe_steps']} steps for {e} "
-          f"entries (most {walk['steps_max']}), {walk['hits']} hits; "
+    row, got = probe_entry(records, folded, ns, mp)
+    out.append(row)
+    w, e = records.shape[1] - 2, folded.numel()
+    walk_bytes = row["probe_steps"] * 8 + row["hits"] * w * 4
+    print(f"[kernel] lsh_probe walk: {row['probe_steps']} steps for {e} "
+          f"entries (most {row['steps_max']}), {row['hits']} hits; "
           f"dependent round trips, mean / most: thread an entry "
-          f"{walk['round_trips_thread_an_entry']['mean']:.3f} / "
-          f"{walk['round_trips_thread_an_entry']['max']}, group walk "
-          f"{walk['round_trips_group_walk']['mean']:.3f} / "
-          f"{walk['round_trips_group_walk']['max']}")
+          f"{row['round_trips_thread_an_entry']['mean']:.3f} / "
+          f"{row['round_trips_thread_an_entry']['max']}, group walk "
+          f"{row['round_trips_group_walk']['mean']:.3f} / "
+          f"{row['round_trips_group_walk']['max']}")
 
     # 3b. fold + probe in one launch, from the query words (the store's own
     # query)
@@ -512,7 +550,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
           "src/repro/kernels/lsh_probe.py:137", fused,
           kq.fold_probe_plain(records, rows, n_slots=ns, max_probes=mp), ms,
           plain_ms, rows.numel() * 4 + walk_bytes + fused.numel() * 4,
-          walk["probe_steps"] * 3 + rows.numel() * 5, dev_ms,
+          row["probe_steps"] * 3 + rows.numel() * 5, dev_ms,
           {"shape": list(rows.shape) + [w],
            "also_replaces": "src/repro/kernels/query_fused.py:164"})
 
@@ -531,18 +569,12 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     # the words as the index stores them; and one 16,384-row block of
     # unpacked codes, the shape the earlier blocked fallback launched
     n_fb = report["main_path"]["fallback_rows"]
-    q_pad = 1 << (n_fb - 1).bit_length()
-    wq = qwords[N_QUERY_INDEXED:]
-    wq = torch.cat([wq, wq[:1].expand(max(q_pad - len(wq), 0), -1)])
-    wq = wq[:q_pad].contiguous()
-    words = store.buffer.device_words()
-    b = cfg.b
-    got = kc.packed_collision_counts_kernel(wq, words, k, b)
-    want = torch.cat([kc.packed_collision_counts_plain(
-        wq, words[lo: lo + 16384], k, b)
-        for lo in range(0, len(words), 16384)], dim=1)
-    qfb = unpack_codes(wq, k, b).contiguous()
-    block = unpack_codes(words[:16384], k, b).contiguous()
+    row, wq = collision_entry(qwords[N_QUERY_INDEXED:], n_fb,
+                              store.buffer.device_words(), k, cfg.b)
+    out.append(row)
+    qfb = unpack_codes(wq, k, cfg.b).contiguous()
+    block = unpack_codes(store.buffer.device_words()[:16384], k,
+                         cfg.b).contiguous()
     require(torch.equal(kc.collision_counts_kernel(qfb, block),
                         kc.collision_counts_plain(qfb, block)),
             "collision one 16,384-row block")
@@ -555,30 +587,14 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
         require(torch.equal(kc.packed_collision_counts_kernel(pq, pn, k, pb),
                             kc.packed_collision_counts_plain(pq, pn, k, pb)),
                 f"collision b={pb}")
-    qd, nd = unpack_codes(wq, k, b).double(), unpack_codes(words, k, b).double()
-
-    def library():
-        return k - torch.cdist(qd, nd, p=0)
-    require(torch.equal(library().to(torch.int32), want),
-            "collision: K - cdist(p=0) == the plain version")
-    ms, dev_ms = both_ms(lambda: kc.packed_collision_counts_kernel(
-        wq, words, k, b), 20)
     blk_ms, blk_dev_ms = both_ms(lambda: kc.collision_counts_kernel(
         qfb, block), 20)
-    plain_ms = time_ms(lambda: kc.packed_collision_counts_plain(
-        wq, words, k, b), 3, warmup=1)
-    library_ms = time_ms(library, 3, warmup=1)
-    qn, nn, nw = wq.shape[0], words.shape[0], words.shape[1]
-    entry("collision", "src/repro_torch/csrc/collision.cu",
-          "src/repro/kernels/collision_kernel.py:37", got, want, ms,
-          plain_ms, (qn + nn) * nw * 4 + qn * nn * 4,
-          collision_ops(qn, nn, k, b), dev_ms,
-          {"shape": [qn, nn, k], "b": b, "launches_per_brute_call": 1,
-           "block_16384_ms": blk_ms, "block_16384_device_ms": blk_dev_ms,
-           "block_16384_bound_ms": bound_ms(
-               (qn + 16384) * k * 4 + qn * 16384 * 4,
-               collision_ops(qn, 16384, k, 32))[0]},
-          library_ms=library_ms)
+    qn = wq.shape[0]
+    row.update({"launches_per_brute_call": 1,
+                "block_16384_ms": blk_ms, "block_16384_device_ms": blk_dev_ms,
+                "block_16384_bound_ms": bound_ms(
+                    (qn + 16384) * k * 4 + qn * 16384 * 4,
+                    collision_ops(qn, 16384, k, 32))[0]})
     print(f"[kernel] collision one 16,384-row block of int32 codes: "
           f"{blk_ms:.4f} ms, device {blk_dev_ms:.4f} ms")
     return out
@@ -588,6 +604,74 @@ def collision_ops(q: int, n: int, k: int, b: int) -> int:
     """The collision count's operations: one integer compare a pair of
     codes at b = 32, one a pair of words (32/b codes) below."""
     return q * n * (k if b == 32 else -(-k // (32 // b)))
+
+
+def probe_entry(records, hashes, ns: int, mp: int,
+                extra: dict | None = None) -> tuple[dict, torch.Tensor]:
+    """The probe from band hashes on the card against its plain version,
+    timed and bounded (phase 3, and phase 5b from the host's uploaded
+    keys).  The bound counts the function's bytes: 8 a hash, 8 key bytes
+    per probe step this run's walks take, the W posting ids of each hit,
+    the output.  Returns the row and the kernel's candidates."""
+    from repro_torch.kernels import lsh_probe as kp
+    got = kp.lsh_probe_hashes_kernel(records, hashes, n_slots=ns,
+                                     max_probes=mp)
+    want = kp.lsh_probe_hashes_plain(records, hashes, n_slots=ns,
+                                     max_probes=mp)
+    ms, dev_ms = both_ms(lambda: kp.lsh_probe_hashes_kernel(
+        records, hashes, n_slots=ns, max_probes=mp), 50)
+    plain_ms = time_ms(lambda: kp.lsh_probe_hashes_plain(
+        records, hashes, n_slots=ns, max_probes=mp), 5)
+    w, e = records.shape[1] - 2, hashes.numel()
+    walk = probe_walk(records, kp.hash_operands(hashes, ns), ns, mp)
+    walk_bytes = walk["probe_steps"] * 8 + walk["hits"] * w * 4
+    row = kernel_entry(
+        "lsh_probe", "src/repro_torch/csrc/lsh_probe.cu",
+        "src/repro/kernels/lsh_probe.py:137", got, want, ms, plain_ms,
+        e * 8 + walk_bytes + got.numel() * 4, walk["probe_steps"] * 3,
+        dev_ms, {"shape": [e, w], "records_shape": list(records.shape),
+                 **walk, **(extra or {})})
+    return row, got
+
+
+def collision_entry(qwords, n_fb: int, words, k: int, b: int,
+                    extra: dict | None = None) -> tuple[dict, torch.Tensor]:
+    """The brute-force fallback's collision call on the card against its
+    plain version (in 16,384-row blocks) and ``K - cdist(p=0)``, timed and
+    bounded (phase 3, and phase 5b at b = 2): the fresh query rows'
+    ``qwords`` padded to the next power of two of the ``n_fb`` fallback
+    rows, as the planner pads them, against all stored ``words`` in one
+    launch.  Returns the row and the padded query words."""
+    from repro_torch.kernels import collision_kernel as kc
+    from repro_torch.kernels.packfmt import unpack_codes
+    q_pad = 1 << (n_fb - 1).bit_length()
+    wq = torch.cat([qwords, qwords[:1].expand(max(q_pad - len(qwords), 0),
+                                              -1)])
+    wq = wq[:q_pad].contiguous()
+    got = kc.packed_collision_counts_kernel(wq, words, k, b)
+    want = torch.cat([kc.packed_collision_counts_plain(
+        wq, words[lo: lo + 16384], k, b)
+        for lo in range(0, len(words), 16384)], dim=1)
+    qd = unpack_codes(wq, k, b).double()
+    nd = unpack_codes(words, k, b).double()
+
+    def library():
+        return k - torch.cdist(qd, nd, p=0)
+    require(torch.equal(library().to(torch.int32), want),
+            f"collision b = {b}: K - cdist(p=0) == the plain version")
+    ms, dev_ms = both_ms(lambda: kc.packed_collision_counts_kernel(
+        wq, words, k, b), 20)
+    plain_ms = time_ms(lambda: kc.packed_collision_counts_plain(
+        wq, words, k, b), 3, warmup=1)
+    library_ms = time_ms(library, 3, warmup=1)
+    qn, nn, nw = wq.shape[0], words.shape[0], words.shape[1]
+    row = kernel_entry(
+        "collision", "src/repro_torch/csrc/collision.cu",
+        "src/repro/kernels/collision_kernel.py:37", got, want, ms, plain_ms,
+        (qn + nn) * nw * 4 + qn * nn * 4, collision_ops(qn, nn, k, b),
+        dev_ms, {"shape": [qn, nn, k], "b": b, "words": nw,
+                 **(extra or {})}, library_ms=library_ms)
+    return row, wq
 
 
 def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
@@ -612,14 +696,15 @@ def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
     return row
 
 
-def trace_query(svc, qdata, report: dict, layout: str = "sparse") -> None:
-    """Phase 4 (and the dense path's trace): one query batch under
+def trace_query(svc, qdata, report: dict, layout: str = "sparse",
+                tag: str = "") -> None:
+    """Phase 4 (and the raw and dense paths' traces): one query batch under
     torch.profiler.  Device busy time is the union of the trace's kernel,
     memcpy and memset intervals, so no operator is counted twice with the
     kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
     query = svc.query_sparse if layout == "sparse" else svc.query_dense
-    tag = "" if layout == "sparse" else f"_{layout}"
+    tag = tag or ("" if layout == "sparse" else f"_{layout}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -646,7 +731,8 @@ def trace_query(svc, qdata, report: dict, layout: str = "sparse") -> None:
         "device_events": len(device),
         "top_device_time_us": [{"name": n, "us": t} for n, t in top]}
     require(busy_us > 0, "the profiler recorded device activity")
-    print(f"[trace] {layout} query batch: wall {wall_us / 1e3:.3f} ms, "
+    print(f"[trace] {tag.lstrip('_') or layout} query batch: wall "
+          f"{wall_us / 1e3:.3f} ms, "
           f"device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us * 100:.1f}%) over "
           f"{len(device)} device events; top: "
@@ -685,24 +771,212 @@ def probe_walk(records, meta, n_slots, max_probes) -> dict:
             "round_trips_group_walk": stats(new)}
 
 
-def card_vs_cpu(idx, fresh_idx, report: dict) -> None:
-    """Phase 5: the same service on the card and on the CPU."""
+def card_vs_cpu(idx, fresh_idx, report: dict, b: int = 32) -> None:
+    """Phase 5 (b = 32) and phase 5b's second leg (b = 2, raw
+    signatures): the same service on the card and on the CPU."""
     from repro_torch.serve.search import SearchConfig, SimilaritySearchService
     sub = idx[:4096]
     q = np.concatenate([sub[:256], fresh_idx])
     answers = []
     for device in ("cuda", "cpu"):
-        svc = SimilaritySearchService(SearchConfig(device=device))
+        svc = SimilaritySearchService(SearchConfig(device=device, b=b))
         ingest(svc, sub, 1024)
         answers.append(svc.query_sparse(q, top_k=TOP_K))
         fb = svc.store.last_timings["n_fallback"]
     (ci, cs), (pi_, ps) = answers
     require(np.array_equal(ci, pi_) and np.array_equal(cs, ps),
-            "card and CPU answers differ on the 4096-document subset")
-    report["card_vs_cpu"] = {"docs": len(sub), "query_rows": len(q),
-                             "fallback_rows": fb, "identical": True}
-    print(f"[card-vs-cpu] {len(sub)} docs, {len(q)} queries "
+            f"card and CPU answers differ on the 4096-document subset at "
+            f"b = {b}")
+    key = "card_vs_cpu" if b == 32 else f"card_vs_cpu_b{b}"
+    report[key] = {"docs": len(sub), "query_rows": len(q), "b": b,
+                   "packed_ingest": svc.packed_ingest,
+                   "fallback_rows": fb, "identical": True}
+    print(f"[card-vs-cpu] b = {b}, {len(sub)} docs, {len(q)} queries "
           f"({fb} fallback rows): ids and scores identical")
+
+
+def raw_path(idx, fresh_idx, report: dict):
+    """Phase 5b, first leg: the service at b = 2, where 8 rows a band are
+    not word-aligned, so ingest and query run on raw signatures: the sparse
+    kernel's unpacked output, band keys folded on the host, the probe from
+    the coordinator's uploaded keys, the collision count on 2-bit words.
+    Counted and checked like phase 2."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    ks = kernels()
+    svc = SimilaritySearchService(SearchConfig(device="cuda", b=2))
+    require(not svc.packed_ingest, "b = 2 at 32 x 8 bands ingests raw")
+    qidx = np.concatenate([idx[:N_QUERY_INDEXED], fresh_idx])
+    zero_counts(ks)
+    # --- the raw path: ingest + query batches -------------------------------
+    t_ingest = ingest(svc, idx, BATCH)
+    after_ingest = read_counts(ks)
+    lat = []
+    for i in range(5):
+        if i == 1:                  # the spans of batches 2-5
+            spans0 = span_sums()
+        t0 = time.perf_counter()
+        ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
+        lat.append(time.perf_counter() - t0)
+    launches = read_counts(ks)
+    # -----------------------------------------------------------------------
+    spans = span_ms(spans0, len(lat) - 1)
+    store = svc.store.shards[0].store
+    n_shards = len(svc.store.shards)
+    n_fallback = svc.store.last_timings["n_fallback"]
+    own = ids[:N_QUERY_INDEXED] == np.arange(N_QUERY_INDEXED)[:, None]
+    own_at_one = (own & (scores[:N_QUERY_INDEXED] == 1.0)).any(axis=1)
+    report["raw_path"] = {
+        "docs": len(idx), "b": svc.cfg.b, "ingest_s": t_ingest,
+        "ingest_docs_per_s": len(idx) / t_ingest,
+        "query_rows": len(qidx), "query_latency_s_first": lat[0],
+        "query_latency_s_median_next4": statistics.median(lat[1:]),
+        "query_latency_s_all": lat,
+        "own_id_in_top5_at_1": float(own_at_one.mean()),
+        "top1_self_hit": float(own[:, 0].mean()),
+        "fallback_rows": n_fallback, "n_slots": store.table.n_slots,
+        "bucket_width": store.table.bucket_width,
+        "n_spilled": store.n_spilled, "n_rebuilds": store.n_rebuilds,
+        "records_bytes": store.table.records.nbytes,
+        "words_bytes": store.buffer.nbytes,
+        "launches": launches, "launches_ingest": after_ingest,
+        "query_spans_ms_next4": spans}
+    print(f"[raw] b = 2: ingest {len(idx)} docs in {t_ingest:.3f} s "
+          f"({len(idx) / t_ingest:.0f} docs/s); words "
+          f"{store.buffer.nbytes} B, records {store.table.records.nbytes} B; "
+          f"n_slots={store.table.n_slots} spilled={store.n_spilled} "
+          f"rebuilds={store.n_rebuilds}")
+    print(f"[raw] query batch of {len(qidx)} rows: first "
+          f"{lat[0] * 1e3:.3f} ms, median of next 4 "
+          f"{statistics.median(lat[1:]) * 1e3:.3f} ms; own id at 1.0 in "
+          f"the top {TOP_K}: {own_at_one.mean() * 100:.2f}%; fallback rows "
+          f"{n_fallback}")
+    packed = report["main_path"]["query_spans_ms_next4"]
+    print("[raw] query spans, ms a batch over batches 2-5, raw (b = 2) / "
+          "packed (b = 32, phase 2): " + ", ".join(
+              f"{n} {spans[n]:.3f} / {packed[n]:.3f}" for n in QUERY_SPANS))
+    print(f"[raw] launches {launches}")
+    require(ids.shape == (len(qidx), TOP_K) and scores.dtype == np.float32,
+            "raw answer shape")
+    require(bool(np.isfinite(scores).all()), "finite raw scores")
+    require(bool(own_at_one.all()),
+            "every indexed row finds its own id in its top 5 at score 1.0")
+    require(n_fallback > 0, "some raw rows take the brute-force fallback")
+    for n in ("cminhash_sparse", "lsh_probe"):
+        require(launches[n] > 0, f"kernel {n} launched on the raw path")
+    require(launches["fold"] == 0 and launches["fold_probe"] == 0,
+            f"raw keys are folded on the host: no fold launch "
+            f"({launches['fold']}, {launches['fold_probe']})")
+    require(launches["collision"] == len(lat) * n_shards,
+            f"collision kernel launched once per brute-force fallback call "
+            f"({launches['collision']} for {len(lat)} query batches x "
+            f"{n_shards} shard)")
+    report["raw_path"]["kernels"] = raw_kernel_checks(
+        svc, idx, qidx, n_fallback, report["raw_path"])
+    trace_query(svc, qidx, report, tag="_raw")
+    return svc
+
+
+def raw_kernel_checks(svc, idx, qidx, n_fallback: int,
+                      report: dict) -> list[dict]:
+    """Phase 5b: the kernels at the raw path's own shapes against their
+    plain versions, timed and bounded as in phase 3: the sparse kernel's
+    unpacked (4096, 256) output, the probe from the host's band keys
+    uploaded, the collision count of the fallback rows on 2-bit words.
+    Then the query batch's words packed both ways, timed as called."""
+    from repro_torch.core.lsh import band_hashes
+    from repro_torch.core.permutations import apply_permutation_sparse
+    from repro_torch.kernels import cminhash_sparse as ks
+    from repro_torch.kernels.packfmt import pack_codes
+    from repro_torch.kernels.query_fused import hashes_to_device
+    from repro_torch.store.packed import pack_host
+    dev, cfg = svc.engine.device, svc.cfg
+    store = svc.store.shards[0].store
+    pi, k, b = svc.engine.pi, cfg.k, cfg.b
+    out = []
+    sidx = apply_permutation_sparse(torch.tensor(idx[:BATCH], device=dev),
+                                    svc.engine.sigma).to(torch.int32)
+    sidx = sidx.contiguous()
+    got = ks.cminhash_sparse_kernel(sidx, pi, k)
+    want = ks.cminhash_sparse_plain(sidx, pi, k)
+    ms, dev_ms = both_ms(lambda: ks.cminhash_sparse_kernel(sidx, pi, k), 20)
+    plain_ms = time_ms(lambda: ks.cminhash_sparse_plain(sidx, pi, k), 5)
+    out.append(kernel_entry(
+        "cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
+        "src/repro/kernels/cminhash_sparse.py:186", got, want, ms, plain_ms,
+        sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+        int((sidx >= 0).sum().item()) * k, dev_ms,
+        {"shape": list(sidx.shape), "output": "unpacked"}))
+
+    qsigs = svc.engine.sign(qidx, layout="sparse").cpu().numpy()
+    hashes = hashes_to_device(band_hashes(qsigs, cfg.n_bands,
+                                          cfg.rows_per_band), dev)
+    table = store.table
+    out.append(probe_entry(table.device_records(), hashes, table.n_slots,
+                           table.max_probes,
+                           {"keys": "host band_hashes, uploaded"})[0])
+    out.append(collision_entry(
+        pack_codes(torch.tensor(qsigs[N_QUERY_INDEXED:], device=dev), b),
+        n_fallback, store.buffer.device_words(), k, b)[0])
+    # the coordinator's query words: packed on the host (as with
+    # query_impl="host") or uploaded and packed on the card (the default)
+    host_ms = time_ms(lambda: pack_host(qsigs, b), 10)
+    card_ms = time_ms(lambda: pack_codes(torch.from_numpy(qsigs).to(dev), b),
+                      10)
+    report["query_words_pack_ms"] = {"host": host_ms, "card": card_ms}
+    print(f"[raw] the query batch's words: packed on the host "
+          f"{host_ms:.3f} ms, uploaded and packed on the card "
+          f"{card_ms:.3f} ms")
+    return out
+
+
+def snapshot_path(services: dict, qidx, report: dict) -> None:
+    """Phase 5b, third leg: each service's plane saved with
+    ``ShardedSketchStore.save`` to a temporary directory (deleted after),
+    loaded onto the card with ``ShardedSketchStore.load``, and served by a
+    service with the same permutations: the same batch must get the live
+    plane's ids and scores, and every shard the live shard's digest.
+    Counted: the loaded planes' query batches."""
+    from repro_torch.serve.search import SimilaritySearchService
+    from repro_torch.store import ShardedSketchStore
+    ks = kernels()
+    live = {name: svc.query_sparse(qidx, top_k=TOP_K)
+            for name, svc in services.items()}
+    torch.cuda.synchronize()
+    rows = {}
+    zero_counts(ks)
+    # --- the snapshot path: save, load, query batches -----------------------
+    for name, svc in services.items():
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            svc.store.save(d)
+            save_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            t0 = time.perf_counter()
+            plane = ShardedSketchStore.load(d, device="cuda")
+            load_s = time.perf_counter() - t0
+        loaded = SimilaritySearchService(
+            svc.cfg, params=(svc.engine.sigma, svc.engine.pi), store=plane)
+        ids, scores = loaded.query_sparse(qidx, top_k=TOP_K)
+        require(np.array_equal(ids, live[name][0])
+                and np.array_equal(scores, live[name][1]),
+                f"the {name} snapshot answers as its live plane")
+        digests = [sh.store.digest() for sh in plane.shards]
+        require(digests == [sh.store.digest() for sh in svc.store.shards],
+                f"the {name} snapshot's shard digests equal the live ones")
+        rows[name] = {"b": svc.cfg.b, "docs": plane.size,
+                      "save_s": save_s, "load_s": load_s,
+                      "snapshot_bytes": nbytes, "digests": digests}
+        print(f"[snapshot] {name} (b = {svc.cfg.b}, {plane.size} docs): "
+              f"saved {nbytes} B in {save_s:.3f} s, loaded onto the card in "
+              f"{load_s:.3f} s; answers and digests equal the live plane's")
+        del loaded, plane
+    launches = read_counts(ks)
+    # -----------------------------------------------------------------------
+    report["snapshot_path"] = {"planes": rows, "launches": launches}
+    print(f"[snapshot] launches {launches}")
+    for n in ("lsh_probe", "collision"):
+        require(launches[n] > 0, f"kernel {n} launched by a loaded plane")
 
 
 def dense_path(idx, fresh_idx, report: dict):
@@ -1522,9 +1796,13 @@ def main() -> None:
     report["kernels"] = kernel_checks(svc, idx, qidx, report)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace_query(svc, qidx, report)
-    del svc
-    torch.cuda.empty_cache()
     card_vs_cpu(idx, fresh_idx, report)
+
+    raw_svc = raw_path(idx, fresh_idx, report)
+    card_vs_cpu(idx, fresh_idx, report, b=2)
+    snapshot_path({"main_path": svc, "raw_path": raw_svc}, qidx, report)
+    del svc, raw_svc
+    torch.cuda.empty_cache()
 
     svc, batch = dense_path(idx, fresh_idx, report)
     corpora = paper_path(report)
@@ -1535,7 +1813,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense_card_vs_cpu(idx, fresh_idx, report)
 
-    paths = ("main_path", "store_path", "dense_path", "paper_path")
+    paths = ("main_path", "store_path", "raw_path", "snapshot_path",
+             "dense_path", "paper_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

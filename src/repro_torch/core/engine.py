@@ -114,3 +114,8 @@ class SketchEngine:
         """Memory for the hashing parameters — the paper's headline win."""
         n = 2 if self.sigma is not None else 1
         return n * self.cfg.d * 4
+
+    @staticmethod
+    def classical_parameter_bytes(d: int, k: int) -> int:
+        """What Algorithm 1 would need instead: K permutations of D."""
+        return k * d * 4

@@ -15,21 +15,28 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 
 
+def random_permutation(generator: torch.Generator, d: int, *,
+                       device: str | torch.device = DEFAULT_DEVICE,
+                       ) -> torch.Tensor:
+    """A uniformly random int32 permutation of [0, d), drawn with
+    ``torch.randperm`` from ``generator`` (a CPU generator), on ``device``
+    (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return torch.randperm(d, generator=generator).to(torch.int32).to(dev)
+
+
 def make_two_permutations(generator: torch.Generator, d: int, *,
                           device: str | torch.device = DEFAULT_DEVICE,
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sigma, pi): two uniformly random int32 permutations of [0, d), on
-    ``device`` (the card unless the caller asks for the CPU).
+    ``device``: two draws of ``random_permutation`` from ``generator``.
 
-    Drawn with ``torch.randperm`` from ``generator`` (a CPU generator), so
-    the numbers differ from the JAX package's PRNG for the same seed.  To
+    The numbers differ from the JAX package's PRNG for the same seed.  To
     sign with the reference's own permutations, carry them across with
     ``repro_torch.convert.permutations_from_jax``.
     """
-    dev = resolve_device(device)
-    sigma = torch.randperm(d, generator=generator).to(torch.int32)
-    pi = torch.randperm(d, generator=generator).to(torch.int32)
-    return sigma.to(dev), pi.to(dev)
+    return (random_permutation(generator, d, device=device),
+            random_permutation(generator, d, device=device))
 
 
 def circulant_shift(p: torch.Tensor, k: int) -> torch.Tensor:

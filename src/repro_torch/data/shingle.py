@@ -1,4 +1,4 @@
-"""Documents -> n-gram shingles -> sparse index lists in a D-dim universe.
+"""Documents -> n-gram shingles -> sparse binary vectors in a D-dim universe.
 
 A numpy copy of ``repro.data.shingle``.
 """
@@ -40,4 +40,13 @@ def batch_shingles(docs: list[np.ndarray], *, n: int = 3, d: int = 1 << 16,
     out = np.full((len(docs), width), -1, np.int32)
     for row, idx in enumerate(idxs):
         out[row, : min(len(idx), width)] = idx[:width]
+    return out
+
+
+def densify(idx: np.ndarray, d: int) -> np.ndarray:
+    """(B, NNZ) padded indices -> (B, D) int8 binary."""
+    b = idx.shape[0]
+    out = np.zeros((b, d), np.int8)
+    rows, cols = np.nonzero(idx >= 0)
+    out[rows, idx[rows, cols]] = 1
     return out

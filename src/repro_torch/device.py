@@ -59,6 +59,13 @@ def as_host_words(words) -> np.ndarray:
     return np.asarray(words, np.uint32)
 
 
+def as_host_sigs(sigs) -> np.ndarray:
+    """Raw (B, K) signatures (a tensor or a host array) as a host array."""
+    if isinstance(sigs, torch.Tensor):
+        return sigs.detach().cpu().numpy()
+    return np.asarray(sigs)
+
+
 def take_rows(words, rows: np.ndarray):
     """``words[rows]`` for a host array, or a tensor indexed on its own
     device (the row indices go there, the rows stay)."""

@@ -9,7 +9,8 @@ does per resolved implementation; dense signing counts
 
 Dense (B, D) rows go to one of two kernels:
 
-  * ``int8``   — ``cminhash_kernel``: the circulant min-reduce, B*K*D work;
+  * ``int8``   — ``cminhash_kernel``: the window-min over each row's set
+                 bits, set bits x K + B*D work;
   * ``packed`` — ``cminhash_packed``: rows packed 32 positions to a word,
                  B*K*nnz work and an 8x smaller operand.
 
@@ -94,8 +95,7 @@ def lsh_probe(records_dev: torch.Tensor, hashes: np.ndarray, *,
     obs_metrics.default().counter(f"kernel.probe.{_impl(records_dev)}").inc()
     q, nb = hashes.shape
     w = records_dev.shape[1] - 2
-    h = torch.from_numpy(np.ascontiguousarray(hashes, np.uint64)
-                         .view(np.int64)).to(records_dev.device)
+    h = _query_fused.hashes_to_device(hashes, records_dev.device)
     out = _lsh_probe.lsh_probe_hashes_kernel(records_dev, h, n_slots=n_slots,
                                              max_probes=max_probes)
     return out.cpu().numpy().reshape(q, nb * w)

@@ -163,22 +163,31 @@ def hashes_to_host(h: torch.Tensor) -> np.ndarray:
     return np.array(h.cpu().numpy(), copy=True).view(np.uint64)
 
 
+def hashes_to_device(hashes: np.ndarray,
+                     device: torch.device) -> torch.Tensor:
+    """Host (Q, nb) uint64 hashes -> int64 tensor with the same bits on
+    ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(hashes, np.uint64)
+                            .view(np.int64)).to(device)
+
+
 class BandHashes:
     """A query batch's (Q, n_bands) band hashes: ``dev``, int64 with the
     uint64 bits on the device, which the probe reads; and the host uint64
     copy, made at the first ``host()`` and kept, for the host consumers
     (the spill leg, the host walk).  So the copy is made once a batch, and
-    only when a consumer needs it.  ``BandHashes(host=...)`` holds hashes
-    folded on the host (``query_impl="host"``), which have no device
-    tensor."""
+    only when a consumer needs it.  Hashes folded on the host come in as
+    ``host=``: alone for the host walk (``query_impl="host"``), or beside
+    their upload (the raw-signature query, which folds on the host and
+    probes on the device)."""
 
     __slots__ = ("dev", "_host")
 
     def __init__(self, dev: torch.Tensor | None = None, *,
                  host: np.ndarray | None = None):
-        if (dev is None) == (host is None):
-            raise ValueError("BandHashes takes a device tensor or host "
-                             "hashes")
+        if dev is None and host is None:
+            raise ValueError("BandHashes takes a device tensor, host "
+                             "hashes, or both")
         self.dev = dev
         self._host = host
 

@@ -8,16 +8,20 @@ shard, per-shard probe + scoring on the device, and a mergeable top-k
 reduction.  ``n_shards`` changes where items live, never what a query
 answers.
 
-Ingest runs the fused sign -> pack path: words leave the signing kernel
-packed (``SketchEngine.sign``) and are indexed from the words directly.
+Ingest runs the fused sign -> pack path whenever the banding is
+word-aligned (``rows_per_band % (32/b) == 0``; always at the default b =
+32): words leave the signing kernel packed (``SketchEngine.sign``) and are
+indexed from the words directly.  Otherwise (b = 1 and 2 at the default
+bands) the kernel returns raw (B, K) signatures, which the store bands on
+the host and packs to b bits (``add``/``query``), as the JAX package does.
 ``IngestPipeline`` adds double-buffering on top: CUDA launches return at
 once, so batch N+1's signing runs on the card while batch N scatters into
-the shards on the host; the copy of batch N's words to the host is the one
+the shards on the host; the copy of batch N's output to the host is the one
 synchronisation.
 
-Ported: the in-process plane with packed (word-aligned) banding, for
-sparse index lists and dense (B, D) rows.  The tcp transport, replicas and
-streaming are later slices (ROADMAP.md).
+Ported: the in-process plane, for sparse index lists and dense (B, D)
+rows.  The tcp transport, replicas and streaming are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,19 +63,18 @@ class SearchConfig:
 
 class SimilaritySearchService:
     def __init__(self, cfg: SearchConfig, *,
-                 params: tuple[torch.Tensor, torch.Tensor] | None = None):
+                 params: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 store: ShardedSketchStore | None = None):
         """``params=(sigma, pi)`` signs with given permutations (e.g. the
-        reference's, via ``convert.permutations_from_jax``)."""
+        reference's, via ``convert.permutations_from_jax``); ``store``
+        serves a pre-built plane (e.g. ``ShardedSketchStore.load`` of a
+        snapshot) instead of a new empty one."""
         if cfg.n_bands * cfg.rows_per_band != cfg.k:
             raise ValueError("n_bands * rows_per_band must equal k")
         if cfg.transport not in TRANSPORTS:
             raise NotImplementedError(
                 f"transport={cfg.transport!r} is not ported yet (ROADMAP.md, "
                 "'Modules still to port', tcp transport); use 'inproc'")
-        if cfg.rows_per_band % (32 // cfg.b):
-            raise NotImplementedError(
-                "raw-signature ingest (rows_per_band % (32/b) != 0) is not "
-                "ported yet (ROADMAP.md); pick word-aligned bands")
         self.cfg = cfg
         self.engine = SketchEngine(SketchConfig(d=cfg.d, k=cfg.k,
                                                 seed=cfg.seed),
@@ -80,7 +83,7 @@ class SimilaritySearchService:
                                 rows_per_band=cfg.rows_per_band, b=cfg.b,
                                 n_slots=cfg.n_slots,
                                 bucket_width=cfg.bucket_width)
-        self.store = ShardedSketchStore(
+        self.store = store if store is not None else ShardedSketchStore(
             store_cfg, n_shards=cfg.n_shards, partition=cfg.partition,
             probe_impl=cfg.probe_impl, query_impl=cfg.query_impl,
             device=cfg.device)
@@ -89,13 +92,26 @@ class SimilaritySearchService:
         self._h_query = reg.histogram("service.query")
         self._h_sign = reg.histogram("service.sign")
 
+    # -- the fused fast path -----------------------------------------------
+    @property
+    def packed_ingest(self) -> bool:
+        """Whether the fused sign -> pack path serves this config (band
+        boundaries fall on word boundaries; always true at b = 32)."""
+        return self.cfg.rows_per_band % (32 // self.cfg.b) == 0
+
     def _sign(self, data, layout: str) -> torch.Tensor:
         """Launch signing for one batch (asynchronous): packed words on the
-        device."""
-        return self.engine.sign(data, layout=layout, pack_b=self.cfg.b)
+        device on the fused path, raw signatures otherwise."""
+        pack_b = self.cfg.b if self.packed_ingest else None
+        return self.engine.sign(data, layout=layout, pack_b=pack_b)
 
-    def _scatter(self, words: np.ndarray) -> None:
-        self.store.add_packed(words)
+    def _scatter(self, signed: np.ndarray) -> None:
+        """Index one signed batch, as the host copy holds it (uint32 bits
+        of the kernel's int32 output)."""
+        if self.packed_ingest:
+            self.store.add_packed(signed)
+        else:
+            self.store.add(np.asarray(signed).view(np.int32))
 
     # -- indexing ----------------------------------------------------------
     def add_sparse(self, idx: np.ndarray) -> None:
@@ -128,21 +144,33 @@ class SimilaritySearchService:
     def _traced_query(self, data, layout: str, top_k: int):
         """The traced front door: the root span opens here, the sign leg is
         its first child, and the store's fold, probe, score and merge nest
-        beneath it."""
+        beneath it.  Packed words stay on the device; raw signatures come
+        to the host, where the store folds their band keys."""
         t_wall = time.perf_counter()
         with self._tracer.span("query") as root:
             root.tag("n", len(data)).tag("top_k", top_k)
-            if self.store.size <= 0:
-                raise ValueError(
-                    "query on an empty index: add documents before querying "
-                    "(the brute-force fallback has nothing to score)")
             t0 = time.perf_counter()
             with self._tracer.span("query.sign"):
-                qwords = self._sign(data, layout)     # stays on the device
+                qsigned = self._sign(data, layout)
+                if not self.packed_ingest:
+                    qsigned = qsigned.cpu().numpy()
             self._h_sign.observe(time.perf_counter() - t0)
-            out = self.store.query_packed(qwords, top_k)
+            out = self._query(qsigned, top_k)
         self._h_query.observe(time.perf_counter() - t_wall)
         return out
+
+    def _query(self, qsigned, top_k: int):
+        """Returns (ids (Q, top_k) int64 [-1 pad], scores (Q, top_k) f32).
+
+        Queries with no bucket hit in any shard fall back to brute force
+        over the whole index, independently per query."""
+        if self.store.size <= 0:
+            raise ValueError(
+                "query on an empty index: add documents before querying "
+                "(the brute-force fallback has nothing to score)")
+        if self.packed_ingest:
+            return self.store.query_packed(qsigned, top_k)
+        return self.store.query(qsigned, top_k)
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:

@@ -4,7 +4,8 @@ Signatures are stored columnar on the host: ``words`` has shape
 ``(n_words, capacity)`` uint32, word-lane major, appended in place with
 capacity doubling.  ``device_words`` is the row-major copy resident on the
 store's device, re-uploaded only after a mutation, that the fused query and
-the brute-force fallback score against.
+the brute-force fallback score against.  ``save``/``load`` snapshot to
+``.npz`` in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -14,11 +15,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import u32_to_device
-from ..kernels.packfmt import PACK_BITS
+from ..device import DEFAULT_DEVICE, resolve_device, u32_to_device
+from ..kernels.packfmt import PACK_BITS, pack_codes, unpack_codes
 from ._growth import grown
 
 _MIN_CAPACITY = 8
+
+
+def pack_host(sigs, b: int) -> np.ndarray:
+    """(B, K) int32 signatures -> (B, W) uint32 packed words, on the host
+    (``packfmt.pack_codes``)."""
+    sigs = torch.from_numpy(np.asarray(sigs).astype(np.int32))
+    return pack_codes(sigs, b).numpy().view(np.uint32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +70,19 @@ class PackedSignatureBuffer:
     def capacity(self) -> int:
         return self._words.shape[1]
 
+    @property
+    def nbytes(self) -> int:
+        """Packed bytes actually holding data (the 32/b storage win)."""
+        return self.cfg.n_words * self._size * 4
+
+    def append(self, sigs) -> np.ndarray:
+        """Pack and append a (B, K) int32 signature batch (packed on the
+        host, ``packfmt.pack_codes``); returns the new ids."""
+        sigs = np.asarray(sigs)
+        if sigs.ndim != 2 or sigs.shape[1] != self.cfg.k:
+            raise ValueError(f"expected (B, {self.cfg.k}), got {sigs.shape}")
+        return self.append_packed(pack_host(sigs, self.cfg.b))
+
     def append_packed(self, words) -> np.ndarray:
         """Append a (B, W) uint32 word batch; returns the new ids."""
         words = np.asarray(words, np.uint32)
@@ -93,3 +114,35 @@ class PackedSignatureBuffer:
             self._device = (self._version,
                             u32_to_device(self.all_packed(), self.device))
         return self._device[1]
+
+    def codes(self, ids) -> torch.Tensor:
+        """(C,) ids -> (C, K) int32 unpacked b-bit codes on the device."""
+        return unpack_codes(u32_to_device(self.gather(ids), self.device),
+                            self.cfg.k, self.cfg.b)
+
+    # -- snapshots ---------------------------------------------------------
+    @classmethod
+    def from_rows(cls, cfg: PackedConfig, rows,
+                  device: torch.device) -> "PackedSignatureBuffer":
+        """Rebuild a buffer from (N, W) row-major packed words (the
+        ``gather``/``all_packed`` layout, what snapshots store)."""
+        rows = np.asarray(rows, np.uint32)
+        n = rows.shape[0]
+        buf = cls(cfg, device)
+        buf._words = grown(buf._words, n, axis=1)
+        buf._words[:, :n] = rows.T
+        buf._size = n
+        buf._version += 1
+        return buf
+
+    def save(self, path: str) -> None:
+        np.savez(path, words=self.all_packed(), k=self.cfg.k, b=self.cfg.b)
+
+    @classmethod
+    def load(cls, path: str, *, device: str | torch.device = DEFAULT_DEVICE
+             ) -> "PackedSignatureBuffer":
+        with np.load(path) as z:
+            words = z["words"]                         # (N, W) rows
+            cfg = PackedConfig(k=int(z["k"]), b=int(z["b"]),
+                               capacity=max(_MIN_CAPACITY, len(words)))
+        return cls.from_rows(cfg, words, resolve_device(device))

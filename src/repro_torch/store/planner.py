@@ -22,7 +22,7 @@ import torch
 
 from ..device import as_device_words, u32_to_device
 from ..kernels import ops
-from .packed import PackedSignatureBuffer
+from .packed import PackedSignatureBuffer, pack_host
 
 NEG_INF = np.float32(-np.inf)
 
@@ -73,6 +73,15 @@ def finalize_topk(part: TopKPartial) -> tuple[np.ndarray, np.ndarray]:
 class QueryPlanner:
     def __init__(self, buffer: PackedSignatureBuffer):
         self.buffer = buffer
+
+    def topk(self, qsigs: np.ndarray, cand_rows: np.ndarray,
+             top_k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Score and rank candidates for (Q, K) int32 query signatures,
+        packed on the host, then ``topk_packed``.  ``cand_rows``: (Q, C)
+        int64 candidate ids per query, -1 padded.  Returns (ids (Q, top_k)
+        int64 [-1 pad], scores (Q, top_k) float32)."""
+        return self.topk_packed(pack_host(qsigs, self.buffer.cfg.b),
+                                cand_rows, top_k)
 
     def topk_packed(self, qwords: np.ndarray, cand_rows: np.ndarray,
                     top_k: int) -> tuple[np.ndarray, np.ndarray]:

@@ -12,10 +12,18 @@ top-k, so S-shard answers equal the single-shard store's bit for bit.  A row
 brute-forces only when it has no candidate in *any* shard, and the fallback
 leg is itself a per-shard brute partial + merge.
 
+Raw (B, K) signature batches (``add``/``query``) band on the host: the
+coordinator folds a query batch's keys once, uploads them once, and every
+shard probes the device copy (the host copy serves the spill leg).
+
 The query path is split into ``start_query``/``start_brute`` (submit) and
 ``Pending.result()`` (gather), evaluated lazily at gather time, as the
 reference's in-process backend does.  Shards in other processes (the tcp
 transport) are not ported yet (ROADMAP.md).
+
+``save``/``load`` snapshot the whole plane to a directory: one
+``SketchStore`` npz per shard plus a manifest (cfg, n_shards, partition,
+gid maps), in the JAX package's format.
 
 Partitioning: ``"round_robin"`` (global id mod S) or ``"hash"``
 (Fibonacci-hash of the global id).  Global ids are assigned in arrival
@@ -25,25 +33,35 @@ local rank order is its global id order and the merge is exact.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..core.lsh import band_hashes_packed
-from ..device import (DEFAULT_DEVICE, as_device_words, as_host_words,
-                      resolve_device, take_rows)
+from ..core.lsh import band_hashes, band_hashes_packed
+from ..device import (DEFAULT_DEVICE, as_device_words, as_host_sigs,
+                      as_host_words, resolve_device, take_rows)
 from ..distributed.collectives import merge_topk
-from ..kernels.query_fused import BandHashes
+from ..kernels.packfmt import pack_codes
+from ..kernels.query_fused import BandHashes, hashes_to_device
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ._growth import grown
+from .packed import pack_host
 from .planner import TopKPartial, finalize_topk
 from .store import QUERY_IMPLS, SketchStore, StoreConfig, check_packed_banding
 
 _GOLD = np.uint64(0x9E3779B97F4A7C15)    # Fibonacci hashing multiplier
 
 PARTITIONS = ("round_robin", "hash")
+
+MANIFEST_FILE = "manifest.npz"
+
+
+def shard_snapshot_path(dirpath: str, shard: int) -> str:
+    """Per-shard ``SketchStore`` snapshot inside a plane snapshot dir."""
+    return os.path.join(dirpath, f"shard_{shard}.npz")
 
 
 class _Lazy:
@@ -62,23 +80,55 @@ class _Lazy:
 
 
 class InProcessShard:
-    """One shard: a local ``SketchStore``."""
+    """One shard: a local ``SketchStore``, built from ``cfg`` on ``device``
+    or given as ``store`` (whose knobs are set only where passed)."""
 
-    def __init__(self, cfg: StoreConfig, *, device: torch.device,
-                 probe_impl: str = "auto", query_impl: str = "auto"):
-        self.store = SketchStore(cfg, device=device, probe_impl=probe_impl,
-                                 query_impl=query_impl)
+    def __init__(self, cfg: StoreConfig | None = None, *,
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 probe_impl: str | None = None,
+                 query_impl: str | None = None,
+                 store: SketchStore | None = None):
+        if store is None:
+            if cfg is None:
+                raise ValueError("InProcessShard needs cfg or store")
+            store = SketchStore(cfg, device=device,
+                                probe_impl=probe_impl or "auto",
+                                query_impl=query_impl or "auto")
+        else:                            # never clobber a configured store
+            if probe_impl is not None:
+                store.probe_impl = probe_impl
+            if query_impl is not None:
+                store.query_impl = query_impl
+        self.store = store
+
+    def _add(self, fn, batch) -> int:
+        # tag exceptions that left the store partially mutated (append
+        # landed, insert raised) so the coordinator knows a retry would
+        # duplicate
+        before = (self.store.size, self.store.table.n_items)
+        try:
+            return len(fn(batch))
+        except BaseException as e:
+            if (self.store.size, self.store.table.n_items) != before:
+                e.dirty = True
+            raise
+
+    def add(self, sigs: np.ndarray) -> int:
+        return self._add(self.store.add, sigs)
 
     def add_packed(self, words: np.ndarray) -> int:
-        return len(self.store.add_packed(words))
+        return self._add(self.store.add_packed, words)
 
-    def start_add(self, batch: np.ndarray) -> _Lazy:
-        return _Lazy(lambda: self.add_packed(batch))
+    def start_add(self, batch: np.ndarray, *, packed: bool = False) -> _Lazy:
+        # routes through self.add/add_packed (not the store directly) so
+        # subclass overrides keep intercepting the write path
+        fn = self.add_packed if packed else self.add
+        return _Lazy(lambda: fn(batch))
 
-    def start_query(self, hashes: BandHashes, qwords,
-                    top_k: int) -> _Lazy:
+    def start_query(self, hashes: BandHashes, qwords, top_k: int,
+                    mode: str) -> _Lazy:
         return _Lazy(lambda: self.store.partial_topk_packed_hashed(
-            hashes, qwords, top_k))
+            hashes, qwords, top_k, mode=mode))
 
     def start_brute(self, qwords, top_k: int) -> _Lazy:
         return _Lazy(lambda: self.store.planner.brute_partial_packed(
@@ -90,17 +140,29 @@ class InProcessShard:
                 "probe_impl": self.store.probe_impl,
                 "query_impl": self.store.query_impl}
 
+    def save(self, path: str) -> None:
+        self.store.save(path)
+
     def close(self) -> None:
         pass
 
 
 class ShardedSketchStore:
-    """S-way partitioned SketchStore with exact global top-k, in process."""
+    """S-way partitioned SketchStore with exact global top-k, in process.
+
+    ``backends`` runs the plane over given shards (``ShardedSketchStore.load``
+    hands in the loaded ones); the default builds ``InProcessShard``s on
+    ``device``."""
 
     def __init__(self, cfg: StoreConfig, n_shards: int = 1, *,
                  partition: str = "round_robin", probe_impl: str = "auto",
                  query_impl: str = "auto",
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 backends: list | None = None):
+        if backends is not None:
+            if not backends:
+                raise ValueError("backends must be non-empty")
+            n_shards = len(backends)
         if n_shards <= 0:
             raise ValueError("n_shards must be positive")
         if partition not in PARTITIONS:
@@ -109,16 +171,15 @@ class ShardedSketchStore:
         if query_impl not in QUERY_IMPLS:
             raise ValueError(f"query_impl must be one of {QUERY_IMPLS} "
                              f"(got {query_impl!r})")
-        check_packed_banding(cfg)
         self.cfg = cfg
         self.n_shards = n_shards
         self.partition = partition
         self.query_impl = query_impl
         self.device = resolve_device(device)
-        self.shards = [InProcessShard(cfg, device=self.device,
-                                      probe_impl=probe_impl,
-                                      query_impl=query_impl)
-                       for _ in range(n_shards)]
+        self.shards = backends if backends is not None else [
+            InProcessShard(cfg, device=self.device, probe_impl=probe_impl,
+                           query_impl=query_impl)
+            for _ in range(n_shards)]
         self._gid_buf = [np.zeros(8, np.int64) for _ in range(n_shards)]
         self._gid_len = [0] * n_shards
         self.n_items = 0
@@ -160,17 +221,18 @@ class ShardedSketchStore:
         if self._failed:
             raise RuntimeError(
                 f"plane is inconsistent after a failed add ({self._failed}); "
-                "rebuild it")
+                "rebuild it or reload from the last snapshot")
 
-    def add_packed(self, words) -> np.ndarray:
-        """Partition + index a (B, W) uint32 packed-word batch; returns the
-        global ids (assigned in arrival order, as one SketchStore does).
+    def _scatter(self, batch: np.ndarray, *, packed: bool) -> np.ndarray:
+        """Assign global ids, hand each shard its slice, record the maps.
 
         A batch is all-or-nothing: if a shard fails after another indexed
-        its slice, the plane is marked inconsistent and refuses further
-        reads and writes instead of double-indexing on a retry."""
+        its slice, or a failing shard reports a partial write
+        (``e.dirty``), a retry would re-issue the same gids, so the plane
+        is marked inconsistent and refuses further reads and writes.  A
+        failure at the first shard touched that wrote nothing leaves the
+        plane usable (the later shards' lazy legs never run)."""
         self._check_consistent()
-        batch = as_host_words(words)
         n = len(batch)
         gids = np.arange(self.n_items, self.n_items + n, dtype=np.int64)
         owner = self._shard_of(gids)
@@ -178,13 +240,14 @@ class ShardedSketchStore:
         for s in range(self.n_shards):
             sel = np.flatnonzero(owner == s)
             if len(sel):
-                pend.append((s, sel, self.shards[s].start_add(batch[sel])))
+                pend.append((s, sel, self.shards[s].start_add(
+                    batch[sel], packed=packed)))
         wrote_any = False
         for s, sel, p in pend:
             try:
                 added = p.result()
             except BaseException as e:
-                if wrote_any:
+                if wrote_any or getattr(e, "dirty", False):
                     self._failed = f"{type(e).__name__} mid-batch"
                 raise
             wrote_any = True
@@ -197,6 +260,16 @@ class ShardedSketchStore:
             self._gid_len[s] = need
         self.n_items += n
         return gids
+
+    # -- writes ------------------------------------------------------------
+    def add(self, sigs) -> np.ndarray:
+        """Partition + index a (B, K) int32 signature batch; returns the
+        global ids (assigned in arrival order, as one SketchStore does)."""
+        return self._scatter(as_host_sigs(sigs), packed=False)
+
+    def add_packed(self, words) -> np.ndarray:
+        """``add`` for a (B, W) uint32 packed-word batch."""
+        return self._scatter(as_host_words(words), packed=True)
 
     # -- reads -------------------------------------------------------------
     def _to_global(self, shard: int, part: TopKPartial) -> TopKPartial:
@@ -226,7 +299,8 @@ class ShardedSketchStore:
         return parts
 
     def _merged_query(self, hashes: BandHashes, qwords, top_k: int,
-                      fold_s: float) -> tuple[np.ndarray, np.ndarray]:
+                      mode: str, fold_s: float,
+                      ) -> tuple[np.ndarray, np.ndarray]:
         """Per-shard candidate partials -> merge -> global brute-force leg
         for rows with no candidates anywhere (their query words indexed
         where they lie: on the device unless ``query_impl="host"``).
@@ -240,7 +314,7 @@ class ShardedSketchStore:
                  "merge_s": 0.0}
         self._h_fold.observe(fold_s)
         parts = self._fanout(
-            lambda sh: sh.start_query(hashes, qwords, top_k), tally)
+            lambda sh: sh.start_query(hashes, qwords, top_k, mode), tally)
         has_any = np.zeros(len(qwords), bool)
         for p in parts:
             has_any |= p.has_candidates
@@ -267,6 +341,34 @@ class ShardedSketchStore:
         self._h_query.observe(time.perf_counter() - wall_t0)
         return finalize_topk(TopKPartial(ids, scores, has_any))
 
+    def query(self, qsigs, top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
+        """(Q, K) signatures -> (ids (Q, top_k) [-1 pad], scores (Q, top_k)),
+        identical to single-shard ``SketchStore.query`` on the same items.
+
+        The coordinator folds the band keys on the host, once, and uploads
+        them once for every shard; it uploads the signatures and packs the
+        query words on the device, as the reference packs them on its own
+        (with ``query_impl="host"`` both stay on the host).  The shards
+        probe the device keys and keep the host copy for the spill leg."""
+        self._check_queryable("query()")
+        qsigs = as_host_sigs(qsigs)
+        with self._tracer.span("store.query"):
+            t0 = time.perf_counter()
+            with self._tracer.span("query.fold"):
+                host = band_hashes(qsigs, self.cfg.n_bands,
+                                   self.cfg.rows_per_band)
+                if self.query_impl == "host":
+                    hashes = BandHashes(host=host)
+                    qwords = pack_host(qsigs, self.cfg.b)
+                else:
+                    hashes = BandHashes(hashes_to_device(host, self.device),
+                                        host=host)
+                    qwords = pack_codes(torch.from_numpy(
+                        np.ascontiguousarray(qsigs, np.int32)).to(
+                            self.device), self.cfg.b)
+            return self._merged_query(hashes, qwords, top_k, "sig",
+                                      time.perf_counter() - t0)
+
     def query_packed(self, qwords,
                      top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
         """(Q, W) packed query words (a device tensor or a host array) ->
@@ -277,13 +379,15 @@ class ShardedSketchStore:
         ``query.fold`` times the fold's launch: the hashes stay on the
         device, so the span no longer waits for the card (the fold's device
         time lands in the first shard's ``query.partial``)."""
-        self._check_consistent()
+        self._check_queryable("query_packed()")
+        check_packed_banding(self.cfg)
         with self._tracer.span("store.query"):
             t0 = time.perf_counter()
             with self._tracer.span("query.fold"):
                 qwords, hashes = self._fold_packed(qwords)
             fold_s = time.perf_counter() - t0
-            return self._merged_query(hashes, qwords, top_k, fold_s)
+            return self._merged_query(hashes, qwords, top_k, "packed",
+                                      fold_s)
 
     def _fold_packed(self, qwords) -> tuple[object, BandHashes]:
         """The query words where the shards read them, and their hashes:
@@ -297,6 +401,78 @@ class ShardedSketchStore:
         return qnp, BandHashes(host=band_hashes_packed(qnp,
                                                        self.cfg.n_bands))
 
+    def _check_queryable(self, op: str) -> None:
+        self._check_consistent()
+        if not self.cfg.store_signatures:
+            raise RuntimeError(f"{op} needs stored signatures; this store "
+                               "was built with store_signatures=False")
+
+    def candidate_pairs(self) -> np.ndarray:
+        """Dedup-path pairs, single-shard only: a partitioned index never
+        co-buckets items from different shards, so cross-shard pairs would
+        be silently missed.  Run dedup on a 1-shard store."""
+        if self.n_shards != 1:
+            raise NotImplementedError(
+                "candidate_pairs() is exact only at n_shards=1 (cross-shard "
+                "pairs never share a shard-local bucket); run dedup on a "
+                "single-shard store")
+        if not isinstance(self.shards[0], InProcessShard):
+            raise NotImplementedError(
+                "candidate_pairs() needs the shard's table in-process; "
+                "load the snapshot into an InProcessShard store for dedup")
+        return self.shards[0].store.candidate_pairs()
+
+    # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
         for sh in self.shards:
             sh.close()
+
+    # -- snapshots ---------------------------------------------------------
+    def save(self, dirpath: str) -> None:
+        """Snapshot the plane: a ``SketchStore`` npz per shard
+        (``shard_snapshot_path``) and the manifest (cfg, n_shards,
+        partition, gid maps)."""
+        self._check_consistent()
+        os.makedirs(dirpath, exist_ok=True)
+        for i, sh in enumerate(self.shards):
+            sh.save(shard_snapshot_path(dirpath, i))
+        ints, thr = self.cfg.to_manifest()
+        gids = {f"gids_{i}": self._gids(i) for i in range(self.n_shards)}
+        np.savez(os.path.join(dirpath, MANIFEST_FILE),
+                 n_shards=self.n_shards, n_items=self.n_items,
+                 partition=self.partition, cfg=ints, cfg_thresholds=thr,
+                 **gids)
+
+    @classmethod
+    def load(cls, dirpath: str, *, backends: list | None = None,
+             probe_impl: str = "auto", query_impl: str = "auto",
+             device: str | torch.device = DEFAULT_DEVICE,
+             ) -> "ShardedSketchStore":
+        """Restore a plane snapshot: every shard loaded onto ``device`` in
+        an ``InProcessShard``, or, with ``backends`` (shards already
+        restored from the same snapshot), only the coordinator state (cfg,
+        partition, gid maps)."""
+        with np.load(os.path.join(dirpath, MANIFEST_FILE)) as z:
+            n_shards = int(z["n_shards"])
+            n_items = int(z["n_items"])
+            partition = str(z["partition"])
+            cfg = StoreConfig.from_manifest(z["cfg"], z["cfg_thresholds"])
+            gids = [np.asarray(z[f"gids_{i}"], np.int64)
+                    for i in range(n_shards)]
+        if backends is None:
+            backends = [
+                InProcessShard(store=SketchStore.load(
+                    shard_snapshot_path(dirpath, i), device=device),
+                    probe_impl=probe_impl, query_impl=query_impl)
+                for i in range(n_shards)]
+        elif len(backends) != n_shards:
+            raise ValueError(f"snapshot has {n_shards} shards, got "
+                             f"{len(backends)} backends")
+        store = cls(cfg, n_shards, partition=partition, backends=backends,
+                    query_impl=query_impl, device=device)
+        for i, g in enumerate(gids):
+            store._gid_buf[i] = grown(store._gid_buf[i], len(g))
+            store._gid_buf[i][: len(g)] = g
+            store._gid_len[i] = len(g)
+        store.n_items = n_items
+        return store

@@ -110,6 +110,9 @@ class BandedLSHTable:
     def load_factor(self) -> float:
         return self._used_slots / (self.n_bands * self.n_slots)
 
+    def spilled_ids(self) -> np.ndarray:
+        return np.unique(self._spill_id)
+
     # -- insert ------------------------------------------------------------
     def insert(self, hashes: np.ndarray, ids: np.ndarray) -> None:
         """Insert a batch: hashes (B, n_bands) uint64, ids (B,) item ids.
@@ -230,6 +233,30 @@ class BandedLSHTable:
         self._spill_len = need
 
     # -- lookup ------------------------------------------------------------
+    def _find_slots(self, band: np.ndarray, key: np.ndarray) -> np.ndarray:
+        """(E,) band, (E,) key -> (E,) slot index, or -1 when absent.
+
+        Early-terminating probe: an entry stops at its key's slot or at the
+        first unused slot (key absent), so the expected gather count per
+        entry is ~1/(1 - load_factor), not max_probes."""
+        ns = self.n_slots
+        key = np.asarray(key, np.uint64)
+        half = _halves(key)
+        base = (key % np.uint64(ns)).astype(np.int64)
+        slot = np.full(len(key), -1, np.int64)
+        active = np.flatnonzero(key != SENTINEL_KEY)
+        for t in range(self.max_probes):
+            if not len(active):
+                break
+            s = (base[active] + self._offset(t)) % ns
+            rec = self.records[band[active], s]            # (A, 2+W)
+            hit = (rec[:, 0] == half[active, 0]) & \
+                  (rec[:, 1] == half[active, 1])
+            unused = (rec[:, 0] == -1) & (rec[:, 1] == -1)
+            slot[active[hit]] = s[hit]
+            active = active[~hit & ~unused]    # mismatched slot: keep probing
+        return slot
+
     def device_records(self) -> torch.Tensor:
         """(n_bands * n_slots, 2 + W) int32 copy of the fused records on the
         table's device, cached by mutation version — the table uploads once
@@ -351,6 +378,66 @@ class BandedLSHTable:
             out[qi, : len(u)] = u
         return out
 
+    # -- candidate pairs (dedup path) --------------------------------------
+    def candidate_pairs(self) -> np.ndarray:
+        """(P, 2) int64 unique (i, j) i<j sharing at least one bucket.
+
+        Equivalent to the reference dict grouping (core.lsh.candidate_pairs)
+        when nothing has spilled; spilled entries are paired exactly via
+        their recorded (band, key)."""
+        w = self.bucket_width
+        sel_b, sel_s = np.nonzero(self.counts >= 2)
+        parts = []
+        if len(sel_b):
+            members = self.records[sel_b, sel_s, 2:]       # (M, W)
+            cnt = self.counts[sel_b, sel_s]
+            ii, jj = np.triu_indices(w, 1)
+            valid = jj[None, :] < cnt[:, None]
+            a = members[:, ii][valid].astype(np.int64)
+            c = members[:, jj][valid].astype(np.int64)
+            parts.append(np.stack([np.minimum(a, c), np.maximum(a, c)], 1))
+        parts.extend(self._spill_pairs())
+        if not parts:
+            return np.zeros((0, 2), np.int64)
+        return np.unique(np.concatenate(parts, axis=0), axis=0)
+
+    def _spill_pairs(self) -> list[np.ndarray]:
+        if not len(self._spill_id):
+            return []
+        parts = []
+        # spilled entry x resident bucket members with the same (band, key)
+        slot = self._find_slots(self._spill_band.astype(np.int64),
+                                self._spill_key)
+        found = slot >= 0
+        if found.any():
+            sb = self._spill_band[found]
+            posts = self.records[sb, slot[found], 2:]      # (S, W)
+            cnt = self.counts[sb, slot[found]]
+            valid = np.arange(self.bucket_width)[None, :] < cnt[:, None]
+            sid = np.repeat(self._spill_id[found], self.bucket_width)
+            mid = posts.reshape(-1).astype(np.int64)
+            ok = valid.reshape(-1) & (sid != mid)
+            a, c = sid[ok], mid[ok]
+            if len(a):
+                parts.append(np.stack([np.minimum(a, c), np.maximum(a, c)], 1))
+        # spilled x spilled within the same (band, key) group
+        order = np.lexsort((self._spill_id, self._spill_key, self._spill_band))
+        gb = self._spill_band[order]
+        gk = self._spill_key[order]
+        gi = self._spill_id[order]
+        bound = np.r_[0, np.flatnonzero((gb[1:] != gb[:-1]) |
+                                        (gk[1:] != gk[:-1])) + 1, len(gi)]
+        for s, e in zip(bound[:-1], bound[1:]):   # spill groups are tiny/rare
+            if e - s < 2:
+                continue
+            g = gi[s:e]
+            ii, jj = np.triu_indices(len(g), 1)
+            a, c = g[ii], g[jj]
+            keep = a != c
+            parts.append(np.stack([np.minimum(a, c)[keep],
+                                   np.maximum(a, c)[keep]], 1))
+        return parts
+
     # -- compaction --------------------------------------------------------
     def rebuild(self, n_slots: int | None = None,
                 bucket_width: int | None = None,
@@ -367,3 +454,9 @@ class BandedLSHTable:
             self._insert(self._hashes[: self.n_items],
                          np.arange(self.n_items, dtype=np.int64))
 
+    # -- snapshots ---------------------------------------------------------
+    @property
+    def hash_log(self) -> np.ndarray:
+        """(n_items, n_bands) uint64 — every inserted band hash, in id order
+        (the replay log rebuild() uses; what snapshots persist)."""
+        return self._hashes[: self.n_items]

@@ -185,9 +185,14 @@ def _imported_names(path: Path) -> list[str]:
     return names
 
 
+EXAMPLES = [ROOT / "examples" / f"{n}_torch.py"
+            for n in ("quickstart", "similarity_search")]
+
+
 def test_no_port_file_names_jax_or_repro_in_an_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert (ROOT / "chip_smoke.py").is_file()
+    assert all(p.is_file() for p in EXAMPLES)
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -243,10 +248,25 @@ def test_unported_options_raise_and_name_the_roadmap():
     assert np.array_equal(eng.sign(v, layout="dense").numpy(), want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimilaritySearchService(SearchConfig(transport="tcp", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimilaritySearchService(SearchConfig(d=1 << 12, k=60, n_bands=20,
-                                             rows_per_band=3, b=8,
-                                             device="cpu"))
+    # bands off word boundaries, which raised until the raw-signature path
+    # was ported, now serve like the reference service
+    from repro.serve.search import SearchConfig as RefSearchConfig
+    from repro.serve.search import SimilaritySearchService as RefService
+    common = dict(d=1 << 12, k=60, n_bands=20, rows_per_band=3, b=8)
+    ref_svc = RefService(RefSearchConfig(**common))
+    svc = SimilaritySearchService(
+        SearchConfig(device="cpu", **common),
+        params=convert.permutations_from_jax(np.asarray(ref_svc.engine.sigma),
+                                             np.asarray(ref_svc.engine.pi),
+                                             "cpu"))
+    assert not svc.packed_ingest and not ref_svc.packed_ingest
+    idx = np.sort(np.random.default_rng(1).integers(0, 1 << 12, (40, 30),
+                                                    np.int32), axis=1)
+    svc.add_sparse(idx)
+    ref_svc.add_sparse(idx)
+    for got, want in zip(svc.query_sparse(idx[:8], top_k=3),
+                         ref_svc.query_sparse(idx[:8], top_k=3)):
+        assert np.array_equal(got, want)
 
 
 def test_library_path_digests_the_shared_headers(tmp_path, monkeypatch):
@@ -266,3 +286,69 @@ def test_library_path_digests_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "other.cuh").write_text("// another header\n")
     added = _build.library_path("k")
     assert len({first, edited, added}) == 3
+
+
+# -- small leftovers of the ported modules -----------------------------------
+
+def test_classical_parameter_bytes_matches_reference():
+    from repro.core.engine import SketchEngine as RefSketchEngine
+    from repro_torch.core.engine import SketchEngine
+    for d, k in ((4096, 512), (1 << 16, 256), (7, 1)):
+        assert SketchEngine.classical_parameter_bytes(d, k) == \
+            RefSketchEngine.classical_parameter_bytes(d, k)
+
+
+def test_random_permutation_draws_what_make_two_permutations_draws():
+    """The reference draws from JAX's PRNG, which torch cannot reproduce:
+    both give int32 permutations of [0, d), and the port's pair is two
+    draws of ``random_permutation`` from one generator."""
+    import jax
+    ref = np.asarray(ref_perm.random_permutation(jax.random.PRNGKey(3), 300))
+    got = t_perm.random_permutation(torch.Generator().manual_seed(3), 300,
+                                    device="cpu")
+    assert got.dtype == torch.int32 and ref.dtype == np.int32
+    assert np.array_equal(np.sort(got.numpy()), np.sort(ref))
+    gen = torch.Generator().manual_seed(5)
+    first = t_perm.random_permutation(gen, 257, device="cpu")
+    second = t_perm.random_permutation(gen, 257, device="cpu")
+    sigma, pi = t_perm.make_two_permutations(
+        torch.Generator().manual_seed(5), 257, device="cpu")
+    assert torch.equal(sigma, first) and torch.equal(pi, second)
+
+
+def test_densify_matches_reference():
+    from repro.data.shingle import densify as ref_densify
+    from repro_torch.data.shingle import densify
+    idx = np.random.default_rng(2).integers(-1, 300, (9, 40), np.int32)
+    idx[3] = -1                                   # an empty row
+    got = densify(idx, 300)
+    assert got.dtype == np.int8
+    assert np.array_equal(got, ref_densify(idx, 300))
+
+
+@pytest.mark.parametrize("example,args,expect", [
+    ("quickstart", [], "classical MinHash would need 8.0 MiB"),
+    ("similarity_search", ["--docs", "120", "--queries", "16", "--b", "2"],
+     "top-1 self-retrieval: 100%"),
+], ids=["quickstart", "similarity_search"])
+def test_torch_examples_run_on_the_cpu_without_jax(example, args, expect):
+    """The two examples run with jax and repro blocked; the quickstart's
+    parameter memory is the reference engine's."""
+    from repro.core.engine import SketchConfig as RefSketchConfig
+    from repro.core.engine import SketchEngine as RefSketchEngine
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.argv = ["x", "--device", "cpu", *{args!r}]
+        runpy.run_path({str(ROOT / "examples" / f"{example}_torch.py")!r},
+                       run_name="__main__")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert expect in out.stdout
+    if example == "quickstart":
+        ref = RefSketchEngine(RefSketchConfig(d=4096, k=512, seed=42))
+        assert f"{ref.parameter_bytes / 1024:.0f} KiB" in out.stdout

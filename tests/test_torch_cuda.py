@@ -10,8 +10,9 @@ and sentinel codes, the whole serving index in one launch, outputs past
 (sparse, dense int8 and bit-packed), D on both sides of each table
 placement, rows longer than the compaction list, K past the hashes a lane
 holds, set bits past D in the last word.  Integer outputs: tolerance 0.
-Also: the wrappers refuse what the kernels do not take, and the service
-answers the same on the card as on the CPU.  Imports neither jax nor repro,
+Also: the wrappers refuse what the kernels do not take, the service and
+the raw-signature store answer the same on the card as on the CPU, and
+snapshots cross between the card and the CPU.  Imports neither jax nor repro,
 so it runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -839,3 +840,56 @@ def test_service_answers_the_same_on_card_and_cpu(cuda):
         answers.append(svc.query_sparse(idx[450:], top_k=5))
     assert np.array_equal(answers[0][0], answers[1][0])
     assert np.array_equal(answers[0][1], answers[1][1])
+
+
+def _raw_corpus(n=600, k=64, seed=3):
+    rng = np.random.default_rng(seed)
+    sigs = rng.integers(0, 1 << 16, (n, k), dtype=np.int32)
+    sigs[n // 2: n // 2 + 40] = sigs[:40]         # duplicates
+    strangers = rng.integers(1 << 20, 1 << 24, (6, k), dtype=np.int32)
+    return sigs, np.concatenate([sigs[:50], strangers])
+
+
+@pytest.mark.parametrize("b,s,bw", [(2, 1, 8), (1, 3, 1), (32, 2, 1)])
+def test_raw_store_answers_the_same_on_card_and_cpu(cuda, b, s, bw):
+    """The raw-signature path on the card (probe kernel from host keys,
+    collision kernel for scoring and the fallback) against the same store
+    on the CPU: the single store and the sharded plane."""
+    from repro_torch.store import ShardedSketchStore, SketchStore, StoreConfig
+    sigs, q = _raw_corpus()
+    cfg = StoreConfig(k=64, n_bands=16, rows_per_band=4, b=b,
+                      bucket_width=bw, n_slots=64)
+    answers = []
+    for device in ("cuda", "cpu"):
+        single = SketchStore(cfg, device=device)
+        plane = ShardedSketchStore(cfg, s, device=device)
+        for lo in range(0, len(sigs), 150):
+            single.add(sigs[lo: lo + 150])
+            plane.add(sigs[lo: lo + 150])
+        answers.append((single.query(q, top_k=5), plane.query(q, top_k=5),
+                        single.digest(), plane.last_timings["n_fallback"]))
+    (a1, a2, ad, afb), (c1, c2, cd, cfb) = answers
+    for got, want in ((a1, c1), (a2, c2), (a2, c1)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    assert ad == cd and afb == cfb > 0
+
+
+@pytest.mark.parametrize("b", [2, 32])
+def test_snapshots_cross_between_card_and_cpu(cuda, b, tmp_path):
+    """A plane saved from the card loads on the CPU, and the reverse; each
+    answers as the store it was saved from, with equal digests."""
+    from repro_torch.store import ShardedSketchStore, StoreConfig
+    sigs, q = _raw_corpus(seed=b)
+    cfg = StoreConfig(k=64, n_bands=16, rows_per_band=4, b=b)
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        live = ShardedSketchStore(cfg, 3, device=src)
+        live.add(sigs)
+        path = str(tmp_path / f"{src}_to_{dst}")
+        live.save(path)
+        back = ShardedSketchStore.load(path, device=dst)
+        assert back.device.type == dst
+        for got, want in zip(back.query(q, top_k=5), live.query(q, top_k=5)):
+            assert np.array_equal(got, want)
+        for a, c in zip(back.shards, live.shards):
+            assert a.store.digest() == c.store.digest()

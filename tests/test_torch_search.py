@@ -49,36 +49,91 @@ def _ingest(svc, idx, depth):
             pipe.submit(idx[lo: lo + BATCH])
 
 
-@pytest.mark.parametrize("s,depth,ref_q,port_q,bw,partition", [
-    (1, 1, "jnp", "auto", 8, "round_robin"),
-    (1, 2, "host", "auto", 1, "round_robin"),
-    (3, 1, "host", "host", 8, "hash"),
-    (3, 2, "jnp", "auto", 1, "round_robin"),
+def _case(s, depth, ref_q, port_q, bw, partition, b=32, top_k=5):
+    # the b = 32 cases keep the ids they had before b and top_k were
+    # parameters
+    tag = f"{s}-{depth}-{ref_q}-{port_q}-{bw}-{partition}"
+    if (b, top_k) != (32, 5):
+        tag += f"-b{b}-top{top_k}"
+    return pytest.param(s, depth, ref_q, port_q, bw, partition, b, top_k,
+                        id=tag)
+
+
+@pytest.mark.parametrize("s,depth,ref_q,port_q,bw,partition,b,top_k", [
+    _case(1, 1, "jnp", "auto", 8, "round_robin"),
+    _case(1, 2, "host", "auto", 1, "round_robin"),
+    _case(3, 1, "host", "host", 8, "hash"),
+    _case(3, 2, "jnp", "auto", 1, "round_robin"),
+    # b < 32: raw ingest at 4 rows a band (b = 1, 2, 4), packed (8, 16)
+    _case(1, 2, "jnp", "auto", 8, "round_robin", b=1),
+    _case(3, 1, "host", "auto", 1, "hash", b=2),
+    _case(3, 2, "jnp", "host", 8, "round_robin", b=2),
+    _case(1, 1, "host", "auto", 1, "round_robin", b=4),
+    _case(3, 2, "jnp", "auto", 8, "hash", b=8),
+    _case(1, 2, "jnp", "auto", 1, "round_robin", b=16),
+    # top_k past every row's candidate count (and, at 200, past the index)
+    _case(3, 2, "jnp", "auto", 8, "round_robin", b=2, top_k=40),
+    _case(1, 1, "jnp", "auto", 1, "round_robin", top_k=200),
 ])
 def test_service_answers_like_the_reference(s, depth, ref_q, port_q, bw,
-                                            partition):
+                                            partition, b, top_k):
     idx, qidx = _corpus()
     common = dict(d=D, k=K, n_bands=NB, rows_per_band=R, n_shards=s,
-                  bucket_width=bw, partition=partition)
+                  bucket_width=bw, partition=partition, b=b)
     ref = RefService(RefSearchConfig(query_impl=ref_q, **common))
     params = convert.permutations_from_jax(np.asarray(ref.engine.sigma),
                                            np.asarray(ref.engine.pi), "cpu")
     port = SimilaritySearchService(
         SearchConfig(query_impl=port_q, device="cpu", **common),
         params=params)
+    assert port.packed_ingest == ref.packed_ingest == (R % (32 // b) == 0)
     _ingest(ref, idx, depth)
     _ingest(port, idx, depth)
     assert port.size == ref.size == len(idx)
     assert np.array_equal(port.store.shard_sizes(), ref.store.shard_sizes())
-    want_ids, want_scores = ref.query_sparse(qidx, top_k=5)
-    got_ids, got_scores = port.query_sparse(qidx, top_k=5)
+    want_ids, want_scores = ref.query_sparse(qidx, top_k=top_k)
+    got_ids, got_scores = port.query_sparse(qidx, top_k=top_k)
     assert got_ids.dtype == np.int64 and got_scores.dtype == np.float32
+    assert got_ids.shape == (len(qidx), top_k)
     assert np.array_equal(got_ids, want_ids)
     assert np.array_equal(got_scores, want_scores)
     assert (got_ids[:24, 0] == np.arange(24)).all()         # self-hits
+    assert (got_scores[:24, 0] == 1.0).all()
     assert port.store.last_timings["n_fallback"] > 0        # fresh docs
+    if top_k > 5:
+        assert (got_ids[:24] == -1).any()       # fewer candidates than k
     if bw == 1:
         assert port.store.n_spilled > 0
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32])
+def test_service_serves_every_b_at_the_default_bands(b):
+    """K = 256 in 32 bands of 8 rows, the serving defaults: b = 1 and 2
+    take the raw-signature path, b >= 4 the packed one; the answers are
+    the JAX service's."""
+    docs, _ = corpus_with_duplicates(96, vocab=3000, doc_len=64,
+                                     dup_fraction=0.5, seed=b)
+    idx = batch_shingles(docs, n=3, d=D, max_nnz=64)
+    fresh = np.sort(np.random.default_rng(b).integers(0, D, (4, 64),
+                                                      np.int32), axis=1)
+    qidx = np.concatenate([idx[:12], fresh])
+    ref = RefService(RefSearchConfig(d=D, b=b))
+    params = convert.permutations_from_jax(np.asarray(ref.engine.sigma),
+                                           np.asarray(ref.engine.pi), "cpu")
+    port = SimilaritySearchService(SearchConfig(d=D, b=b, device="cpu"),
+                                   params=params)
+    assert (port.cfg.k, port.cfg.n_bands, port.cfg.rows_per_band) == \
+        (256, 32, 8)
+    assert port.packed_ingest == ref.packed_ingest == (b >= 4)
+    _ingest(ref, idx, 2)
+    _ingest(port, idx, 2)
+    got = port.query_sparse(qidx, top_k=5)
+    want = ref.query_sparse(qidx, top_k=5)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert (got[0][:12, 0] == np.arange(12)).all()          # self-hits
+    assert (got[1][:12, 0] == 1.0).all()
+    assert port.store.last_timings["n_fallback"] > 0
 
 
 @pytest.mark.parametrize("bw", [8, 1])
