@@ -85,6 +85,38 @@ printed then:
    service with the same permutations: the same batch must get the live
    plane's ids and scores, and every shard the live shard's ``digest()``;
    the save and load seconds and the snapshot's bytes are printed.
+5c. The tcp shard plane (``tcp_path``): ``SearchConfig(device="cuda",
+   transport="tcp", n_shards=4)``, otherwise the defaults: four shard
+   worker processes on the one card, each with its own CUDA context.  The
+   coordinator signs and folds (kernels 1, 2), and each worker probes from
+   the wire's hashes, uploaded once, and scores its fallback rows (kernels
+   3, 4).  The same 262,144 documents through ``IngestPipeline(depth=2)``,
+   then the 1088-row batch five times: ids and scores must equal phase 2's,
+   fallback rows included.  Counted: the coordinator's counts set to 0
+   just before the service is built, the workers' read from their STATS
+   (fresh processes): the coordinator folds once a batch and launches no
+   probe or collision kernel, each worker probes once a batch and scores
+   once a batch and launches no fold; each worker's labelled registry
+   shows ``kernel.query_fused.cuda`` and no plain kernel, every worker
+   reports a ``cuda`` device and holds memory on the card by its own
+   STATS, and every worker pid appears in ``nvidia-smi
+   --query-compute-apps`` (where nvidia-smi sees this namespace's pids;
+   where it does not, the pid check is not possible and is said so, and
+   nvidia-smi need only list as many contexts).  Printed: the spawn
+   and ingest time, the query latencies, the coordinator's spans a batch
+   over batches 2-5 (``TCP_SPANS``: the fold, the legs' submit and gather,
+   the merge, each shard's reply latency) and the wire bytes a batch.
+   Then the plane saved, and the workers' kernels held against their
+   plain versions at the tcp path's shapes, timed and bounded as in phase
+   3 (in ``chip_smoke.json`` under ``tcp_path.kernels``): shard 0 loaded
+   onto the card from the snapshot, the probe from the batch's band
+   hashes folded, copied to the host and uploaded as a worker gets them,
+   the collision count of the padded fallback rows against the shard's
+   words.  Then a hedged plane: four workers booted from the
+   snapshot with worker 1 sleeping 20 ms on half its reads, and
+   ``connect_sharded(hedge=True)``; 12 batches on each plane, answers
+   equal, both medians and the hedges fired and won printed.  Every
+   worker is shut down in a ``finally``.
 6. Dense serving path: a fresh service with the same defaults ingests the
    first 65,536 documents as dense 0/1 int8 rows (16 batches of 4096 x
    2^16, built on the host) through ``pipeline(layout="dense", depth=2)``
@@ -120,9 +152,9 @@ printed then:
    both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
 
-``launches`` in the kernels line is the sum over the six counted paths
+``launches`` in the kernels line is the sum over the seven counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
-phases 6 and 7).
+phase 5c's tcp path, coordinator and workers, phases 6 and 7).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -275,16 +307,8 @@ def corpus(n_docs: int):
 
 
 def kernels():
-    from repro_torch.kernels import (cminhash_kernel, cminhash_packed,
-                                     cminhash_sparse, collision_kernel,
-                                     lsh_probe, query_fused)
-    return {"cminhash_sparse": cminhash_sparse.KERNEL,
-            "fold": query_fused.KERNEL,
-            "lsh_probe": lsh_probe.KERNEL,
-            "fold_probe": query_fused.FOLD_PROBE_KERNEL,
-            "collision": collision_kernel.KERNEL,
-            "cminhash_dense": cminhash_kernel.KERNEL,
-            "cminhash_packed": cminhash_packed.KERNEL}
+    from repro_torch.kernels import all_kernels
+    return all_kernels()
 
 
 def zero_counts(ks) -> None:
@@ -977,6 +1001,290 @@ def snapshot_path(services: dict, qidx, report: dict) -> None:
     print(f"[snapshot] launches {launches}")
     for n in ("lsh_probe", "collision"):
         require(launches[n] > 0, f"kernel {n} launched by a loaded plane")
+
+
+# The coordinator's registry histograms a tcp query batch: the fold once,
+# the legs' submit (the hashes' and words' host copies, the frames'
+# encoding and the first sends), the gather (the wait for the workers'
+# replies), the host merge; then each shard's reply latency.
+TCP_SHARDS = 4
+TCP_SPANS = ("service.sign", "query.fold", "query.broadcast",
+             "query.partial", "query.merge", "service.query") + tuple(
+                 f"query.shard{i}.partial" for i in range(TCP_SHARDS))
+WIRE_COUNTERS = ("transport.client.bytes_out", "transport.client.bytes_in")
+
+
+def hist_sums(names) -> dict:
+    """Seconds summed so far in each named registry histogram."""
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.default()
+    return {n: reg.histogram(n).sum for n in names}
+
+
+def wire_bytes() -> dict:
+    """The coordinator's tcp bytes so far, out and in."""
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.default()
+    return {n.rsplit(".", 1)[1]: reg.counter(n).value for n in WIRE_COUNTERS}
+
+
+def compute_apps() -> list[str]:
+    """nvidia-smi's compute contexts on the card, one ``pid, used memory``
+    line each."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def check_contexts(pids: list[int], apps: list[str], devices: list[str],
+                   device_bytes: list[int]) -> str:
+    """Every worker holds a CUDA context on the card.  By their own STATS,
+    each worker's store lives on ``cuda`` and holds memory there.  Where
+    nvidia-smi lists this namespace's pids (it lists this process), each
+    worker pid must be among them.  Where it cannot (a container whose pids
+    it does not see, so it does not list this process either), the pid
+    check is not possible: nvidia-smi's rows are only required to number at
+    least this process and each worker, which another process's context
+    could satisfy, so the STATS checks carry the evidence.  Returns how it
+    checked."""
+    listed = {int(a.split(",")[0]) for a in apps
+              if a.split(",")[0].strip().isdigit()}
+    require(all(d.startswith("cuda") for d in devices),
+            f"every worker's store lives on the card ({devices})")
+    require(all(b > 0 for b in device_bytes),
+            f"every worker holds memory on the card ({device_bytes} B)")
+    if os.getpid() in listed:
+        require(set(pids) <= listed,
+                f"every worker pid holds a CUDA context (workers {pids}, "
+                f"nvidia-smi {sorted(listed)})")
+        return "pids: every worker pid listed by nvidia-smi"
+    require(len(apps) >= 1 + len(pids),
+            f"nvidia-smi lists at least a CUDA context for this process and "
+            f"each of the {len(pids)} workers ({apps})")
+    return ("pid check not possible: nvidia-smi does not list this "
+            "namespace's pids; workers on the card by their STATS device "
+            "and device bytes")
+
+
+def tcp_query_batches(svc, qidx, n: int, want) -> list[float]:
+    """``n`` query batches through ``svc``, each held equal to ``want``;
+    their host-clock seconds."""
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
+        lat.append(time.perf_counter() - t0)
+        require(np.array_equal(ids, want[0])
+                and np.array_equal(scores, want[1]),
+                "the tcp plane answers as phase 2's in-process shard")
+    return lat
+
+
+def tcp_kernel_checks(d: str, main_svc, qidx, n_fallback: int,
+                      report: dict) -> list[dict]:
+    """Phase 5c: the workers' kernels at the shapes the tcp path gives
+    them, against their plain versions, timed and bounded as in phase 3.
+    Shard 0 of the plane's snapshot in ``d`` is loaded onto the card as a
+    worker loads it; the probe reads the batch's band hashes as a worker
+    gets them (folded on the card, copied to the host, uploaded), and the
+    collision count scores the fresh rows, padded as the planner pads the
+    fallback rows, against the shard's words."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.query_fused import (hashes_to_device,
+                                                 hashes_to_host)
+    from repro_torch.store import SketchStore
+    from repro_torch.store.sharded import shard_snapshot_path
+    cfg = main_svc.cfg
+    st = SketchStore.load(shard_snapshot_path(d, 0), device="cuda")
+    qwords = main_svc.engine.sign(qidx, layout="sparse", pack_b=cfg.b)
+    wire = hashes_to_host(dispatch.fold_hashes(qwords, n_bands=cfg.n_bands))
+    hashes = hashes_to_device(wire, st.device)
+    extra = {"shard": 0, "shard_docs": st.size}
+    print(f"[tcp] the workers' kernels at shard 0's shapes ({st.size} "
+          f"docs, {n_fallback} fallback rows), against their plain "
+          f"versions:")
+    rows = [probe_entry(st.table.device_records(), hashes, st.table.n_slots,
+                        st.table.max_probes,
+                        {"keys": "wire band hashes, uploaded", **extra})[0],
+            collision_entry(qwords[N_QUERY_INDEXED:], n_fallback,
+                            st.buffer.device_words(), cfg.k, cfg.b,
+                            extra)[0]]
+    report["kernels"] = rows
+    return rows
+
+
+def tcp_path(main_svc, idx, qidx, report: dict) -> None:
+    """Phase 5c: the tcp shard plane through the service a user calls,
+    ``SearchConfig(transport="tcp", n_shards=4)`` on the card: four shard
+    worker processes, each with its own CUDA context on this one card.
+    The coordinator signs and folds (kernels 1, 2); each worker probes from
+    the uploaded wire hashes and scores its fallback rows (kernels 3, 4).
+    Counted: the coordinator's counts set to 0 just before, the workers'
+    from their STATS (fresh processes, so they start at 0).  Then a hedged
+    plane booted from the plane's snapshot, one worker slowed."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    from repro_torch.transport import (connect_sharded, shutdown_plane,
+                                       spawn_workers)
+    ks = kernels()
+    want = main_svc.query_sparse(qidx, top_k=TOP_K)
+    want_fb = main_svc.store.last_timings["n_fallback"]
+    params = (main_svc.engine.sigma, main_svc.engine.pi)
+    cfg = SearchConfig(device="cuda", transport="tcp", n_shards=TCP_SHARDS)
+    svc = hsvc = hplane = None
+    handles: list = []
+    try:
+        torch.cuda.synchronize()
+        zero_counts(ks)
+        # --- the tcp path: spawn, ingest + query batches ------------------
+        t0 = time.perf_counter()
+        svc = SimilaritySearchService(cfg, params=params)
+        spawn_s = time.perf_counter() - t0
+        w0 = wire_bytes()
+        t_ingest = ingest(svc, idx, BATCH)
+        w1 = wire_bytes()
+        lat = tcp_query_batches(svc, qidx, 1, want)
+        stats0 = [sh.stats() for sh in svc.store.shards]
+        spans0, w2 = hist_sums(TCP_SPANS), wire_bytes()
+        lat += tcp_query_batches(svc, qidx, 4, want)
+        spans1, w3 = hist_sums(TCP_SPANS), wire_bytes()
+        coordinator = read_counts(ks)
+        stats = [sh.stats() for sh in svc.store.shards]
+        # -------------------------------------------------------------------
+        # each worker's own handling time a batch over batches 2-5 (its
+        # registry's worker.handle.* histograms), beside the coordinator's
+        # wait for its reply (query.shard{i}.partial)
+        handle = [{leg: (json.loads(b["obs"])["hists"]
+                         [f"worker.handle.{leg}"]["sum_ns"]
+                         - json.loads(a["obs"])["hists"]
+                         [f"worker.handle.{leg}"]["sum_ns"]) / 4 / 1e6
+                   for leg in ("query", "brute")}
+                  for a, b in zip(stats0, stats)]
+        n_fallback = svc.store.last_timings["n_fallback"]
+        workers = [json.loads(st["launches"]) for st in stats]
+        launches = {n: coordinator[n] + sum(w[n] for w in workers)
+                    for n in ks}
+        spans = {n: (spans1[n] - spans0[n]) * 1e3 / 4 for n in TCP_SPANS}
+        wire_q = {k: (w3[k] - w2[k]) / 4 for k in w3}
+        wire_ingest = {k: w1[k] - w0[k] for k in w1}
+        plane = svc.store.obs_snapshot()
+        pids = [int(st["pid"]) for st in stats]
+        apps = compute_apps()
+        rows = {
+            "shards": TCP_SHARDS, "docs": len(idx), "spawn_s": spawn_s,
+            "ingest_s": t_ingest, "ingest_docs_per_s": len(idx) / t_ingest,
+            "query_rows": len(qidx), "query_latency_s_first": lat[0],
+            "query_latency_s_median_next4": statistics.median(lat[1:]),
+            "query_latency_s_all": lat, "fallback_rows": n_fallback,
+            "shard_sizes": [int(st["size"]) for st in stats],
+            "n_spilled": [int(st["n_spilled"]) for st in stats],
+            "worker_pids": pids, "compute_apps": apps,
+            "worker_devices": [str(st["device"]) for st in stats],
+            "worker_device_bytes": [int(st["device_bytes"]) for st in stats],
+            "launches": launches, "launches_coordinator": coordinator,
+            "launches_workers": workers,
+            "query_spans_ms_next4": spans,
+            "worker_handle_ms_next4": handle,
+            "wire_bytes_per_query_batch": wire_q,
+            "wire_bytes_ingest": wire_ingest,
+            "worker_registries": {
+                f"shard{i}": json.loads(st["obs"])["counters"]
+                for i, st in enumerate(stats)}}
+        report["tcp_path"] = rows
+        print(f"[tcp] {TCP_SHARDS} shard workers on the card up in "
+              f"{spawn_s:.3f} s; ingest {len(idx)} docs in {t_ingest:.3f} s "
+              f"({len(idx) / t_ingest:.0f} docs/s), shard sizes "
+              f"{rows['shard_sizes']}, wire {wire_ingest['bytes_out']} B "
+              f"out")
+        print(f"[tcp] query batch of {len(qidx)} rows: first "
+              f"{lat[0] * 1e3:.3f} ms, median of next 4 "
+              f"{statistics.median(lat[1:]) * 1e3:.3f} ms (phase 2's "
+              f"in-process shard: "
+              f"{report['main_path']['query_latency_s_median_next4'] * 1e3:.3f}"
+              f" ms); fallback rows {n_fallback}; answers equal phase 2's")
+        print("[tcp] spans, ms a batch over batches 2-5: " + ", ".join(
+            f"{n} {spans[n]:.3f}" for n in TCP_SPANS))
+        print("[tcp] each worker's own handling, ms a batch over batches "
+              "2-5 (QUERY / BRUTE): " + ", ".join(
+                  f"shard{i} {h['query']:.3f} / {h['brute']:.3f}"
+                  for i, h in enumerate(handle)))
+        print(f"[tcp] wire a query batch: {wire_q['bytes_out']:.0f} B out, "
+              f"{wire_q['bytes_in']:.0f} B in")
+        print(f"[tcp] launches {launches}; coordinator {coordinator}; "
+              f"workers {workers}")
+        require(n_fallback == want_fb and n_fallback > 0,
+                f"the tcp plane takes phase 2's fallback rows ({n_fallback} "
+                f"against {want_fb})")
+        require(coordinator["fold"] == len(lat)
+                and coordinator["lsh_probe"] == 0
+                and coordinator["collision"] == 0,
+                f"the coordinator folds once a batch and probes and scores "
+                f"nothing ({coordinator})")
+        for i, w in enumerate(workers):
+            require(w["fold"] == 0 and w["fold_probe"] == 0,
+                    f"worker {i} launches no fold ({w})")
+            require(w["lsh_probe"] == len(lat)
+                    and w["collision"] == len(lat),
+                    f"worker {i} probes once a batch from the wire's hashes "
+                    f"and scores its fallback rows once a batch ({w})")
+            prefix = f"shard{i}.replica0.kernel."
+            mine = {n[len(prefix):]: v for n, v in plane["counters"].items()
+                    if n.startswith(prefix)}
+            require(mine.get("query_fused.cuda", 0) > 0
+                    and not any(n.endswith(".plain") for n in mine),
+                    f"worker {i}'s registry: the fused query on the card "
+                    f"and no plain kernel ({mine})")
+        rows["contexts_checked_by"] = check_contexts(
+            pids, apps, rows["worker_devices"], rows["worker_device_bytes"])
+        print(f"[tcp] worker pids {pids} on {rows['worker_devices']}, "
+              f"holding {rows['worker_device_bytes']} B on the card; "
+              f"nvidia-smi "
+              f"compute contexts: {apps} ({rows['contexts_checked_by']})")
+
+        # the hedged plane: the same shards booted from the plane's
+        # snapshot, worker 1 sleeping 20 ms on half its reads
+        with tempfile.TemporaryDirectory() as d:
+            svc.store.save(d)
+            tcp_kernel_checks(d, main_svc, qidx, n_fallback, rows)
+            t0 = time.perf_counter()
+            handles = spawn_workers(None, TCP_SHARDS, device="cuda",
+                                    snapshot_dir=d,
+                                    slow_shards={1: (0.5, 0.02)})
+            hplane = connect_sharded(
+                [h.address for h in handles], snapshot_dir=d,
+                timeout=cfg.query_timeout_s, hedge=True, device="cuda")
+            boot_s = time.perf_counter() - t0
+        hsvc = SimilaritySearchService(cfg, params=params, store=hplane,
+                                       workers=handles)
+        n_more = 12
+        lat_u = tcp_query_batches(svc, qidx, n_more, want)
+        lat_h = tcp_query_batches(hsvc, qidx, n_more, want)
+        group = hplane.shards[0].group
+        rows["hedged"] = {
+            "boot_s": boot_s, "batches": n_more,
+            "slow_shards": {"1": [0.5, 0.02]},
+            "query_latency_s_unhedged": lat_u,
+            "query_latency_s_hedged": lat_h,
+            "median_unhedged_s": statistics.median(lat_u[1:]),
+            "median_hedged_s": statistics.median(lat_h[1:]),
+            "n_hedges": group.n_hedges, "n_hedge_wins": group.n_hedge_wins}
+        print(f"[tcp] hedged plane (worker 1 sleeps 20 ms on half its "
+              f"reads), booted from the snapshot in {boot_s:.3f} s: "
+              f"{n_more} batches, answers equal; median of batches 2-"
+              f"{n_more}: unhedged {rows['hedged']['median_unhedged_s'] * 1e3:.3f}"
+              f" ms, hedged {rows['hedged']['median_hedged_s'] * 1e3:.3f} ms;"
+              f" hedges {group.n_hedges}, won {group.n_hedge_wins}")
+    finally:
+        # clean-up only (a failure above still raises): every worker is
+        # shut down through shutdown_plane (the services' close)
+        if hsvc is not None:
+            hsvc.close()
+        elif hplane is not None:
+            shutdown_plane(hplane, handles)
+        for h in handles:
+            h.terminate()
+        if svc is not None:
+            svc.close()
 
 
 def dense_path(idx, fresh_idx, report: dict):
@@ -1801,7 +2109,10 @@ def main() -> None:
     raw_svc = raw_path(idx, fresh_idx, report)
     card_vs_cpu(idx, fresh_idx, report, b=2)
     snapshot_path({"main_path": svc, "raw_path": raw_svc}, qidx, report)
-    del svc, raw_svc
+    del raw_svc
+    torch.cuda.empty_cache()
+    tcp_path(svc, idx, qidx, report)
+    del svc
     torch.cuda.empty_cache()
 
     svc, batch = dense_path(idx, fresh_idx, report)
@@ -1814,7 +2125,7 @@ def main() -> None:
     dense_card_vs_cpu(idx, fresh_idx, report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
-             "dense_path", "paper_path")
+             "tcp_path", "dense_path", "paper_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

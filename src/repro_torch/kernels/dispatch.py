@@ -54,6 +54,17 @@ def select_dense_impl(d: int, device_type: str) -> str:
     return "packed" if d >= PACKED_MIN_D else "int8"
 
 
+def select_probe_impl(device_type: str) -> str:
+    """Resolve ``probe_impl="auto"`` for a table on a ``cuda`` or ``cpu``
+    device: the probe kernel on a card, the numpy host walk on the CPU.
+    ``BandedLSHTable.lookup`` applies it per call, and a shard worker at
+    boot, against its own device."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device type must be cuda or cpu (got "
+                         f"{device_type!r})")
+    return "device" if device_type == "cuda" else "numpy"
+
+
 def signatures_dense(v: torch.Tensor, pi: torch.Tensor, k: int,
                      sigma: torch.Tensor | None = None, *,
                      shift_offset: int = 1, impl: str = "auto",

@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import torch
 
+from ..device import take_rows, u32_to_host
 from . import _build
 from .lsh_probe import META_COLS, check_geometry, lsh_probe_hashes_plain
 from .packfmt import unpack_codes
@@ -195,6 +196,37 @@ class BandHashes:
         if self._host is None:
             self._host = hashes_to_host(self.dev)
         return self._host
+
+
+class QueryWords:
+    """A query batch's (Q, W) packed words as the coordinator holds them:
+    ``dev``, int32 words on the device (a host uint32 array on the host
+    walk), which in-process shards read; and the host uint32 copy, made at
+    the first ``host()`` and kept, which remote shards put on the wire.
+    However many remote shards a batch fans out to, the words come to the
+    host once.  ``rows(em)`` is the brute-force leg's subset: its device
+    rows, and its host rows sliced from the batch's host copy when that
+    exists (so the fallback leg makes no second copy)."""
+
+    __slots__ = ("dev", "_host")
+
+    def __init__(self, dev, *, host: np.ndarray | None = None):
+        self.dev = dev
+        if host is None and not isinstance(dev, torch.Tensor):
+            host = np.asarray(dev, np.uint32)
+        self._host = host
+
+    def __len__(self) -> int:
+        return int(self.dev.shape[0])
+
+    def host(self) -> np.ndarray:
+        if self._host is None:
+            self._host = u32_to_host(self.dev)
+        return self._host
+
+    def rows(self, em: np.ndarray) -> "QueryWords":
+        return QueryWords(take_rows(self.dev, em),
+                          host=None if self._host is None else self._host[em])
 
 
 def score_topk(cand: torch.Tensor, words: torch.Tensor, qwords: torch.Tensor,

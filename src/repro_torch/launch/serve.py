@@ -8,29 +8,90 @@ indexed documents, printing the same ``[serve] ingest ...`` and
 ``[serve] search ...`` lines as ``python -m repro.launch.serve --mode
 search``.  ``--device cuda`` (the default) needs a card and raises without
 one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+
+``--transport tcp`` spawns one shard worker process per shard, each with
+its store on ``--device``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search \
+        --transport tcp --shards 3 --docs 400 --metrics-dump PATH
+
+``--metrics-dump PATH`` appends one JSONL snapshot of the process metrics
+registry (+ drained trace spans, + the workers' STATS snapshots) every
+``--metrics-interval`` seconds, plus a final line at shutdown; validate it
+with ``python -m repro_torch.obs.dump --check PATH``.
+``--trace-sample-rate`` sets the root-span sampling probability (sampled
+traces ride the wire to tcp workers and come back stitched).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 
 import numpy as np
 
 from repro_torch.data.shingle import batch_shingles
 from repro_torch.data.synthetic import corpus_with_duplicates
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.dump import MetricsDumper
 from repro_torch.serve.search import SearchConfig, SimilaritySearchService
 
 
+class _WorkerSnapshots:
+    """The dump's ``workers`` field: ``{"shard{i}.replica{r}": registry
+    snapshot}`` of every tcp worker (its STATS ``obs``), fetched on
+    connections of the dump thread's own, so it never shares a socket with
+    the coordinator's fan-out.  In-process shards share this process's
+    registry and add nothing."""
+
+    def __init__(self):
+        self.store = None
+        self._conns: list | None = None
+
+    def __call__(self) -> dict:
+        if self.store is None:
+            return {}
+        if self._conns is None:
+            from repro_torch.transport import ShardConnection
+            self._conns = [ShardConnection(sh.conn.address, timeout=30)
+                           for sh in self.store.shards if hasattr(sh, "conn")]
+        from repro_torch.transport.wire import Message, MsgType
+        out = {}
+        for conn in self._conns:
+            stats = conn.request(Message(MsgType.STATS, {})).fields
+            out[f"shard{stats['shard']}.replica{stats['replica']}"] = \
+                json.loads(stats["obs"])
+        return {"workers": out}
+
+    def close(self) -> None:
+        for conn in self._conns or []:
+            conn.close()
+
+
 def serve_search(args) -> None:
+    obs_trace.default().sample_rate = args.trace_sample_rate
     docs, _ = corpus_with_duplicates(args.docs, vocab=30_000, doc_len=256,
                                      dup_fraction=0.4, seed=0)
     idx = batch_shingles(docs, n=3, d=1 << 14)
-    with SimilaritySearchService(SearchConfig(
+    workers = _WorkerSnapshots()
+    with contextlib.ExitStack() as stack:
+        stack.callback(workers.close)
+        # the dumper folds in the workers' STATS snapshots once the plane
+        # is up, and writes its final line before the workers shut down
+        dumper = stack.enter_context(MetricsDumper(
+            args.metrics_dump, interval_s=args.metrics_interval,
+            extra=workers)) if args.metrics_dump else None
+        svc = stack.enter_context(SimilaritySearchService(SearchConfig(
             d=1 << 14, k=256, n_bands=64, rows_per_band=4,
             n_shards=args.shards, partition=args.partition,
             probe_impl=args.probe, query_impl=args.query_impl,
-            device=args.device)) as svc:
+            transport=args.transport, query_timeout_s=args.query_timeout,
+            hedge=args.hedge, hedge_delay_ms=args.hedge_delay_ms,
+            device=args.device)))
+        workers.store = svc.store
         bs = max(1, min(args.ingest_batch, len(idx)))
         t0 = time.perf_counter()
         with svc.pipeline(depth=args.pipeline_depth) as pipe:
@@ -49,10 +110,31 @@ def serve_search(args) -> None:
         sizes = svc.store.shard_sizes().tolist()
         print(f"[serve] search over {svc.size} docs "
               f"({args.shards} shard(s) {sizes}, probe={args.probe}, "
-              f"query={args.query_impl}, transport=inproc, "
+              f"query={args.query_impl}, transport={args.transport}, "
               f"device={svc.engine.device}): "
               f"{args.batch} queries in {dt * 1e3:.1f} ms; top-1 self-hit "
               f"{(ids[:, 0] == np.arange(args.batch)).mean() * 100:.0f}%")
+        # one merged plane snapshot (coordinator + tcp workers): the
+        # per-shard partial-latency split is the skew evidence
+        snap = svc.store.obs_snapshot()
+        shard_p50 = [obs_metrics.hist_quantile(
+            snap["hists"].get(f"query.shard{i}.partial",
+                              {"count": 0, "buckets": {}}), 0.5)
+            for i in range(args.shards)]
+        print(f"[serve] obs: {len(snap['counters'])} counters, "
+              f"{len(snap['hists'])} hists; shard partial p50(ms) "
+              f"{[round(p * 1e3, 2) for p in shard_p50]}")
+        # the stitched trace (skipped when a dumper already drained the
+        # ring: the spans are in the dump file then)
+        tid = obs_trace.default().last_trace_id()
+        spans = obs_trace.default().for_trace(tid) if tid is not None else []
+        if spans:
+            legs = sorted({(s["proc"], s["name"]) for s in spans})
+            print(f"[serve] trace {tid:x}: {len(spans)} spans across "
+                  f"{len({p for p, _ in legs})} proc(s): "
+                  f"{', '.join(f'{p}/{n}' for p, n in legs)}")
+        if dumper is not None:
+            dumper.close()
 
 
 def main() -> None:
@@ -64,7 +146,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--docs", type=int, default=400)
     ap.add_argument("--shards", type=int, default=1,
-                    help="index partitions (in process)")
+                    help="index partitions")
     ap.add_argument("--partition", choices=["round_robin", "hash"],
                     default="round_robin")
     ap.add_argument("--probe", choices=["auto", "numpy", "device"],
@@ -73,6 +155,30 @@ def main() -> None:
     ap.add_argument("--query-impl", choices=["auto", "host"], default="auto",
                     help="auto = the fused device pipeline; host = the host "
                          "fold + planner walk")
+    ap.add_argument("--transport", choices=["inproc", "tcp"],
+                    default="inproc",
+                    help="shard backend: in-process shards or spawned tcp "
+                         "shard workers, one per shard, on --device")
+    ap.add_argument("--query-timeout", type=float, default=30.0,
+                    dest="query_timeout",
+                    help="query fan-out deadline in seconds (tcp transport; "
+                         "TransportTimeout errors name this knob)")
+    ap.add_argument("--hedge", action="store_true",
+                    help="hedge slow shard reads on a second connection "
+                         "(tcp transport; never changes results)")
+    ap.add_argument("--hedge-delay-ms", type=float, default=None,
+                    help="fixed hedge delay in ms (default: derived from "
+                         "the shards' observed reply skew; 0 hedges at once)")
+    ap.add_argument("--metrics-dump", metavar="PATH", default=None,
+                    help="append periodic JSONL registry snapshots + trace "
+                         "spans (+ tcp workers' snapshots) here while "
+                         "serving; validate with `python -m "
+                         "repro_torch.obs.dump --check PATH`")
+    ap.add_argument("--metrics-interval", type=float, default=1.0,
+                    help="seconds between --metrics-dump lines")
+    ap.add_argument("--trace-sample-rate", type=float, default=1.0,
+                    help="probability a query batch opens a (cross-process) "
+                         "trace; 0 disables tracing")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="ingest batches signed-but-unscattered in flight "
                          "(1 = serial sign -> scatter)")

@@ -19,9 +19,17 @@ once, so batch N+1's signing runs on the card while batch N scatters into
 the shards on the host; the copy of batch N's output to the host is the one
 synchronisation.
 
-Ported: the in-process plane, for sparse index lists and dense (B, D)
-rows.  The tcp transport, replicas and streaming are later slices
-(ROADMAP.md).
+``transport`` picks where the shards live: ``"inproc"`` (default) runs
+them in this process on ``device``; ``"tcp"`` spawns one shard worker
+process per shard on localhost (``repro_torch.transport``), each with its
+store on ``device`` (its own CUDA context on the same card), and talks the
+framed wire protocol: the same answers bit for bit.  The coordinator still
+signs and folds on the card; each batch's hashes and words cross to the
+host once for the wire.  tcp services own their workers: call ``close()``
+(or use the service as a context manager) to shut them down.
+
+Ported: the in-process and tcp planes, for sparse index lists and dense
+(B, D) rows.  Replicas and streaming are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..store import ShardedSketchStore, StoreConfig
 
-TRANSPORTS = ("inproc",)
+TRANSPORTS = ("inproc", "tcp")
 LAYOUTS = ("sparse", "dense")
 
 
@@ -57,24 +65,29 @@ class SearchConfig:
     partition: str = "round_robin"   # or "hash" (see store/sharded.py)
     probe_impl: str = "auto"    # host-walk probe backend: numpy | device
     query_impl: str = "auto"    # query pipeline: auto (device) | host
-    transport: str = "inproc"   # shard backend (only inproc is ported)
+    transport: str = "inproc"   # shard backend: inproc | tcp (worker procs)
+    query_timeout_s: float = 30.0    # fan-out deadline (tcp transport)
+    hedge: bool = False         # hedged shard reads (tcp transport)
+    hedge_delay_ms: float | None = None  # fixed hedge delay; None = derived
     device: str = DEFAULT_DEVICE
 
 
 class SimilaritySearchService:
     def __init__(self, cfg: SearchConfig, *,
                  params: tuple[torch.Tensor, torch.Tensor] | None = None,
-                 store: ShardedSketchStore | None = None):
+                 store: ShardedSketchStore | None = None,
+                 workers=None):
         """``params=(sigma, pi)`` signs with given permutations (e.g. the
         reference's, via ``convert.permutations_from_jax``); ``store``
         serves a pre-built plane (e.g. ``ShardedSketchStore.load`` of a
-        snapshot) instead of a new empty one."""
+        snapshot, or ``connect_sharded`` over spawned workers, whose
+        handles ``workers`` hands over for ``close()``) instead of
+        building one per ``cfg.transport``."""
         if cfg.n_bands * cfg.rows_per_band != cfg.k:
             raise ValueError("n_bands * rows_per_band must equal k")
         if cfg.transport not in TRANSPORTS:
-            raise NotImplementedError(
-                f"transport={cfg.transport!r} is not ported yet (ROADMAP.md, "
-                "'Modules still to port', tcp transport); use 'inproc'")
+            raise ValueError(f"transport must be one of {TRANSPORTS} "
+                             f"(got {cfg.transport!r})")
         self.cfg = cfg
         self.engine = SketchEngine(SketchConfig(d=cfg.d, k=cfg.k,
                                                 seed=cfg.seed),
@@ -83,14 +96,44 @@ class SimilaritySearchService:
                                 rows_per_band=cfg.rows_per_band, b=cfg.b,
                                 n_slots=cfg.n_slots,
                                 bucket_width=cfg.bucket_width)
-        self.store = store if store is not None else ShardedSketchStore(
-            store_cfg, n_shards=cfg.n_shards, partition=cfg.partition,
-            probe_impl=cfg.probe_impl, query_impl=cfg.query_impl,
-            device=cfg.device)
+        self._workers: list = list(workers) if workers else []
+        if store is not None:
+            self.store = store
+        elif cfg.transport == "tcp":
+            self.store = self._build_tcp(store_cfg)
+        else:
+            self.store = ShardedSketchStore(
+                store_cfg, n_shards=cfg.n_shards, partition=cfg.partition,
+                probe_impl=cfg.probe_impl, query_impl=cfg.query_impl,
+                device=cfg.device)
         self._tracer = obs_trace.default()
         reg = obs_metrics.default()
         self._h_query = reg.histogram("service.query")
         self._h_sign = reg.histogram("service.sign")
+
+    def _build_tcp(self, store_cfg: StoreConfig) -> ShardedSketchStore:
+        """One shard worker process per shard, each with its store on
+        ``cfg.device``, and the coordinator's plane over them."""
+        from ..transport import HedgePolicy, connect_sharded, spawn_workers
+        cfg = self.cfg
+        self._workers = spawn_workers(store_cfg, cfg.n_shards,
+                                      device=cfg.device,
+                                      probe_impl=cfg.probe_impl,
+                                      query_impl=cfg.query_impl)
+        hedge = None
+        if cfg.hedge:
+            # hedge_delay_ms=0.0 is a valid fixed delay (hedge at once)
+            hedge = HedgePolicy() if cfg.hedge_delay_ms is None \
+                else HedgePolicy(delay_s=cfg.hedge_delay_ms / 1e3)
+        try:
+            return connect_sharded(
+                [h.address for h in self._workers], store_cfg,
+                partition=cfg.partition, query_impl=cfg.query_impl,
+                timeout=cfg.query_timeout_s, hedge=hedge, device=cfg.device)
+        except BaseException:
+            for h in self._workers:        # no orphan worker processes
+                h.terminate()
+            raise
 
     # -- the fused fast path -----------------------------------------------
     @property
@@ -124,6 +167,13 @@ class SimilaritySearchService:
                  layout: str = "sparse") -> "IngestPipeline":
         """A double-buffered ingest session over this service's store."""
         return IngestPipeline(self, depth=depth, layout=layout)
+
+    def stream(self, **kw):
+        """The streaming front end is not ported yet (ROADMAP.md, 'Modules
+        still to port', streaming)."""
+        raise NotImplementedError(
+            "SimilaritySearchService.stream is not ported yet (ROADMAP.md, "
+            "'Modules still to port', streaming)")
 
     @property
     def size(self) -> int:
@@ -174,7 +224,14 @@ class SimilaritySearchService:
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
-        self.store.close()
+        """Shut the shard workers down (tcp transport: SHUTDOWN over the
+        wire, then a hard stop for any that did not exit); idempotent."""
+        if self._workers:
+            from ..transport import shutdown_plane
+            shutdown_plane(self.store, self._workers)
+            self._workers = []
+        else:
+            self.store.close()
 
     def __enter__(self) -> "SimilaritySearchService":
         return self

@@ -2,11 +2,11 @@
 
 from .packed import PackedConfig, PackedSignatureBuffer
 from .planner import QueryPlanner, TopKPartial, finalize_topk
-from .sharded import InProcessShard, ShardedSketchStore
+from .sharded import InProcessShard, ShardBackend, ShardedSketchStore
 from .store import SketchStore, StoreConfig
 from .table import BandedLSHTable
 
 __all__ = ["PackedConfig", "PackedSignatureBuffer", "QueryPlanner",
            "SketchStore", "ShardedSketchStore", "StoreConfig",
            "BandedLSHTable", "TopKPartial", "finalize_topk",
-           "InProcessShard"]
+           "InProcessShard", "ShardBackend"]

@@ -1,25 +1,38 @@
 """ShardedSketchStore — the partitioned serving plane over SketchStore.
 
-Items are partitioned across S in-process shards, each a full
-``SketchStore`` on the plane's device.  A query batch is folded to band
-hashes **once** (the fold kernel), and every shard gets the hashes and
-the query words as the device tensors (``BandHashes``: the probe reads the
-hashes where the fold wrote them; a host copy is made once a batch, and
-only for a shard with spilled keys or on the host walk).  Each shard
-answers with a mergeable ``TopKPartial`` (local ids mapped to global);
-``distributed.collectives.merge_topk`` reduces the S partials to the global
-top-k, so S-shard answers equal the single-shard store's bit for bit.  A row
-brute-forces only when it has no candidate in *any* shard, and the fallback
-leg is itself a per-shard brute partial + merge.
+Items are partitioned across S shards, each a full ``SketchStore``.  A
+query batch is folded to band hashes **once** (the fold kernel), and every
+shard gets the hashes and the query words where the coordinator holds
+them (``BandHashes``, ``QueryWords``): an in-process shard's probe reads
+the hashes where the fold wrote them, and a host copy of each is made at
+most once a batch, for the shards that need one.  Each shard answers with
+a mergeable ``TopKPartial`` (local ids mapped to global);
+``distributed.collectives.merge_topk`` reduces the S partials to the
+global top-k, so S-shard answers equal the single-shard store's bit for
+bit.  A row brute-forces only when it has no candidate in *any* shard,
+and the fallback leg is itself a per-shard brute partial + merge.
 
 Raw (B, K) signature batches (``add``/``query``) band on the host: the
 coordinator folds a query batch's keys once, uploads them once, and every
 shard probes the device copy (the host copy serves the spill leg).
 
-The query path is split into ``start_query``/``start_brute`` (submit) and
-``Pending.result()`` (gather), evaluated lazily at gather time, as the
-reference's in-process backend does.  Shards in other processes (the tcp
-transport) are not ported yet (ROADMAP.md).
+Where a shard lives is behind the ``ShardBackend`` protocol:
+
+  * ``InProcessShard`` — the shard's ``SketchStore`` in this process, on
+    the plane's device;
+  * ``transport.client.RemoteShard`` — the same operations against a shard
+    worker process over the framed tcp wire protocol.  The hashes and
+    words cross the seam as host arrays (``BandHashes.host()``,
+    ``QueryWords.host()``: one device-to-host copy of each a batch, shared
+    by every remote shard), and the worker uploads them once to its own
+    device.
+
+The coordinator keeps only cfg, partition and gid maps and never scores
+anything itself, so the backends are interchangeable per shard and the
+answers are bit-identical either way.  The query path is split into
+``start_query``/``start_brute`` (submit) and ``Pending.result()``
+(gather), so remote shards all compute concurrently under the client's
+fan-out loop; in-process shards evaluate lazily at gather time.
 
 ``save``/``load`` snapshot the whole plane to a directory: one
 ``SketchStore`` npz per shard plus a manifest (cfg, n_shards, partition,
@@ -33,18 +46,20 @@ local rank order is its global id order and the merge is exact.
 
 from __future__ import annotations
 
+import json
 import os
 import time
+from typing import Protocol
 
 import numpy as np
 import torch
 
 from ..core.lsh import band_hashes, band_hashes_packed
 from ..device import (DEFAULT_DEVICE, as_device_words, as_host_sigs,
-                      as_host_words, resolve_device, take_rows)
+                      as_host_words, resolve_device)
 from ..distributed.collectives import merge_topk
 from ..kernels.packfmt import pack_codes
-from ..kernels.query_fused import BandHashes, hashes_to_device
+from ..kernels.query_fused import BandHashes, QueryWords, hashes_to_device
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ._growth import grown
@@ -64,8 +79,53 @@ def shard_snapshot_path(dirpath: str, shard: int) -> str:
     return os.path.join(dirpath, f"shard_{shard}.npz")
 
 
+def shard_partial_hist_name(shard: int) -> str:
+    """Registry name of shard ``i``'s reply-latency histogram, the
+    per-shard skew signal (the transport's hedge delay derives from the
+    same observations, on a private per-connection copy)."""
+    return f"query.shard{shard}.partial"
+
+
+# -- the backend seam ---------------------------------------------------------
+
+class Pending(Protocol):
+    """Handle for one submitted per-shard leg.  ``lazy`` is True when the
+    leg does no work until ``result()`` is read (in process); a remote
+    leg runs on its worker whether or not its reply is read."""
+
+    lazy: bool
+    latency_s: float | None
+
+    def result(self): ...
+
+
+class ShardBackend(Protocol):
+    """One shard of the serving plane, wherever it lives.
+
+    Writes route a partitioned host batch (local ids are assigned
+    shard-side in arrival order) and are a submit/gather pair like queries
+    (``start_add``), so S shards index concurrently; query legs take the
+    batch's ``BandHashes`` and ``QueryWords`` and answer in local ids (the
+    coordinator owns the gid maps)."""
+
+    def add(self, sigs: np.ndarray) -> int: ...
+    def add_packed(self, words: np.ndarray) -> int: ...
+    def start_add(self, batch: np.ndarray, *, packed: bool) -> Pending: ...
+    def start_query(self, hashes: BandHashes, qwords: QueryWords,
+                    top_k: int, mode: str) -> Pending: ...
+    def start_brute(self, qwords: QueryWords, top_k: int) -> Pending: ...
+    def stats(self) -> dict: ...
+    def save(self, path: str) -> None: ...
+    def close(self) -> None: ...
+
+
 class _Lazy:
-    """In-process pending leg: evaluated at gather time."""
+    """In-process pending leg: evaluated at gather time.  ``lazy`` is the
+    write path's no-work-until-read guarantee: a lazy ADD never gathered
+    never touched its store, which keeps a clean first failure from
+    poisoning the plane (``_scatter``)."""
+
+    lazy = True
 
     def __init__(self, fn):
         self._fn = fn
@@ -125,14 +185,14 @@ class InProcessShard:
         fn = self.add_packed if packed else self.add
         return _Lazy(lambda: fn(batch))
 
-    def start_query(self, hashes: BandHashes, qwords, top_k: int,
-                    mode: str) -> _Lazy:
+    def start_query(self, hashes: BandHashes, qwords: QueryWords,
+                    top_k: int, mode: str) -> _Lazy:
         return _Lazy(lambda: self.store.partial_topk_packed_hashed(
-            hashes, qwords, top_k, mode=mode))
+            hashes, qwords.dev, top_k, mode=mode))
 
-    def start_brute(self, qwords, top_k: int) -> _Lazy:
+    def start_brute(self, qwords: QueryWords, top_k: int) -> _Lazy:
         return _Lazy(lambda: self.store.planner.brute_partial_packed(
-            qwords, top_k))
+            qwords.dev, top_k))
 
     def stats(self) -> dict:
         return {"size": self.store.size, "n_spilled": self.store.n_spilled,
@@ -148,11 +208,12 @@ class InProcessShard:
 
 
 class ShardedSketchStore:
-    """S-way partitioned SketchStore with exact global top-k, in process.
+    """S-way partitioned SketchStore with exact global top-k.
 
-    ``backends`` runs the plane over given shards (``ShardedSketchStore.load``
-    hands in the loaded ones); the default builds ``InProcessShard``s on
-    ``device``."""
+    ``backends`` runs the plane over given shards (``RemoteShard``s from
+    ``transport.client``, or the loaded ones ``ShardedSketchStore.load``
+    hands in); the default builds ``InProcessShard``s on ``device``, which
+    is also where the coordinator folds a query batch."""
 
     def __init__(self, cfg: StoreConfig, n_shards: int = 1, *,
                  partition: str = "round_robin", probe_impl: str = "auto",
@@ -191,6 +252,8 @@ class ShardedSketchStore:
         self._h_partial = reg.histogram("query.partial")
         self._h_merge = reg.histogram("query.merge")
         self._h_query = reg.histogram("query.wall")
+        self._h_shard = [reg.histogram(shard_partial_hist_name(i))
+                         for i in range(n_shards)]
         self._tracer = obs_trace.default()
 
     # -- sizing ------------------------------------------------------------
@@ -204,6 +267,26 @@ class ShardedSketchStore:
 
     def shard_sizes(self) -> np.ndarray:
         return np.asarray([s.stats()["size"] for s in self.shards], np.int64)
+
+    def obs_snapshot(self) -> dict:
+        """One merged registry snapshot for the whole plane: this process's
+        registry plus every remote worker's (the ``obs`` JSON of its STATS
+        reply), reduced with ``merge_snapshots``.  In-process shards share
+        this process's registry, so their stats carry no ``obs`` and
+        nothing is counted twice.  Each worker snapshot is merged twice:
+        raw (plane-wide totals) and under a ``shard{i}.replica{r}.``
+        prefix (``label_snapshot``: which worker's counters moved)."""
+        snaps = [obs_metrics.default().snapshot()]
+        for i, sh in enumerate(self.shards):
+            stats = sh.stats()
+            blob = stats.get("obs")
+            if not blob:
+                continue
+            snap = json.loads(blob) if isinstance(blob, str) else blob
+            snaps.append(snap)
+            snaps.append(obs_metrics.label_snapshot(
+                snap, f"shard{i}.replica{int(stats.get('replica', 0))}."))
+        return obs_metrics.merge_snapshots(*snaps)
 
     def _gids(self, shard: int) -> np.ndarray:
         return self._gid_buf[shard][: self._gid_len[shard]]
@@ -224,14 +307,20 @@ class ShardedSketchStore:
                 "rebuild it or reload from the last snapshot")
 
     def _scatter(self, batch: np.ndarray, *, packed: bool) -> np.ndarray:
-        """Assign global ids, hand each shard its slice, record the maps.
+        """Assign global ids, fan the batch's slices out to every shard
+        (submit all, then gather), record the maps.
 
-        A batch is all-or-nothing: if a shard fails after another indexed
-        its slice, or a failing shard reports a partial write
-        (``e.dirty``), a retry would re-issue the same gids, so the plane
-        is marked inconsistent and refuses further reads and writes.  A
-        failure at the first shard touched that wrote nothing leaves the
-        plane usable (the later shards' lazy legs never run)."""
+        A batch is all-or-nothing at the coordinator: if a shard indexed
+        its slice while another failed, or a failing shard reports a
+        partial write (``e.dirty``), or the fan-out broke after frames hit
+        the wire (``e.unknown_outcome``: nobody can prove which workers
+        processed their slice), a retry would re-issue the same gids, so
+        the plane is marked inconsistent and refuses further reads and
+        writes.  Every pending is consumed, since a remote slice runs on
+        its worker whether or not its reply is read; lazy in-process
+        pendings after a failure are skipped (never evaluated, so never
+        written).  A failure that provably left every shard unwritten
+        leaves the plane usable."""
         self._check_consistent()
         n = len(batch)
         gids = np.arange(self.n_items, self.n_items + n, dtype=np.int64)
@@ -243,21 +332,32 @@ class ShardedSketchStore:
                 pend.append((s, sel, self.shards[s].start_add(
                     batch[sel], packed=packed)))
         wrote_any = False
+        sure_clean = True
+        first_err: BaseException | None = None
         for s, sel, p in pend:
+            if first_err is not None and getattr(p, "lazy", False):
+                continue
             try:
                 added = p.result()
+                wrote_any = True
+                if added != len(sel):
+                    raise RuntimeError(
+                        f"shard {s} indexed {added} of {len(sel)} rows")
             except BaseException as e:
-                if wrote_any or getattr(e, "dirty", False):
-                    self._failed = f"{type(e).__name__} mid-batch"
-                raise
-            wrote_any = True
-            if added != len(sel):
-                self._failed = f"shard {s} indexed {added} of {len(sel)}"
-                raise RuntimeError(self._failed)
+                if getattr(e, "dirty", False) or \
+                        getattr(e, "unknown_outcome", False):
+                    sure_clean = False
+                if first_err is None:
+                    first_err = e
+                continue
             need = self._gid_len[s] + len(sel)
             self._gid_buf[s] = grown(self._gid_buf[s], need)
             self._gid_buf[s][self._gid_len[s]: need] = gids[sel]
             self._gid_len[s] = need
+        if first_err is not None:
+            if wrote_any or not sure_clean:
+                self._failed = f"{type(first_err).__name__} mid-batch"
+            raise first_err
         self.n_items += n
         return gids
 
@@ -283,7 +383,12 @@ class ShardedSketchStore:
         return TopKPartial(ids, part.scores, part.has_candidates)
 
     def _fanout(self, start, tally: dict) -> list[TopKPartial]:
-        """One submit/gather round over all shards, timed into ``tally``."""
+        """One submit/gather round over all shards, timed into ``tally``.
+        Each shard's reply latency lands in ``query.shard{i}.partial``:
+        for a remote shard the offset from fan-out start to its reply
+        landing, for an in-process shard its leg's runtime.  The broadcast
+        span is ambient while legs are submitted, so remote workers' spans
+        nest under it."""
         t0 = time.perf_counter()
         with self._tracer.span("query.broadcast"):
             pend = [start(sh) for sh in self.shards]
@@ -296,6 +401,10 @@ class ShardedSketchStore:
         tally["partial_s"] += t2 - t1
         self._h_broadcast.observe(t1 - t0)
         self._h_partial.observe(t2 - t1)
+        for s, p in enumerate(pend):
+            lat = getattr(p, "latency_s", None)
+            if lat is not None:
+                self._h_shard[s].observe(lat)
         return parts
 
     def _merged_query(self, hashes: BandHashes, qwords, top_k: int,
@@ -304,15 +413,20 @@ class ShardedSketchStore:
         """Per-shard candidate partials -> merge -> global brute-force leg
         for rows with no candidates anywhere (their query words indexed
         where they lie: on the device unless ``query_impl="host"``).
+        ``qwords`` is wrapped once (``QueryWords``), so remote shards share
+        one host copy of the batch's words, and the fallback leg slices
+        its rows from that copy.
 
-        Spans: ``query.broadcast`` submits the shards' legs (lazy, so it
-        costs next to nothing in process), ``query.partial`` gathers them
-        (the probe, the scorer and the copy of each partial to the host),
-        ``query.merge`` reduces the partials on the host."""
+        Spans: ``query.broadcast`` submits the shards' legs (lazy in
+        process; for remote shards the host copies and the frames' encoding),
+        ``query.partial`` gathers them (in process the probe, the scorer and
+        the copy of each partial to the host; remote, the wait for the
+        replies), ``query.merge`` reduces the partials on the host."""
         wall_t0 = time.perf_counter()
         tally = {"fold_s": fold_s, "broadcast_s": 0.0, "partial_s": 0.0,
                  "merge_s": 0.0}
         self._h_fold.observe(fold_s)
+        qwords = QueryWords(qwords)
         parts = self._fanout(
             lambda sh: sh.start_query(hashes, qwords, top_k, mode), tally)
         has_any = np.zeros(len(qwords), bool)
@@ -325,8 +439,9 @@ class ShardedSketchStore:
         tally["merge_s"] += time.perf_counter() - t0
         em = np.flatnonzero(~has_any)
         if len(em) and self.n_items:
+            qrows = qwords.rows(em)
             brute = self._fanout(
-                lambda sh: sh.start_brute(take_rows(qwords, em), top_k),
+                lambda sh: sh.start_brute(qrows, top_k),
                 tally)
             t0 = time.perf_counter()
             with self._tracer.span("query.merge"):

@@ -285,7 +285,8 @@ class BandedLSHTable:
                              f"{impl!r})")
         hashes = np.asarray(hashes, np.uint64)
         if impl == "auto":
-            impl = "device" if self.device.type == "cuda" else "numpy"
+            from ..kernels.dispatch import select_probe_impl
+            impl = select_probe_impl(self.device.type)
         if impl == "device":
             from ..kernels import dispatch
             return dispatch.lsh_probe(

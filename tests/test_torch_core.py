@@ -246,8 +246,16 @@ def test_unported_options_raise_and_name_the_roadmap():
     v = (np.random.default_rng(0).random((3, 256)) < 0.1).astype(np.int8)
     want = np.asarray(ref.sign(jax.numpy.asarray(v), layout="dense"))
     assert np.array_equal(eng.sign(v, layout="dense").numpy(), want)
+    # the tcp transport, which raised here until it was ported, is a
+    # transport the service builds; streaming is still to port
+    from repro_torch.serve.search import TRANSPORTS
+    assert TRANSPORTS == ("inproc", "tcp")
+    small = SimilaritySearchService(SearchConfig(
+        d=1 << 12, k=64, n_bands=16, rows_per_band=4, device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimilaritySearchService(SearchConfig(transport="tcp", device="cpu"))
+        small.stream()
+    with pytest.raises(ValueError, match="transport"):
+        SimilaritySearchService(SearchConfig(transport="udp", device="cpu"))
     # bands off word boundaries, which raised until the raw-signature path
     # was ported, now serve like the reference service
     from repro.serve.search import SearchConfig as RefSearchConfig

@@ -893,3 +893,145 @@ def test_snapshots_cross_between_card_and_cpu(cuda, b, tmp_path):
             assert np.array_equal(got, want)
         for a, c in zip(back.shards, live.shards):
             assert a.store.digest() == c.store.digest()
+
+
+# -- the tcp shard plane on the card -----------------------------------------
+
+def _tcp_corpus(seed=5):
+    from repro_torch.data.shingle import batch_shingles
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    docs, _ = corpus_with_duplicates(600, vocab=3000, doc_len=64,
+                                     seed=seed)
+    idx = batch_shingles(docs, n=3, d=1 << 12, max_nnz=64)
+    fresh = np.sort(np.random.default_rng(seed).integers(
+        0, 1 << 12, (8, 64), np.int32), axis=1)
+    return idx, np.concatenate([idx[450:], fresh])
+
+
+def test_tcp_plane_on_the_card_answers_like_the_inproc_card_plane(
+        cuda, monkeypatch):
+    """Two shard workers on the card (spilled keys, fallback rows) answer
+    as the in-process card plane; the coordinator copies a batch's hashes
+    and words to the host once each, folds once, and launches no probe or
+    collision kernel; each worker probes from the wire's hashes and scores
+    its fallback rows on the card, and launches no fold."""
+    import json as _json
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    idx, q = _tcp_corpus()
+    common = dict(d=1 << 12, k=64, n_bands=16, rows_per_band=4, n_shards=2,
+                  bucket_width=1, device="cuda")
+    inproc = SimilaritySearchService(SearchConfig(**common))
+    with SimilaritySearchService(SearchConfig(transport="tcp", **common),
+                                 params=(inproc.engine.sigma,
+                                         inproc.engine.pi)) as tcp:
+        for svc in (inproc, tcp):
+            with svc.pipeline(depth=2) as pipe:
+                for lo in range(0, 450, 90):
+                    pipe.submit(idx[lo: lo + 90])
+        want = inproc.query_sparse(q, top_k=5)
+        fb = inproc.store.last_timings["n_fallback"]
+        copies = {"hashes": 0, "words": 0}
+
+        def count(key, fn):
+            def wrapped(*a):
+                copies[key] += 1
+                return fn(*a)
+            return wrapped
+        monkeypatch.setattr(kq, "hashes_to_host",
+                            count("hashes", kq.hashes_to_host))
+        monkeypatch.setattr(kq, "u32_to_host", count("words", kq.u32_to_host))
+        launches = {n: k.launches for n, k in (
+            ("fold", kq.KERNEL), ("probe", kp.KERNEL), ("coll", kc.KERNEL))}
+        for _ in range(2):
+            got = tcp.query_sparse(q, top_k=5)
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+        assert tcp.store.last_timings["n_fallback"] == fb > 0
+        stats = [sh.stats() for sh in tcp.store.shards]
+    assert copies == {"hashes": 2, "words": 2}
+    assert {n: k.launches - launches[n] for n, k in (
+        ("fold", kq.KERNEL), ("probe", kp.KERNEL), ("coll", kc.KERNEL))} \
+        == {"fold": 2, "probe": 0, "coll": 0}
+    assert sum(int(st["n_spilled"]) for st in stats) > 0
+    for st in stats:
+        assert st["device"].startswith("cuda") and st["probe_impl"] == "device"
+        w = _json.loads(st["launches"])
+        assert w["fold"] == 0 and w["fold_probe"] == 0
+        assert w["lsh_probe"] == 2 and w["collision"] == 2
+        counters = _json.loads(st["obs"])["counters"]
+        assert counters["kernel.query_fused.cuda"] == 2
+        assert not any(n.startswith("kernel.") and n.endswith(".plain")
+                       for n in counters)
+
+
+def test_tcp_worker_uploads_each_query_operand_once_on_the_card(
+        cuda, monkeypatch):
+    """A worker's QUERY on a card store: one upload of the hashes, one of
+    the words, one probe launch from the uploaded hashes and no fold; the
+    partial equals the CPU store's."""
+    from repro_torch.store import SketchStore, StoreConfig
+    from repro_torch.store import planner as t_planner
+    from repro_torch.transport import server as t_server
+    from repro_torch.transport import wire
+    from repro_torch.transport.wire import Message, MsgType
+    sigs, q = _raw_corpus(n=400)
+    cfg = StoreConfig(k=64, n_bands=16, rows_per_band=4, bucket_width=1,
+                      auto_rebuild=False)
+    stores = {d: SketchStore(cfg, device=d) for d in ("cuda", "cpu")}
+    for st in stores.values():
+        st.add(sigs)
+    lo, hi = wire.split_u64(band_hashes(q, 16, 4))
+    qwords = pack_codes(torch.from_numpy(q), 32).numpy().view(np.uint32)
+    calls = {"hashes": 0, "words": 0}
+
+    def count(key, fn):
+        def wrapped(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrapped
+
+    def refuse(*a, **kw):
+        raise AssertionError("a worker folded")
+    monkeypatch.setattr(t_server, "hashes_to_device",
+                        count("hashes", t_server.hashes_to_device))
+    monkeypatch.setattr(t_server, "u32_to_device",
+                        count("words", t_server.u32_to_device))
+    monkeypatch.setattr(dispatch, "fold_hashes", refuse)
+    replies = {}
+    for d, st in stores.items():
+        probes, folds = kp.KERNEL.launches, kq.KERNEL.launches
+        fold_probes = kq.FOLD_PROBE_KERNEL.launches
+        replies[d], _ = t_server._handle(st, Message(MsgType.QUERY, {
+            "hash_lo": lo, "hash_hi": hi, "qwords": qwords, "top_k": 5,
+            "mode": "sig"}))
+        if d == "cuda":
+            assert calls == {"hashes": 1, "words": 1}
+            assert kp.KERNEL.launches == probes + 1
+            assert kq.KERNEL.launches == folds
+            assert kq.FOLD_PROBE_KERNEL.launches == fold_probes
+    assert stores["cuda"].n_spilled > 0
+    assert wire.message_bytes(replies["cuda"]) == \
+        wire.message_bytes(replies["cpu"])
+    uploads, to_device = [], t_planner.as_device_words
+
+    def counted(w, dev):
+        if isinstance(w, np.ndarray):
+            uploads.append(w.shape)
+        return to_device(w, dev)
+    monkeypatch.setattr(t_planner, "as_device_words", counted)
+    collisions = kc.KERNEL.launches
+    t_server._handle(stores["cuda"], Message(MsgType.BRUTE, {
+        "qwords": qwords[-6:], "top_k": 3}))
+    assert uploads == [(6, 64)] and kc.KERNEL.launches == collisions + 1
+
+
+def test_tcp_worker_asked_for_cuda_without_a_visible_card_fails_at_spawn(
+        cuda, monkeypatch):
+    """With no card visible, a worker asked for ``cuda`` exits at boot and
+    ``spawn_workers`` says so: it never serves from the CPU."""
+    from repro_torch.store import StoreConfig
+    from repro_torch.transport import spawn_workers
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(RuntimeError, match="failed at boot"):
+        spawn_workers(StoreConfig(k=64, n_bands=16, rows_per_band=4), 1,
+                      device="cuda")
