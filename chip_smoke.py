@@ -117,6 +117,61 @@ printed then:
    ``connect_sharded(hedge=True)``; 12 batches on each plane, answers
    equal, both medians and the hedges fired and won printed.  Every
    worker is shut down in a ``finally``.
+5d. The replicated plane, two legs.  (1) ``replica_path``:
+   ``SearchConfig(device="cuda", transport="tcp", n_shards=2,
+   n_replicas=2, journal_dir=<tmp>)`` through the service with phase 2's
+   permutations: four workers on the card, the write-ahead journal and the
+   supervisor.  The same 262,144 documents through
+   ``IngestPipeline(depth=2)``, every write to both lanes of its shard,
+   then the 1088-row batch five times: ids and scores must equal phase
+   2's, fallback rows included.  Counted: the coordinator's counts set to 0 just
+   before the service is built; the lanes' from their STATS (fresh
+   processes).  The coordinator folds once a batch and launches no probe
+   or collision kernel; across the lanes of each shard, probe and
+   collision launches must equal the QUERY and BRUTE frames those lanes
+   handled (their ``worker.handle.*`` counts: a hedge makes a twin handle
+   one), and no lane folds; every lane reports a ``cuda`` device, and each
+   lane that answered a QUERY holds bytes there (a twin's store uploads its
+   index on its first read).  Printed: spawn, ingest and documents/s, the
+   query latencies, the wire bytes, and the journal's bytes on disk beside
+   its reckoning (64 ADD records of 4096 x 256 uint32 words).  Then the
+   plane is saved and, as in 5c, kernels 3 and 4 are held against their
+   plain versions at the lanes' shapes: shard 0 (131,072 rows) loaded onto
+   the card (``replica_path.kernels``).
+   (2) ``chaos_path``: a second plane from ``spawn_replicated(
+   device="cuda", faults=...)``, ``connect_replicated(journal=...)`` and
+   ``Supervisor(device="cuda")``, served by a service over it.  Lane (0, 1)
+   dies on its 20th ADD, mid-ingest: the writes go on at reduced
+   redundancy and the plane stays consistent.  Lane (1, 0), shard 1's
+   primary, dies on its 2nd QUERY: two batches answer through the
+   failover.  The supervisor then heals both on the card (respawn,
+   journal replay of each shard's 131,072 rows, digest against a live
+   peer, rejoin): R = 2 with no failed recovery, two batches; then it is
+   stopped, the two original survivors are stopped, and two batches are
+   answered by the resynced lanes alone.  Every answer equals phase 2's.
+   Printed: each resync's seconds (the ``replica.resync`` histogram) split
+   into its respawn and replay parts (``replica.respawn``,
+   ``replica.replay``), rows replayed a replay second and a resync second,
+   the replica counters, and each respawned worker's device and device
+   bytes.  The launches of the two survivors, read just before they stop,
+   and of the resynced lanes, read at the end, are checked as in leg 1 (the
+   killed lanes' launches die with them).  Every worker is shut down in a
+   ``finally``; the journals' directory is deleted after phase 5e.
+5e. The streaming front end (``stream_path``): over phase 2's in-process
+   service, then over 5d's healthy plane, ``svc.stream(max_batch=256,
+   max_delay_ms=2.0, depth=2)`` gets the 1088 query rows one at a time
+   with Poisson gaps at 2,000 queries/s (seeded from ``--seed``).  Every
+   ticket's ids and scores must equal phase 2's row.  The coordinator's
+   counts are set to 0 just before each stream and read just after: one
+   sparse-kernel launch and one fold a batch; in process, one probe a
+   batch and a collision launch for each batch with fallback rows; over
+   the plane, the lanes' launches checked as in 5d.  Printed: ticket
+   latency p50 and p99, the batches and their mean size, the documents
+   signed (pow2 padding included).  Then kernels 1-4 at one stream-sized
+   batch against their plain versions, timed and bounded as in phase 3
+   (``stream_path.kernels``): seven queries padded to eight as the
+   coalescer pads them, signed and folded, probed over phase 2's shard, the
+   rows without candidates scored as its fallback.
 6. Dense serving path: a fresh service with the same defaults ingests the
    first 65,536 documents as dense 0/1 int8 rows (16 batches of 4096 x
    2^16, built on the host) through ``pipeline(layout="dense", depth=2)``
@@ -152,9 +207,10 @@ printed then:
    both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
 
-``launches`` in the kernels line is the sum over the seven counted paths
+``launches`` in the kernels line is the sum over the ten counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
-phase 5c's tcp path, coordinator and workers, phases 6 and 7).
+phase 5c's tcp path, coordinator and workers, phase 5d's two planes,
+coordinator and lanes, phase 5e's two streams, phases 6 and 7).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -190,6 +246,7 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1082,9 +1139,10 @@ def tcp_query_batches(svc, qidx, n: int, want) -> list[float]:
 
 
 def tcp_kernel_checks(d: str, main_svc, qidx, n_fallback: int,
-                      report: dict) -> list[dict]:
-    """Phase 5c: the workers' kernels at the shapes the tcp path gives
-    them, against their plain versions, timed and bounded as in phase 3.
+                      report: dict, tag: str = "tcp") -> list[dict]:
+    """Phases 5c and 5d: the workers' kernels at the shapes the tcp path
+    (or the replicated plane's lanes) gives them, against their plain
+    versions, timed and bounded as in phase 3.
     Shard 0 of the plane's snapshot in ``d`` is loaded onto the card as a
     worker loads it; the probe reads the batch's band hashes as a worker
     gets them (folded on the card, copied to the host, uploaded), and the
@@ -1101,7 +1159,7 @@ def tcp_kernel_checks(d: str, main_svc, qidx, n_fallback: int,
     wire = hashes_to_host(dispatch.fold_hashes(qwords, n_bands=cfg.n_bands))
     hashes = hashes_to_device(wire, st.device)
     extra = {"shard": 0, "shard_docs": st.size}
-    print(f"[tcp] the workers' kernels at shard 0's shapes ({st.size} "
+    print(f"[{tag}] the workers' kernels at shard 0's shapes ({st.size} "
           f"docs, {n_fallback} fallback rows), against their plain "
           f"versions:")
     rows = [probe_entry(st.table.device_records(), hashes, st.table.n_slots,
@@ -1285,6 +1343,496 @@ def tcp_path(main_svc, idx, qidx, report: dict) -> None:
             h.terminate()
         if svc is not None:
             svc.close()
+
+
+# -- phases 5d and 5e: the replicated plane and the streaming front end ------
+
+REPLICA_SHARDS = 2
+REPLICAS = 2
+STREAM_QPS = 2000.0
+
+
+def lane_stats(store) -> list[dict]:
+    """STATS of every up lane of a replicated plane whose worker is alive,
+    with its (shard, replica): counters and launches parsed.  (A lane
+    whose worker was stopped stays up until a round or the supervisor
+    notices; it is left out.)"""
+    from repro_torch.transport.wire import Message, MsgType
+    out = []
+    for rs in store.shards:
+        for lane in rs.up_lanes():
+            if lane.handle is not None and not lane.handle.alive:
+                continue
+            st = dict(lane.conn.request(Message(MsgType.STATS, {})).fields)
+            obs = json.loads(st["obs"])
+            out.append({"shard": lane.shard, "replica": lane.replica,
+                        "pid": int(st["pid"]), "size": int(st["size"]),
+                        "device": str(st["device"]),
+                        "device_bytes": int(st["device_bytes"]),
+                        "launches": json.loads(st["launches"]),
+                        "handled": {leg: obs["hists"].get(
+                            f"worker.handle.{leg}", {"count": 0})["count"]
+                            for leg in ("add", "query", "brute")}})
+    return out
+
+
+def check_lane_launches(lanes: list[dict], tag: str) -> None:
+    """Across the lanes of each shard, probe and collision launches equal
+    the QUERY and BRUTE frames those lanes handled (a hedge or failover
+    makes a twin handle one), and no lane folds."""
+    for s in sorted({ln["shard"] for ln in lanes}):
+        mine = [ln for ln in lanes if ln["shard"] == s]
+        probes = sum(ln["launches"]["lsh_probe"] for ln in mine)
+        scores = sum(ln["launches"]["collision"] for ln in mine)
+        queries = sum(ln["handled"]["query"] for ln in mine)
+        brutes = sum(ln["handled"]["brute"] for ln in mine)
+        require(probes == queries and scores == brutes and probes > 0
+                and scores > 0,
+                f"{tag}: shard {s}'s lanes launch the probe once a QUERY "
+                f"and the collision kernel once a BRUTE ({probes} probe "
+                f"launches for {queries} QUERY frames, {scores} collision "
+                f"launches for {brutes} BRUTE frames)")
+        require(all(ln["launches"]["fold"] == 0
+                     and ln["launches"]["fold_probe"] == 0 for ln in mine),
+                f"{tag}: shard {s}'s lanes launch no fold")
+    # a lane's store uploads its index to the card on its first read, so
+    # only a lane that answered a QUERY must hold bytes there
+    require(all(ln["device"].startswith("cuda") for ln in lanes)
+            and all(ln["device_bytes"] > 0 for ln in lanes
+                    if ln["handled"]["query"] > 0),
+            f"{tag}: every lane's store on the card, each lane that answered "
+            f"a read holding bytes there ("
+            f"{[(ln['device'], ln['device_bytes'], ln['handled']['query']) for ln in lanes]})")
+
+
+def plane_launches(coordinator: dict, lanes: list[dict]) -> dict:
+    return {n: coordinator[n] + sum(ln["launches"][n] for ln in lanes)
+            for n in coordinator}
+
+
+def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
+    """Phase 5d, the healthy plane: ``SearchConfig(transport="tcp",
+    n_shards=2, n_replicas=2, journal_dir=jdir)`` on the card through the
+    service, phase 2's permutations; the 262,144 documents, the batch five
+    times, answers equal phase 2's.  Returns the service (kept open for
+    phase 5e)."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    ks = kernels()
+    reg = obs_metrics.default()
+    want = main_svc.query_sparse(qidx, top_k=TOP_K)
+    want_fb = main_svc.store.last_timings["n_fallback"]
+    cfg = SearchConfig(device="cuda", transport="tcp",
+                       n_shards=REPLICA_SHARDS, n_replicas=REPLICAS,
+                       journal_dir=jdir)
+    torch.cuda.synchronize()
+    zero_counts(ks)
+    # --- the replicated path: spawn, ingest + query batches --------------
+    t0 = time.perf_counter()
+    svc = SimilaritySearchService(
+        cfg, params=(main_svc.engine.sigma, main_svc.engine.pi))
+    try:
+        spawn_s = time.perf_counter() - t0
+        w0, j0 = wire_bytes(), reg.counter("journal.bytes").value
+        t_ingest = ingest(svc, idx, BATCH)
+        w1, j1 = wire_bytes(), reg.counter("journal.bytes").value
+        lat = tcp_query_batches(svc, qidx, 5, want)
+        w2 = wire_bytes()
+        coordinator = read_counts(ks)
+        lanes = lane_stats(svc.store)
+        # -------------------------------------------------------------------
+        n_fallback = svc.store.last_timings["n_fallback"]
+        journal = svc.store.journal
+        n_records = journal.last_seq + 1
+        reckoned = n_records * BATCH * svc.cfg.k * 4
+        rows = {
+            "shards": REPLICA_SHARDS, "replicas": REPLICAS, "docs": len(idx),
+            "spawn_s": spawn_s, "ingest_s": t_ingest,
+            "ingest_docs_per_s": len(idx) / t_ingest,
+            "query_rows": len(qidx), "query_latency_s_first": lat[0],
+            "query_latency_s_median_next4": statistics.median(lat[1:]),
+            "query_latency_s_all": lat, "fallback_rows": n_fallback,
+            "wire_bytes_ingest": {k: w1[k] - w0[k] for k in w1},
+            "wire_bytes_per_query_batch": {k: (w2[k] - w1[k]) / len(lat)
+                                           for k in w2},
+            "journal_records": n_records,
+            "journal_bytes": os.path.getsize(journal.path),
+            "journal_bytes_counted": j1 - j0,
+            "journal_payload_bytes_reckoned": reckoned,
+            "lanes": lanes, "launches": plane_launches(coordinator, lanes),
+            "launches_coordinator": coordinator}
+        report["replica_path"] = rows
+        print(f"[replica] {REPLICA_SHARDS} shards x {REPLICAS} replicas on "
+              f"the card up in {spawn_s:.3f} s; ingest {len(idx)} docs in "
+              f"{t_ingest:.3f} s ({len(idx) / t_ingest:.0f} docs/s), every "
+              f"write to both lanes of its shard; wire "
+              f"{rows['wire_bytes_ingest']['bytes_out']} B out")
+        print(f"[replica] journal: {n_records} ADD records, "
+              f"{rows['journal_bytes']} B on disk (counted "
+              f"{rows['journal_bytes_counted']} B; reckoned {n_records} x "
+              f"{BATCH} x {svc.cfg.k} uint32 words = {reckoned} B of "
+              f"payload)")
+        print(f"[replica] query batch of {len(qidx)} rows: first "
+              f"{lat[0] * 1e3:.3f} ms, median of next 4 "
+              f"{statistics.median(lat[1:]) * 1e3:.3f} ms; fallback rows "
+              f"{n_fallback}; answers equal phase 2's; wire a batch "
+              f"{rows['wire_bytes_per_query_batch']['bytes_out']:.0f} B out")
+        print(f"[replica] launches: coordinator {coordinator}; lanes "
+              + "; ".join(f"({ln['shard']},{ln['replica']}) "
+                          f"{ln['launches']} for {ln['handled']}"
+                          for ln in lanes))
+        require(n_fallback == want_fb and n_fallback > 0,
+                f"the replicated plane takes phase 2's fallback rows "
+                f"({n_fallback} against {want_fb})")
+        require(coordinator["fold"] == len(lat)
+                and coordinator["lsh_probe"] == 0
+                and coordinator["collision"] == 0,
+                f"the coordinator folds once a batch and launches no probe "
+                f"or collision kernel ({coordinator})")
+        require(len(lanes) == REPLICA_SHARDS * REPLICAS,
+                f"every lane up ({len(lanes)})")
+        check_lane_launches(lanes, "replica")
+        require(journal.last_seq + 1 == -(-len(idx) // BATCH),
+                f"one journal record a batch ({n_records})")
+        # the lanes' kernels at the shapes this plane gives them: shard 0 of
+        # the plane's snapshot (131,072 rows) on the card
+        d = tempfile.mkdtemp(prefix="chip_smoke_replica_")
+        try:
+            svc.store.save(d)
+            tcp_kernel_checks(d, main_svc, qidx, n_fallback, rows,
+                              tag="replica")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return svc
+    except BaseException:
+        svc.close()
+        raise
+
+
+def chaos_path(main_svc, idx, qidx, jdir: str, report: dict) -> None:
+    """Phase 5d, the chaos plane: ``spawn_replicated(device="cuda",
+    faults=...)``, ``connect_replicated(journal=...)`` and
+    ``Supervisor(device="cuda")``.  Lane (0, 1) dies on its 20th ADD, lane
+    (1, 0) (shard 1's primary) on its 2nd QUERY; the supervisor heals both
+    on the card; then the two original survivors are stopped and the
+    resynced lanes answer alone.  Every answer equals phase 2's."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.replica import (IngestJournal, Supervisor,
+                                     connect_replicated, spawn_replicated)
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    from repro_torch.store import StoreConfig
+    from repro_torch.transport import FaultEvent, FaultPlan
+    ks = kernels()
+    reg = obs_metrics.default()
+    want = main_svc.query_sparse(qidx, top_k=TOP_K)
+    c = main_svc.cfg
+    store_cfg = StoreConfig(k=c.k, n_bands=c.n_bands,
+                            rows_per_band=c.rows_per_band, b=c.b,
+                            n_slots=c.n_slots, bucket_width=c.bucket_width)
+    cfg = SearchConfig(device="cuda", transport="tcp",
+                       n_shards=REPLICA_SHARDS, n_replicas=REPLICAS)
+    faults = {(0, 1): FaultPlan([FaultEvent("kill", 19, "add")]),
+              (1, 0): FaultPlan([FaultEvent("kill", 1, "query")])}
+    journal = IngestJournal(os.path.join(jdir, "ingest.journal"))
+    grid: list = []
+    svc = sup = None
+    counters = ("replica.failovers", "replica.recover_failures",
+                "replica.read_failovers", "replica.write_leg_failures",
+                "replica.lanes_down")
+    c0 = {n: reg.counter(n).value for n in counters}
+    h = reg.histogram("replica.resync")
+    h0 = (h.count, h.sum)
+    hs = {n: reg.histogram(n) for n in ("replica.respawn", "replica.replay")}
+    hs0 = {n: hs[n].sum for n in hs}
+    try:
+        torch.cuda.synchronize()
+        zero_counts(ks)
+        # --- the chaos path: kills, heal, the resynced lanes alone -------
+        t0 = time.perf_counter()
+        grid = spawn_replicated(store_cfg, REPLICA_SHARDS, REPLICAS,
+                                device="cuda", faults=faults)
+        store = connect_replicated(grid, store_cfg, journal=journal,
+                                   timeout=cfg.query_timeout_s,
+                                   device="cuda")
+        sup = Supervisor(store, device="cuda")
+        svc = SimilaritySearchService(
+            cfg, params=(main_svc.engine.sigma, main_svc.engine.pi),
+            store=store, workers=[w for row in grid for w in row])
+        spawn_s = time.perf_counter() - t0
+        t_ingest = ingest(svc, idx, BATCH)
+        lane01 = store.shards[0].lanes[1]
+        require(not lane01.up and store._failed is None,
+                f"lane (0, 1) died on its 20th ADD and the writes went on "
+                f"at reduced redundancy (up {lane01.up}, "
+                f"failed {store._failed})")
+        lat_kill = tcp_query_batches(svc, qidx, 2, want)
+        grid[1][0].join(10)
+        require(not grid[1][0].alive,
+                "lane (1, 0) died on its 2nd QUERY")
+        t0 = time.perf_counter()
+        sup.start()
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and not all(
+                l.up for rs in store.shards for l in rs.lanes):
+            time.sleep(0.2)
+        heal_s = time.perf_counter() - t0
+        require(all(l.up for rs in store.shards for l in rs.lanes),
+                "the supervisor restored R = 2 on the card: "
+                + str([(l.shard, l.replica, l.why_down)
+                       for rs in store.shards for l in rs.lanes
+                       if not l.up]))
+        lat_healed = tcp_query_batches(svc, qidx, 2, want)
+        sup.stop()
+        respawned = [(l.shard, l.replica) for rs in store.shards
+                     for l in rs.lanes if l.handle is not grid[l.shard]
+                     [l.replica]]
+        # the two original survivors' launches, read before they stop (the
+        # killed lanes' launches died with them)
+        survivors = [ln for ln in lane_stats(store)
+                     if (ln["shard"], ln["replica"]) not in respawned]
+        for s, r in ((0, 0), (1, 1)):       # the two original survivors
+            grid[s][r].terminate()
+        lat_alone = tcp_query_batches(svc, qidx, 2, want)
+        coordinator = read_counts(ks)
+        alone = lane_stats(store)
+        # -------------------------------------------------------------------
+        d = {n: reg.counter(n).value - c0[n] for n in counters}
+        n_resync = h.count - h0[0]
+        resync_sum = h.sum - h0[1]
+        each = [h.vmin, h.vmax] if h0[0] == 0 and n_resync == 2 else None
+        split = {n: hs[n].sum - hs0[n] for n in hs}
+        replayed = sum(store._gid_len[s] for s, _ in respawned)
+        counted = survivors + alone
+        mine = [ln for ln in alone
+                if (ln["shard"], ln["replica"]) in respawned]
+        rows = {
+            "faults": {"(0, 1)": "kill on its 20th ADD",
+                       "(1, 0)": "kill on its 2nd QUERY"},
+            "spawn_s": spawn_s, "ingest_s": t_ingest,
+            "ingest_docs_per_s": len(idx) / t_ingest,
+            "query_latency_s_during_kill": lat_kill, "heal_s": heal_s,
+            "query_latency_s_healed": lat_healed,
+            "query_latency_s_resynced_alone": lat_alone,
+            "respawned": [list(x) for x in respawned],
+            "resync_count": n_resync, "resync_s_sum": resync_sum,
+            "resync_s_each": each, "rows_replayed": replayed,
+            "respawn_s_sum": split["replica.respawn"],
+            "replay_s_sum": split["replica.replay"],
+            "replayed_rows_per_s": replayed / split["replica.replay"],
+            "rows_per_resync_s": replayed / resync_sum,
+            "counters": d, "respawned_lanes": mine,
+            "lanes_survivors": survivors, "lanes_alone": alone,
+            "launches": plane_launches(coordinator, counted),
+            "launches_coordinator": coordinator}
+        report["chaos_path"] = rows
+        print(f"[chaos] plane up in {spawn_s:.3f} s; ingest {len(idx)} docs "
+              f"in {t_ingest:.3f} s with lane (0, 1) killed on its 20th ADD "
+              f"(writes went on at reduced redundancy); 2 batches with lane "
+              f"(1, 0) killed on its 2nd QUERY: "
+              + ", ".join(f"{t * 1e3:.3f}" for t in lat_kill)
+              + " ms, answers equal phase 2's")
+        print(f"[chaos] healed in {heal_s:.3f} s: {n_resync} resyncs, "
+              + (f"{each[0]:.3f} and {each[1]:.3f} s"
+                 if each else f"{resync_sum:.3f} s in all")
+              + f" (respawn {split['replica.respawn']:.3f} s, replay "
+              f"{split['replica.replay']:.3f} s, the rest verify and "
+              f"rejoin), {replayed} rows replayed "
+              f"({rows['replayed_rows_per_s']:.0f} rows a replay second, "
+              f"{rows['rows_per_resync_s']:.0f} a resync second); counters "
+              f"{d}; respawned "
+              + "; ".join(f"({ln['shard']},{ln['replica']}) on "
+                          f"{ln['device']} holding {ln['device_bytes']} B"
+                          for ln in mine))
+        print("[chaos] healed batches "
+              + ", ".join(f"{t * 1e3:.3f}" for t in lat_healed)
+              + " ms; the resynced lanes alone "
+              + ", ".join(f"{t * 1e3:.3f}" for t in lat_alone)
+              + " ms; answers equal phase 2's")
+        print(f"[chaos] launches: coordinator {coordinator}; survivors and "
+              f"resynced lanes "
+              + "; ".join(f"({ln['shard']},{ln['replica']}) "
+                          f"{ln['launches']} for {ln['handled']}"
+                          for ln in counted))
+        require(sorted(respawned) == [(0, 1), (1, 0)],
+                f"the killed lanes were respawned ({respawned})")
+        require(d["replica.failovers"] >= 2
+                and d["replica.recover_failures"] == 0,
+                f"two resyncs and no failed recovery ({d})")
+        require(sorted((ln["shard"], ln["replica"]) for ln in alone)
+                == [(0, 1), (1, 0)],
+                f"the resynced lanes carry their shards alone "
+                f"({[(ln['shard'], ln['replica']) for ln in alone]})")
+        require(all(ln["size"] == store._gid_len[ln["shard"]]
+                    for ln in alone),
+                "each resynced lane holds its shard's rows")
+        require(sorted((ln["shard"], ln["replica"]) for ln in survivors)
+                == [(0, 0), (1, 1)],
+                f"the survivors' launches read before they stop "
+                f"({[(ln['shard'], ln['replica']) for ln in survivors]})")
+        check_lane_launches(counted, "chaos")
+    finally:
+        if sup is not None:
+            sup.stop()
+        if svc is not None:
+            svc.close()
+        for row in grid:
+            for w in row:
+                w.terminate()
+        journal.close()
+
+
+def stream_once(svc, qidx, want, seed: int, tag: str) -> dict:
+    """1088 single queries with Poisson gaps at ``STREAM_QPS`` through
+    ``svc.stream(max_batch=256, max_delay_ms=2.0, depth=2)``; every ticket
+    held equal to phase 2's row.  Launches counted on the coordinator
+    (set to 0 just before, read just after)."""
+    from repro_torch.obs import metrics as obs_metrics
+    ks = kernels()
+    signed = obs_metrics.default().counter("engine.sign.rows")
+    gaps = np.random.default_rng(seed).exponential(1.0 / STREAM_QPS,
+                                                   len(qidx))
+    torch.cuda.synchronize()
+    s0 = signed.value
+    zero_counts(ks)
+    # --- the stream: single queries in -----------------------------------
+    with svc.stream(max_batch=256, max_delay_ms=2.0, depth=2) as st:
+        t0 = time.perf_counter()
+        tickets = []
+        for i, row in enumerate(qidx):
+            target = t0 + gaps[: i + 1].sum()
+            while (left := target - time.perf_counter()) > 0:
+                time.sleep(min(left, 1e-3))
+            tickets.append(st.submit_sparse(row, top_k=TOP_K))
+        for t in tickets:
+            t.result(timeout=120)
+        wall = time.perf_counter() - t0
+    launches = read_counts(ks)
+    # -------------------------------------------------------------------
+    for i, t in enumerate(tickets):
+        ids, scores = t.result(0)
+        require(np.array_equal(ids, want[0][i])
+                and np.array_equal(scores, want[1][i]),
+                f"{tag}: streamed ticket {i} answers as phase 2's row")
+    lat = np.sort([t.latency_s for t in tickets])
+    n = st.n_batches
+    rows = {"queries": len(qidx), "qps_offered": STREAM_QPS,
+            "qps_served": len(qidx) / wall, "batches": n,
+            "mean_batch": len(qidx) / n,
+            "docs_signed": signed.value - s0,
+            "latency_s_p50": float(np.quantile(lat, 0.50)),
+            "latency_s_p99": float(np.quantile(lat, 0.99)),
+            "latency_s_max": float(lat[-1]), "launches": launches}
+    print(f"[stream] {tag}: {len(qidx)} single queries at "
+          f"{STREAM_QPS:.0f}/s offered, {len(qidx) / wall:.0f}/s served, "
+          f"in {n} batches (mean {len(qidx) / n:.1f} rows), "
+          f"{rows['docs_signed']} docs signed (pow2 padding included); "
+          f"ticket latency p50 {rows['latency_s_p50'] * 1e3:.3f} ms, p99 "
+          f"{rows['latency_s_p99'] * 1e3:.3f} ms; every ticket equals "
+          f"phase 2's row; launches {launches}")
+    require(launches["cminhash_sparse"] == n and launches["fold"] == n,
+            f"{tag}: one sparse-kernel launch and one fold a batch "
+            f"({launches['cminhash_sparse']} and {launches['fold']} for {n} "
+            f"batches)")
+    return rows
+
+
+def stream_kernel_checks(svc, qidx, report: dict) -> list[dict]:
+    """Phase 5e: the kernels at one stream-sized batch, against their plain
+    versions, timed and bounded as in phase 3.  Seven single queries (the
+    last three indexed rows and the first four fresh ones), padded to eight
+    by repeating the first as the coalescer pads them, are signed and folded
+    as the coordinator does, probed over phase 2's in-process shard; the
+    rows the probe finds no candidate for are scored as its fallback."""
+    from repro_torch.core.permutations import apply_permutation_sparse
+    from repro_torch.kernels import cminhash_sparse as ks
+    from repro_torch.kernels import query_fused as kq
+    dev, cfg = svc.engine.device, svc.cfg
+    store = svc.store.shards[0].store
+    pi, k = svc.engine.pi, cfg.k
+    rows = qidx[N_QUERY_INDEXED - 3: N_QUERY_INDEXED + 4]
+    rows = np.concatenate([rows, rows[:1]])
+    extra = {"stream_rows": 7, "padded_to": len(rows)}
+    out = []
+    sidx = apply_permutation_sparse(torch.tensor(rows, device=dev),
+                                    svc.engine.sigma).to(torch.int32)
+    sidx = sidx.contiguous()
+    got = ks.cminhash_sparse_kernel(sidx, pi, k, pack_b=cfg.b)
+    want = ks.cminhash_sparse_plain(sidx, pi, k, pack_b=cfg.b)
+    require(torch.equal(got, svc.engine.sign(rows, layout="sparse",
+                                             pack_b=cfg.b)),
+            "stream batch: the kernel's words are the service's signing")
+    ms, dev_ms = both_ms(lambda: ks.cminhash_sparse_kernel(
+        sidx, pi, k, pack_b=cfg.b), 50)
+    plain_ms = time_ms(lambda: ks.cminhash_sparse_plain(sidx, pi, k,
+                                                        pack_b=cfg.b), 10)
+    print(f"[stream] the kernels at one stream batch ({len(rows)} rows, 7 "
+          f"queries), against their plain versions:")
+    out.append(kernel_entry(
+        "cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
+        "src/repro/kernels/cminhash_sparse.py:186", got, want, ms, plain_ms,
+        sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+        int((sidx >= 0).sum().item()) * k, dev_ms,
+        {"shape": list(sidx.shape), **extra}))
+    qwords = got
+    frows = kq.words_to_rows(qwords, cfg.n_bands).contiguous()
+    folded = kq.fold_rows_kernel(frows)
+    ms, dev_ms = both_ms(lambda: kq.fold_rows_kernel(frows), 50)
+    plain_ms = time_ms(lambda: kq.fold_rows_plain(frows), 10)
+    out.append(kernel_entry(
+        "fold", "src/repro_torch/csrc/fold.cu",
+        "src/repro/kernels/query_fused.py:164", folded,
+        kq.fold_rows_plain(frows), ms, plain_ms,
+        frows.numel() * 4 + folded.numel() * 8, frows.numel() * 5, dev_ms,
+        {"shape": list(frows.shape), **extra}))
+    table = store.table
+    row, cands = probe_entry(table.device_records(), folded, table.n_slots,
+                             table.max_probes, extra)
+    out.append(row)
+    has_any = (cands.view(len(rows), -1) >= 0).any(1).cpu().numpy()
+    em = np.flatnonzero(~has_any)
+    require(len(em) > 0, "stream batch: some rows take the fallback")
+    out.append(collision_entry(qwords[torch.from_numpy(em).to(dev)],
+                               len(em), store.buffer.device_words(), k,
+                               cfg.b, {"fallback_rows": len(em),
+                                       **extra})[0])
+    report["kernels"] = out
+    return out
+
+
+def stream_path(main_svc, rsvc, qidx, seed: int, report: dict) -> None:
+    """Phase 5e: the streaming front end over phase 2's in-process service,
+    then over phase 5d's healthy replicated plane."""
+    want = main_svc.query_sparse(qidx, top_k=TOP_K)
+    inproc = stream_once(main_svc, qidx, want, seed, "in-process")
+    n = inproc["batches"]
+    require(inproc["launches"]["lsh_probe"] == n
+            and 0 < inproc["launches"]["collision"] <= n,
+            f"in-process: the shard launches the probe once a batch and "
+            f"the collision kernel for the batches with fallback rows "
+            f"({inproc['launches']})")
+    before = {(ln["shard"], ln["replica"]): ln for ln in
+              lane_stats(rsvc.store)}
+    replicated = stream_once(rsvc, qidx, want, seed, "replicated")
+    after = lane_stats(rsvc.store)
+    delta = [{**ln, "launches": {k: v - before[(ln["shard"], ln["replica"])]
+                                 ["launches"][k]
+                                 for k, v in ln["launches"].items()},
+              "handled": {k: v - before[(ln["shard"], ln["replica"])]
+                          ["handled"][k] for k, v in ln["handled"].items()}}
+             for ln in after]
+    require(replicated["launches"]["lsh_probe"] == 0
+            and replicated["launches"]["collision"] == 0,
+            "replicated: the coordinator launches no probe or collision "
+            "kernel")
+    check_lane_launches(delta, "replicated stream")
+    replicated["lanes"] = delta
+    replicated["launches"] = plane_launches(replicated["launches"], delta)
+    report["stream_path"] = {"in_process": inproc, "replicated": replicated,
+                             "launches": {
+                                 k: inproc["launches"][k]
+                                 + replicated["launches"][k]
+                                 for k in inproc["launches"]}}
+    stream_kernel_checks(main_svc, qidx, report["stream_path"])
 
 
 def dense_path(idx, fresh_idx, report: dict):
@@ -2055,6 +2603,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=262_144,
                     help="documents to ingest on the main path")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 5e's Poisson arrival gaps")
     ap.add_argument("--compare", action="store_true",
                     help="only compare the signing kernels' table "
                          "placements, the collision kernel, the fold, the "
@@ -2112,7 +2662,18 @@ def main() -> None:
     del raw_svc
     torch.cuda.empty_cache()
     tcp_path(svc, idx, qidx, report)
-    del svc
+    torch.cuda.empty_cache()
+    jdir = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        rsvc = replica_path(svc, idx, qidx, jdir, report)
+        try:
+            chaos_path(svc, idx, qidx, os.path.join(jdir, "chaos"), report)
+            stream_path(svc, rsvc, qidx, args.seed, report)
+        finally:
+            rsvc.close()
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    del svc, rsvc
     torch.cuda.empty_cache()
 
     svc, batch = dense_path(idx, fresh_idx, report)
@@ -2125,7 +2686,8 @@ def main() -> None:
     dense_card_vs_cpu(idx, fresh_idx, report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
-             "tcp_path", "dense_path", "paper_path")
+             "tcp_path", "replica_path", "chaos_path", "stream_path",
+             "dense_path", "paper_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

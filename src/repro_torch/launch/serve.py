@@ -15,6 +15,18 @@ its store on ``--device``:
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search \
         --transport tcp --shards 3 --docs 400 --metrics-dump PATH
 
+``--replicas R`` (tcp) runs R workers a shard, ``--journal-dir DIR`` keeps
+the write-ahead ingest journal there, and the supervisor
+(``--no-supervisor`` turns it off) respawns a dead worker on ``--device``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search \
+        --transport tcp --shards 2 --replicas 2 --journal-dir DIR \
+        --docs 400 --device cpu
+
+``--stream`` then streams ``--stream-queries`` single queries with Poisson
+gaps at ``--stream-qps`` through ``svc.stream(...)`` and prints the
+tickets' end-to-end p50 and p99.
+
 ``--metrics-dump PATH`` appends one JSONL snapshot of the process metrics
 registry (+ drained trace spans, + the workers' STATS snapshots) every
 ``--metrics-interval`` seconds, plus a final line at shutdown; validate it
@@ -56,8 +68,16 @@ class _WorkerSnapshots:
             return {}
         if self._conns is None:
             from repro_torch.transport import ShardConnection
-            self._conns = [ShardConnection(sh.conn.address, timeout=30)
-                           for sh in self.store.shards if hasattr(sh, "conn")]
+            conns = []
+            for sh in self.store.shards:
+                if hasattr(sh, "lanes"):
+                    # a replica set's lanes as they stand now; a lane the
+                    # supervisor later respawns is not followed
+                    conns += [lane.conn for lane in sh.lanes]
+                elif hasattr(sh, "conn"):
+                    conns.append(sh.conn)
+            self._conns = [ShardConnection(c.address, timeout=30)
+                           for c in conns]
         from repro_torch.transport.wire import Message, MsgType
         out = {}
         for conn in self._conns:
@@ -90,7 +110,8 @@ def serve_search(args) -> None:
             probe_impl=args.probe, query_impl=args.query_impl,
             transport=args.transport, query_timeout_s=args.query_timeout,
             hedge=args.hedge, hedge_delay_ms=args.hedge_delay_ms,
-            device=args.device)))
+            n_replicas=args.replicas, journal_dir=args.journal_dir,
+            supervisor=args.supervisor, device=args.device)))
         workers.store = svc.store
         bs = max(1, min(args.ingest_batch, len(idx)))
         t0 = time.perf_counter()
@@ -114,6 +135,8 @@ def serve_search(args) -> None:
               f"device={svc.engine.device}): "
               f"{args.batch} queries in {dt * 1e3:.1f} ms; top-1 self-hit "
               f"{(ids[:, 0] == np.arange(args.batch)).mean() * 100:.0f}%")
+        if args.stream:
+            stream_demo(svc, idx, args)
         # one merged plane snapshot (coordinator + tcp workers): the
         # per-shard partial-latency split is the skew evidence
         snap = svc.store.obs_snapshot()
@@ -135,6 +158,38 @@ def serve_search(args) -> None:
                   f"{', '.join(f'{p}/{n}' for p, n in legs)}")
         if dumper is not None:
             dumper.close()
+
+
+def stream_demo(svc, idx, args) -> None:
+    """Open-loop streaming: Poisson arrivals at ``--stream-qps`` through
+    the admission queue.  The percentiles are each ticket's end-to-end
+    latency (admission wait + batch wall), what an outside caller sees."""
+    rng = np.random.default_rng(1)
+    n_q = args.stream_queries
+    qrows = idx[rng.integers(0, len(idx), n_q)]
+    gaps = rng.exponential(1.0 / args.stream_qps, n_q)
+    with svc.stream(max_batch=args.max_batch,
+                    max_delay_ms=args.max_delay_ms,
+                    depth=args.stream_depth) as stream:
+        t0 = time.perf_counter()
+        tickets = []
+        for i in range(n_q):
+            target = t0 + gaps[: i + 1].sum()
+            # one clock read a step: the time left can run out between
+            # two reads, and sleep refuses a negative length
+            while (left := target - time.perf_counter()) > 0:
+                time.sleep(min(left, 1e-3))
+            tickets.append(stream.submit_sparse(qrows[i], top_k=5))
+        for t in tickets:
+            t.result(timeout=svc.cfg.query_timeout_s + 30)
+        wall = time.perf_counter() - t0
+    lat = np.sort([t.latency_s for t in tickets])
+    print(f"[serve] stream: {n_q} queries at {args.stream_qps:.0f} "
+          f"qps offered -> {n_q / wall:.0f} qps served "
+          f"({stream.n_batches} batches, depth={args.stream_depth}, "
+          f"hedge={'on' if args.hedge else 'off'}); e2e p50 "
+          f"{lat[int(0.50 * (n_q - 1))] * 1e3:.2f} ms, p99 "
+          f"{lat[int(0.99 * (n_q - 1))] * 1e3:.2f} ms")
 
 
 def main() -> None:
@@ -169,6 +224,30 @@ def main() -> None:
     ap.add_argument("--hedge-delay-ms", type=float, default=None,
                     help="fixed hedge delay in ms (default: derived from "
                          "the shards' observed reply skew; 0 hedges at once)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica workers per shard (tcp transport; 1 = "
+                         "the unreplicated plane)")
+    ap.add_argument("--journal-dir", default=None,
+                    help="directory for the write-ahead ingest journal "
+                         "(tcp transport; replica resync replays it)")
+    ap.add_argument("--supervisor", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="self-heal dead replicas: respawn on --device, "
+                         "replay the journal, check the digest, rejoin "
+                         "(--replicas > 1)")
+    ap.add_argument("--stream", action="store_true",
+                    help="run the open-loop streaming demo after ingest")
+    ap.add_argument("--stream-qps", type=float, default=500.0,
+                    help="offered Poisson arrival rate for --stream")
+    ap.add_argument("--stream-queries", type=int, default=512,
+                    help="queries to stream for --stream")
+    ap.add_argument("--max-batch", type=int, default=256,
+                    help="admission queue flush size (--stream)")
+    ap.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="admission queue flush deadline in ms (--stream)")
+    ap.add_argument("--stream-depth", type=int, default=2,
+                    help="streaming pipeline depth: batches in flight "
+                         "(1 = serial; --stream)")
     ap.add_argument("--metrics-dump", metavar="PATH", default=None,
                     help="append periodic JSONL registry snapshots + trace "
                          "spans (+ tcp workers' snapshots) here while "

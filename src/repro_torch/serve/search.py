@@ -28,8 +28,16 @@ signs and folds on the card; each batch's hashes and words cross to the
 host once for the wire.  tcp services own their workers: call ``close()``
 (or use the service as a context manager) to shut them down.
 
-Ported: the in-process and tcp planes, for sparse index lists and dense
-(B, D) rows.  Replicas and streaming are later slices (ROADMAP.md).
+``n_replicas > 1`` or a ``journal_dir`` (tcp only) builds the replicated
+plane (``repro_torch.replica``): R workers a shard on ``device``, a
+write-ahead ingest journal and, by default, the supervisor that respawns
+a dead worker on ``device``, replays the journal into it, checks its
+digest against a live peer and brings it back.  ``stream()`` opens the
+streaming front end (``serve.stream``): single queries in, coalesced
+batches through the same query path.
+
+Ported: the in-process, tcp and replicated planes and the streaming front
+end, for sparse index lists and dense (B, D) rows.
 """
 
 from __future__ import annotations
@@ -69,6 +77,12 @@ class SearchConfig:
     query_timeout_s: float = 30.0    # fan-out deadline (tcp transport)
     hedge: bool = False         # hedged shard reads (tcp transport)
     hedge_delay_ms: float | None = None  # fixed hedge delay; None = derived
+    # replication (tcp transport; see repro_torch.replica): R workers a
+    # shard, a write-ahead ingest journal, and a self-healing supervisor.
+    # At n_replicas=1 with no journal the unreplicated plane is built
+    n_replicas: int = 1         # replica lanes per shard
+    journal_dir: str | None = None   # write-ahead ingest journal directory
+    supervisor: bool = True     # self-heal dead replicas (n_replicas > 1)
     device: str = DEFAULT_DEVICE
 
 
@@ -97,8 +111,12 @@ class SimilaritySearchService:
                                 n_slots=cfg.n_slots,
                                 bucket_width=cfg.bucket_width)
         self._workers: list = list(workers) if workers else []
+        self._supervisor = None
         if store is not None:
             self.store = store
+        elif cfg.transport == "tcp" and (cfg.n_replicas > 1
+                                         or cfg.journal_dir is not None):
+            self.store = self._build_replicated(store_cfg)
         elif cfg.transport == "tcp":
             self.store = self._build_tcp(store_cfg)
         else:
@@ -135,6 +153,48 @@ class SimilaritySearchService:
                 h.terminate()
             raise
 
+    def _build_replicated(self, store_cfg: StoreConfig):
+        """The replicated tcp plane: an S x R worker grid on ``cfg.device``,
+        a write-ahead ingest journal, and (by default) the supervisor,
+        which respawns on the same device.  Hedging is always armed here
+        (the failure-triggered hedge IS the in-round read failover to a
+        sibling replica), with ``hedge_delay_ms`` as a fixed-delay
+        override."""
+        import os
+
+        from ..replica import (IngestJournal, Supervisor, connect_replicated,
+                               spawn_replicated)
+        from ..transport import HedgePolicy
+        cfg = self.cfg
+        journal = None
+        if cfg.journal_dir is not None:
+            journal = IngestJournal(
+                os.path.join(cfg.journal_dir, "ingest.journal"))
+        grid = spawn_replicated(store_cfg, cfg.n_shards,
+                                max(cfg.n_replicas, 1), device=cfg.device,
+                                probe_impl=cfg.probe_impl,
+                                query_impl=cfg.query_impl)
+        self._workers = [h for row in grid for h in row]
+        hedge = True if cfg.hedge_delay_ms is None \
+            else HedgePolicy(delay_s=cfg.hedge_delay_ms / 1e3)
+        try:
+            store = connect_replicated(
+                grid, store_cfg, journal=journal,
+                partition=cfg.partition, query_impl=cfg.query_impl,
+                timeout=cfg.query_timeout_s, hedge=hedge, device=cfg.device)
+        except BaseException:
+            if journal is not None:
+                journal.close()
+            for h in self._workers:        # no orphan worker processes
+                h.terminate()
+            raise
+        if cfg.supervisor and cfg.n_replicas > 1:
+            self._supervisor = Supervisor(store, device=cfg.device,
+                                          probe_impl=cfg.probe_impl,
+                                          query_impl=cfg.query_impl)
+            self._supervisor.start()
+        return store
+
     # -- the fused fast path -----------------------------------------------
     @property
     def packed_ingest(self) -> bool:
@@ -169,11 +229,11 @@ class SimilaritySearchService:
         return IngestPipeline(self, depth=depth, layout=layout)
 
     def stream(self, **kw):
-        """The streaming front end is not ported yet (ROADMAP.md, 'Modules
-        still to port', streaming)."""
-        raise NotImplementedError(
-            "SimilaritySearchService.stream is not ported yet (ROADMAP.md, "
-            "'Modules still to port', streaming)")
+        """A streaming front end over this service: single queries in,
+        coalesced batches through the pipelined query path (see
+        ``serve.stream.StreamingQueryService`` for the knobs)."""
+        from .stream import StreamConfig, StreamingQueryService
+        return StreamingQueryService(self, StreamConfig(**kw))
 
     @property
     def size(self) -> int:
@@ -225,13 +285,28 @@ class SimilaritySearchService:
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
         """Shut the shard workers down (tcp transport: SHUTDOWN over the
-        wire, then a hard stop for any that did not exit); idempotent."""
+        wire, then a hard stop for any that did not exit); idempotent.
+
+        The supervisor stops FIRST, or it would take the shutdown for a
+        mass failure and respawn every worker the teardown just stopped;
+        workers it respawned are not in the spawned list, so every lane's
+        handle is stopped too.  The journal closes last."""
+        if self._supervisor is not None:
+            self._supervisor.stop()
+            self._supervisor = None
         if self._workers:
             from ..transport import shutdown_plane
             shutdown_plane(self.store, self._workers)
+            for rset in getattr(self.store, "shards", []):
+                for lane in getattr(rset, "lanes", []):
+                    if lane.handle is not None:
+                        lane.handle.terminate()
             self._workers = []
         else:
             self.store.close()
+        journal = getattr(self.store, "journal", None)
+        if journal is not None:
+            journal.close()
 
     def __enter__(self) -> "SimilaritySearchService":
         return self

@@ -273,19 +273,29 @@ class ShardedSketchStore:
         registry plus every remote worker's (the ``obs`` JSON of its STATS
         reply), reduced with ``merge_snapshots``.  In-process shards share
         this process's registry, so their stats carry no ``obs`` and
-        nothing is counted twice.  Each worker snapshot is merged twice:
-        raw (plane-wide totals) and under a ``shard{i}.replica{r}.``
-        prefix (``label_snapshot``: which worker's counters moved)."""
+        nothing is counted twice.  Each worker snapshot is merged under a
+        ``shard{i}.replica{r}.`` prefix (``label_snapshot``: which worker's
+        counters moved), and raw on the shard's first lane only, so the
+        plane-wide totals mean one lane a shard at any replication.
+        Backends with ``stats_all`` (replica sets) give one snapshot for
+        each live lane."""
         snaps = [obs_metrics.default().snapshot()]
         for i, sh in enumerate(self.shards):
-            stats = sh.stats()
-            blob = stats.get("obs")
-            if not blob:
-                continue
-            snap = json.loads(blob) if isinstance(blob, str) else blob
-            snaps.append(snap)
-            snaps.append(obs_metrics.label_snapshot(
-                snap, f"shard{i}.replica{int(stats.get('replica', 0))}."))
+            stats_all = getattr(sh, "stats_all", None)
+            if stats_all is not None:
+                per_lane = stats_all()
+            else:
+                stats = sh.stats()
+                per_lane = [(int(stats.get("replica", 0)), stats)]
+            for k, (r, stats) in enumerate(per_lane):
+                blob = stats.get("obs")
+                if not blob:
+                    continue
+                snap = json.loads(blob) if isinstance(blob, str) else blob
+                if k == 0:
+                    snaps.append(snap)
+                snaps.append(obs_metrics.label_snapshot(
+                    snap, f"shard{i}.replica{r}."))
         return obs_metrics.merge_snapshots(*snaps)
 
     def _gids(self, shard: int) -> np.ndarray:

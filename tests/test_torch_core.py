@@ -247,13 +247,22 @@ def test_unported_options_raise_and_name_the_roadmap():
     want = np.asarray(ref.sign(jax.numpy.asarray(v), layout="dense"))
     assert np.array_equal(eng.sign(v, layout="dense").numpy(), want)
     # the tcp transport, which raised here until it was ported, is a
-    # transport the service builds; streaming is still to port
+    # transport the service builds; streaming, which raised here until it
+    # was ported, streams single rows that answer as query_sparse does
     from repro_torch.serve.search import TRANSPORTS
     assert TRANSPORTS == ("inproc", "tcp")
     small = SimilaritySearchService(SearchConfig(
         d=1 << 12, k=64, n_bands=16, rows_per_band=4, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.stream()
+    docs = np.sort(np.random.default_rng(2).integers(0, 1 << 12, (24, 30),
+                                                     np.int32), axis=1)
+    small.add_sparse(docs)
+    with small.stream(max_batch=2, max_delay_ms=1.0) as st:
+        tickets = [st.submit_sparse(row, top_k=3) for row in docs[:3]]
+        streamed = [t.result(timeout=60) for t in tickets]
+    want_ids, want_scores = small.query_sparse(docs[:3], top_k=3)
+    for i, (ids, scores) in enumerate(streamed):
+        assert np.array_equal(ids, want_ids[i])
+        assert np.array_equal(scores, want_scores[i])
     with pytest.raises(ValueError, match="transport"):
         SimilaritySearchService(SearchConfig(transport="udp", device="cpu"))
     # bands off word boundaries, which raised until the raw-signature path

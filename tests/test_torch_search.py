@@ -5,8 +5,12 @@ same two permutations (carried across by ``permutations_from_jax``) through
 ``pipeline(depth)``, then answer the same queries: indexed documents, fresh
 documents that take the brute-force fallback, and (with bucket_width=1)
 spilled keys.  ids, scores, size and shard sizes must be identical
-(scores are count.float32 / k on both sides: tolerance 0).
+(scores are count.float32 / k on both sides: tolerance 0).  The replicated
+tcp plane (two shards of two CPU workers, the journal, the supervisor)
+answers the same way before and after a worker is killed and respawned.
 """
+
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +32,7 @@ from repro_torch.kernels import lsh_probe as t_probe
 from repro_torch.kernels import query_fused as t_qf
 from repro_torch.serve.search import SearchConfig, SimilaritySearchService
 from repro_torch.store import SketchStore, StoreConfig
+from repro_torch.transport.wire import Message, MsgType
 
 D, K, NB, R = 1 << 12, 64, 16, 4
 BATCH = 32
@@ -210,3 +215,50 @@ def test_store_query_packed_matches_reference(n_slots, bw):
         got = port.query_packed(arg, top_k=4)
         assert np.array_equal(got[0], want[0])
         assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b", [32, 2])
+def test_replicated_service_answers_like_the_reference(tmp_path, b):
+    """``transport="tcp", n_replicas=2, journal_dir=...`` on the CPU: two
+    shards of two port workers each, the journal and the supervisor.  The
+    answers are the JAX service's, before and after a worker is killed and
+    the supervisor (on the service's device) respawns it, replays the
+    journal and brings it back; ``close()`` leaves no live worker, the
+    respawned one included."""
+    idx, qidx = _corpus()
+    common = dict(d=D, k=K, n_bands=NB, rows_per_band=R, n_shards=2, b=b)
+    ref = RefService(RefSearchConfig(**common))
+    params = convert.permutations_from_jax(np.asarray(ref.engine.sigma),
+                                           np.asarray(ref.engine.pi), "cpu")
+    port = SimilaritySearchService(
+        SearchConfig(transport="tcp", n_replicas=2,
+                     journal_dir=str(tmp_path), device="cpu", **common),
+        params=params)
+    handles = list(port._workers)
+    try:
+        assert port.packed_ingest == (b == 32)
+        _ingest(ref, idx, 2)
+        _ingest(port, idx, 2)
+        want = ref.query_sparse(qidx, top_k=5)
+        got = port.query_sparse(qidx, top_k=5)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        assert port.store.last_timings["n_fallback"] > 0
+        assert port.store.journal.last_seq == -(-len(idx) // BATCH) - 1
+        lane = port.store.shards[1].lanes[0]
+        lane.handle.terminate()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and (
+                lane.handle in handles or not lane.up):
+            time.sleep(0.1)
+        assert lane.handle not in handles and lane.up, lane.why_down
+        handles.append(lane.handle)
+        stats = lane.conn.request(Message(MsgType.STATS, {}))
+        assert str(stats["device"]) == "cpu"
+        assert int(stats["size"]) == port.store._gid_len[1]
+        got = port.query_sparse(qidx, top_k=5)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    finally:
+        port.close()
+    assert not any(h.alive for h in handles)
