@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
-path (sparse and dense input) and the paper's Fig. 7 experiment on one
-NVIDIA card, with its hand-written kernels (six CUDA sources).
+path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup
+and the hashed-feature trainer on one NVIDIA card, with its hand-written
+kernels (six CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
@@ -206,11 +207,35 @@ printed then:
    (checked against its plain version and ``K - cdist(p=0)``, timed with
    both, summed over phase 7's 36 launches).
 9. The card against the CPU on a 512-document dense subset.
+10. Dedup (``dedup_path``): ``data.dedup.dedup_corpus(device="cuda")``
+    over phase 2's 262,144 documents at ``DedupConfig()``'s defaults (D =
+    2^16, K = 256, 64 x 4 bands, threshold 0.5), its counts set to 0 just
+    before and read just after: the sparse signing kernel must have
+    launched exactly once (the whole corpus, unpacked) and no other kernel.
+    Pair precision > 0.95 and recall > 0.9 against the planted clusters
+    (``dedup_metrics``); the card's result equal to the CPU's on the first
+    16,384 documents in every field; the kernel's output at that launch
+    equal to the result's signatures and to its plain version (in
+    8,192-row calls), timed and bounded as in phase 3.  Prints each stage's
+    seconds (the registry's ``dedup.<stage>`` histograms), documents/s,
+    candidate and verified pairs, kept/total.
+11. The hashed-feature trainer (``linear_path``): the classifier example's
+    data at D = 2^14 (templates at 5% density, 2% flips), 32,768 training
+    and 8,192 test rows made on the card in 4096-row batches and signed at
+    K = 512 through ``SketchEngine.signatures_dense`` (the bit-packed
+    kernel, once a batch and no other kernel), then ``fit_logistic`` (300
+    steps) for b in {1, 2, 4, 8}: test accuracy > 0.95 at each b, the
+    card's peak memory over the signatures under 1/8 of the one-hot
+    matrix's bytes at b = 8 (it is never built); the card's fit on the
+    first 1,024 training rows within the CPU tests' tolerances of the
+    CPU's (w and probabilities within 1e-3, equal accuracy); the
+    bit-packed kernel against its plain version at one batch.  Prints
+    seconds per step and the peak memory.
 
-``launches`` in the kernels line is the sum over the ten counted paths
+``launches`` in the kernels line is the sum over the twelve counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
 phase 5c's tcp path, coordinator and workers, phase 5d's two planes,
-coordinator and lanes, phase 5e's two streams, phases 6 and 7).
+coordinator and lanes, phase 5e's two streams, phases 6, 7, 10 and 11).
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -237,12 +262,16 @@ host, ``probe_operands``, upload, probe) and as the single store runs it (one
 fold + probe launch; DIR's: fold, ``meta_from_hashes``, probe); each also
 timed with L2 flushed before every run.  Output:
 ``chiprun_out/compare.json`` and ``chiprun_out/collision.sass``.
+Last, the trainer's gather form (``core.linear_model.fit_logistic``)
+against its first, index form at phase 11's shape, in turns
+(``[trainer]`` lines).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -351,11 +380,21 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max().item())
 
 
-def corpus(n_docs: int):
+def documents(n_docs: int):
+    """The synthetic corpus: (token arrays, planted cluster label per
+    document, -1 for unique ones)."""
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    return corpus_with_duplicates(n_docs, vocab=30_000, doc_len=256,
+                                  dup_fraction=0.4, seed=0)
+
+
+def corpus(n_docs: int, docs=None):
+    """``documents(n_docs)`` (or ``docs``) as padded 3-shingle index lists,
+    and the fresh query documents'."""
     from repro_torch.data.shingle import batch_shingles
     from repro_torch.data.synthetic import corpus_with_duplicates
-    docs, _ = corpus_with_duplicates(n_docs, vocab=30_000, doc_len=256,
-                                     dup_fraction=0.4, seed=0)
+    if docs is None:
+        docs, _ = documents(n_docs)
     idx = batch_shingles(docs, n=3, d=1 << 16)
     fresh, _ = corpus_with_duplicates(N_QUERY_FRESH, vocab=30_000,
                                       doc_len=256, dup_fraction=0.4, seed=1)
@@ -2172,6 +2211,254 @@ def dense_card_vs_cpu(idx, fresh_idx, report: dict) -> None:
           "and scores identical")
 
 
+DEDUP_CHECK_DOCS = 16_384     # the card against the CPU
+DEDUP_PLAIN_ROWS = 8_192      # the plain version's row chunk
+
+
+def dedup_path(docs, labels, idx, report: dict) -> None:
+    """Phase 10: ``dedup_corpus`` on the card over the main path's
+    documents at ``DedupConfig``'s defaults, counted: one launch of the
+    sparse signing kernel and no other.  Pair precision and recall against
+    the planted clusters; the card against the CPU on the first
+    ``DEDUP_CHECK_DOCS`` documents; the kernel's output at that launch
+    against its plain version, timed and bounded as in phase 3."""
+    from repro_torch.core.permutations import (apply_permutation_sparse,
+                                               make_two_permutations)
+    from repro_torch.data.dedup import (STAGES, DedupConfig, dedup_corpus,
+                                        dedup_metrics)
+    from repro_torch.kernels import cminhash_sparse as ks
+    from repro_torch.obs import metrics as obs_metrics
+    ks_all = kernels()
+    cfg = DedupConfig()
+    dev = torch.device("cuda")
+    sigma, pi = make_two_permutations(torch.Generator().manual_seed(cfg.seed),
+                                      cfg.d, device=dev)
+    reg = obs_metrics.default()
+    before = {s: reg.histogram(f"dedup.{s}").sum for s in STAGES}
+    torch.cuda.synchronize()
+    zero_counts(ks_all)
+    # --- the dedup path ----------------------------------------------------
+    t0 = time.perf_counter()
+    res = dedup_corpus(docs, cfg, device="cuda", params=(sigma, pi))
+    wall = time.perf_counter() - t0
+    launches = read_counts(ks_all)
+    # -----------------------------------------------------------------------
+    stages = {s: reg.histogram(f"dedup.{s}").sum - before[s] for s in STAGES}
+    m = dedup_metrics(res, labels)
+    n = len(docs)
+    print(f"[dedup] {n} docs (D = 2^{cfg.d.bit_length() - 1}, K = {cfg.k}, "
+          f"{cfg.n_bands} x {cfg.rows_per_band} bands, threshold "
+          f"{cfg.threshold}) in {wall:.3f} s ({n / wall:.0f} docs/s); "
+          + ", ".join(f"{s} {v:.3f}" for s, v in stages.items()) + " s")
+    print(f"[dedup] {res.n_candidates} candidate pairs, {res.n_verified} "
+          f"verified; kept {m['kept']}/{m['total']}; pair precision "
+          f"{m['precision']:.4f}, recall {m['recall']:.4f} (tp {m['tp']}, "
+          f"fp {m['fp']}, fn {m['fn']}); launches {launches}")
+    require(res.signatures.shape == (n, cfg.k)
+            and res.cluster_of.shape == (n,), "dedup result shapes")
+    require(launches["cminhash_sparse"] == 1
+            and sum(launches.values()) == 1,
+            f"dedup launched the sparse signing kernel once and no other "
+            f"kernel ({launches})")
+    require(m["precision"] > 0.95 and m["recall"] > 0.9,
+            f"dedup precision {m['precision']} > 0.95, recall "
+            f"{m['recall']} > 0.9")
+
+    # the card against the CPU on the first documents
+    t0 = time.perf_counter()
+    sub = docs[:DEDUP_CHECK_DOCS]
+    card = dedup_corpus(sub, cfg, device="cuda", params=(sigma, pi))
+    cpu = dedup_corpus(sub, cfg, device="cpu",
+                       params=(sigma.cpu(), pi.cpu()))
+    for field in dataclasses.fields(card):
+        a, b = getattr(card, field.name), getattr(cpu, field.name)
+        require(type(a) is type(b) and np.array_equal(a, b),
+                f"dedup on the card == on the CPU, first {len(sub)} "
+                f"documents: {field.name}")
+    check_s = time.perf_counter() - t0
+    print(f"[dedup] card == CPU on the first {len(sub)} documents, every "
+          f"field ({card.n_candidates} candidates, {card.n_verified} "
+          f"verified; {check_s:.1f} s)")
+
+    # kernel 1 at the dedup launch: its output is the result's signatures
+    sidx = apply_permutation_sparse(torch.from_numpy(idx).to(dev),
+                                    sigma).to(torch.int32).contiguous()
+    got = ks.cminhash_sparse_kernel(sidx, pi, cfg.k)
+    require(np.array_equal(got.cpu().numpy(), res.signatures),
+            "the kernel's output is the dedup launch's signatures")
+
+    def plain():
+        return torch.cat([ks.cminhash_sparse_plain(
+            sidx[lo: lo + DEDUP_PLAIN_ROWS], pi, cfg.k)
+            for lo in range(0, len(sidx), DEDUP_PLAIN_ROWS)])
+    want = plain()
+    ms, dev_ms = both_ms(lambda: ks.cminhash_sparse_kernel(sidx, pi, cfg.k),
+                         10)
+    plain_ms = time_ms(plain, 3, warmup=1)
+    n_valid = int((sidx >= 0).sum().item())
+    row = kernel_entry(
+        "cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
+        "src/repro/kernels/cminhash_sparse.py:186", got, want, ms, plain_ms,
+        sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+        n_valid * cfg.k, dev_ms, {"shape": list(sidx.shape), "pack_b": None,
+                                  "plain_rows_a_call": DEDUP_PLAIN_ROWS})
+    del sidx, got, want
+    torch.cuda.empty_cache()
+    report["dedup_path"] = {
+        "docs": n, "config": dataclasses.asdict(cfg), "wall_s": wall,
+        "docs_per_s": n / wall, "stages_s": stages,
+        "n_candidates": res.n_candidates, "n_verified": res.n_verified,
+        "metrics": m, "launches": launches,
+        "card_vs_cpu": {"docs": len(sub), "identical": True,
+                        "n_candidates": card.n_candidates,
+                        "n_verified": card.n_verified, "seconds": check_s},
+        "kernels": [row]}
+
+
+LINEAR_D = 1 << 14
+LINEAR_K = 512
+LINEAR_TRAIN = 32_768
+LINEAR_TEST = 8_192
+LINEAR_CHECK_ROWS = 1_024     # the card's fit against the CPU's
+
+
+def linear_path(report: dict) -> None:
+    """Phase 11: the hashed-feature trainer at the paper's learning width.
+    The classifier example's data (two 5%-density templates, 2% flips) at
+    D = 2^14: 32,768 training and 8,192 test rows made on the card in
+    4096-row batches, each signed at K = 512 through ``SketchEngine.
+    signatures_dense`` (the bit-packed kernel), only the signatures kept;
+    then ``fit_logistic`` (300 steps) for b in {1, 2, 4, 8}, counted.  Test
+    accuracy > 0.95 at each b; the card's fit on the first 1,024 training
+    rows against the CPU's within the CPU tests' tolerances; the bit-packed
+    kernel against its plain version at one batch, timed and bounded as in
+    phase 8."""
+    from repro_torch.core.engine import SketchConfig, SketchEngine
+    from repro_torch.core.linear_model import (HashedLinearConfig, accuracy,
+                                               fit_logistic,
+                                               predict_logistic)
+    from repro_torch.core.permutations import apply_permutation_dense
+    from repro_torch.kernels import cminhash_packed as kpk
+    ks_all = kernels()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    templates = torch.from_numpy(np.stack(
+        [rng.random(LINEAR_D) < 0.05, rng.random(LINEAR_D) < 0.05])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def batch(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        y = torch.randint(0, 2, (n,), generator=gen, device=dev)
+        flips = torch.rand((n, LINEAR_D), generator=gen, device=dev) < 0.02
+        return (templates[y] ^ flips).to(torch.int8), y.to(torch.int32)
+
+    engine = SketchEngine(SketchConfig(d=LINEAR_D, k=LINEAR_K), device=dev)
+    torch.cuda.synchronize()
+    zero_counts(ks_all)
+    # --- the linear path: sign the batches, then the fits -------------------
+    t0 = time.perf_counter()
+    sigs, ys, first = [], [], None
+    for _ in range((LINEAR_TRAIN + LINEAR_TEST) // BATCH):
+        x, y = batch(BATCH)
+        first = x if first is None else first
+        sigs.append(engine.signatures_dense(x))
+        ys.append(y)
+    torch.cuda.synchronize()
+    sign_s = time.perf_counter() - t0
+    n_batches = len(sigs)
+    sigs, ys = torch.cat(sigs), torch.cat(ys)
+    s_tr, y_tr = sigs[:LINEAR_TRAIN], ys[:LINEAR_TRAIN]
+    s_te, y_te = sigs[LINEAR_TRAIN:], ys[LINEAR_TRAIN:]
+    fits = {}
+    for b in (1, 2, 4, 8):
+        cfg = HashedLinearConfig(b=b)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wb = fit_logistic(s_tr, y_tr, cfg)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        acc = accuracy(wb, s_te, y_te, b)
+        fits[b] = {"fit_s": fit_s, "s_per_step": fit_s / cfg.steps,
+                   "peak_bytes_over_signatures": peak,
+                   "one_hot_bytes": LINEAR_TRAIN * (LINEAR_K << b) * 4,
+                   "test_accuracy": acc}
+    launches = read_counts(ks_all)
+    # -----------------------------------------------------------------------
+    print(f"[linear] {LINEAR_TRAIN} + {LINEAR_TEST} rows at D = 2^14 signed "
+          f"at K = {LINEAR_K} in {n_batches} batches in {sign_s:.3f} s; "
+          f"launches {launches}")
+    for b, f in fits.items():
+        print(f"[linear] b = {b}: {f['fit_s']:.3f} s for 300 steps "
+              f"({f['s_per_step'] * 1e3:.3f} ms a step), peak "
+              f"{f['peak_bytes_over_signatures'] / 2**20:.1f} MiB over the "
+              f"signatures (one-hot matrix {f['one_hot_bytes'] / 2**30:.2f} "
+              f"GiB), test accuracy {f['test_accuracy']:.4f}")
+        require(f["test_accuracy"] > 0.95,
+                f"trainer test accuracy at b = {b}: {f['test_accuracy']}")
+    require(fits[8]["peak_bytes_over_signatures"]
+            < fits[8]["one_hot_bytes"] / 8,
+            "no one-hot matrix materialised at b = 8")
+    require(launches["cminhash_packed"] == n_batches
+            and sum(launches.values()) == n_batches,
+            f"the bit-packed kernel launched once per batch and no other "
+            f"kernel ({launches} for {n_batches} batches)")
+
+    # the card's fit against the CPU's on the first training rows
+    t0 = time.perf_counter()
+    sc, yc = s_tr[:LINEAR_CHECK_ROWS], y_tr[:LINEAR_CHECK_ROWS]
+    check = {}
+    for b in (1, 2, 4, 8):
+        cfg = HashedLinearConfig(b=b)
+        wc, bc = fit_logistic(sc, yc, cfg)
+        w, bias = fit_logistic(sc.cpu(), yc.cpu(), cfg)
+        pc = predict_logistic((wc, bc), s_te, b).cpu()
+        p = predict_logistic((w, bias), s_te.cpu(), b)
+        ac = accuracy((wc, bc), s_te, y_te, b)
+        a = accuracy((w, bias), s_te.cpu(), y_te.cpu(), b)
+        check[b] = {"w_max_abs_err": float((wc.cpu() - w).abs().max()),
+                    "bias_abs_err": abs(float(bc) - float(bias)),
+                    "p_max_abs_err": float((pc - p).abs().max()),
+                    "accuracy_card": ac, "accuracy_cpu": a}
+        c = check[b]
+        require(c["w_max_abs_err"] <= 1e-3 and c["bias_abs_err"] <= 1e-3
+                and c["p_max_abs_err"] <= 1e-3 and ac == a,
+                f"the card's fit within the tests' tolerances of the CPU's "
+                f"at b = {b}: {c}")
+    check_s = time.perf_counter() - t0
+    print(f"[linear] card vs CPU fit on the first {LINEAR_CHECK_ROWS} rows: "
+          + "; ".join(f"b = {b}: |dw| {c['w_max_abs_err']:.2e}, |dp| "
+                      f"{c['p_max_abs_err']:.2e}, accuracy "
+                      f"{c['accuracy_card']:.4f} both"
+                      for b, c in check.items()) + f" ({check_s:.1f} s)")
+
+    # kernel 6 at one batch of the path, sigma applied as dispatch does
+    vs = apply_permutation_dense(first, engine.sigma)
+    words = kpk.pack_bits(vs)
+    got = kpk.cminhash_packed_kernel(words, engine.pi, LINEAR_K)
+    require(torch.equal(got, sigs[:BATCH]),
+            "the kernel's output is the path's first batch of signatures")
+    want = kpk.cminhash_packed_plain(words, engine.pi, LINEAR_K)
+    ms, dev_ms = both_ms(lambda: kpk.cminhash_packed_kernel(
+        words, engine.pi, LINEAR_K), 20)
+    plain_ms = time_ms(lambda: kpk.cminhash_packed_plain(
+        words, engine.pi, LINEAR_K), 3, warmup=1)
+    nnz = int((vs > 0).sum().item())
+    row = kernel_entry(
+        "cminhash_packed", "src/repro_torch/csrc/cminhash_packed.cu",
+        "src/repro/kernels/cminhash_packed.py:95", got, want, ms, plain_ms,
+        words.numel() * 4 + engine.pi.numel() * 4 + got.numel() * 4,
+        nnz * LINEAR_K + words.numel(), dev_ms,
+        {"shape": [BATCH, LINEAR_D, LINEAR_K], "set_bits": nnz,
+         "pack_bits_ms": time_ms(lambda: kpk.pack_bits(vs), 20)})
+    report["linear_path"] = {
+        "d": LINEAR_D, "k": LINEAR_K, "train": LINEAR_TRAIN,
+        "test": LINEAR_TEST, "batches": n_batches, "sign_s": sign_s,
+        "fits": fits, "card_vs_cpu": {"rows": LINEAR_CHECK_ROWS,
+                                      "by_b": check, "seconds": check_s},
+        "launches": launches, "kernels": [row]}
+
+
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
@@ -2591,6 +2878,84 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
           f"{walk['hits']} hits, steps by entry {walk['steps_hist']}")
 
 
+def index_form_fit(sigs: torch.Tensor, labels: torch.Tensor, cfg):
+    """``fit_logistic`` in its first form, kept here as ``--compare``'s
+    baseline: ``w[k * 2^b + code]`` picked by advanced indexing, whose
+    gradient is an ``index_put`` with accumulate (it sorts the N * K
+    indices); the port gathers ``w.view(K, 2^b)`` instead, whose gradient
+    is a ``scatter_add``.  The same loss and Adam update."""
+    from repro_torch.core.bbit import lowest_b_bits
+    dev, k = sigs.device, sigs.shape[1]
+    cols = ((torch.arange(k, device=dev, dtype=torch.int64) << cfg.b)
+            + lowest_b_bits(sigs, cfg.b).long())
+    y = labels.to(dev, torch.float32)
+    w = torch.zeros(k << cfg.b, device=dev, requires_grad=True)
+    bias = torch.zeros((), device=dev, requires_grad=True)
+    params = (w, bias)
+    m = [torch.zeros_like(p) for p in params]
+    v = [torch.zeros_like(p) for p in params]
+    t = torch.zeros((), device=dev)
+    zero = torch.zeros((), device=dev)
+    for _ in range(cfg.steps):
+        logits = w[cols].sum(dim=1) + bias
+        ce = torch.mean(torch.logaddexp(zero, logits) - y * logits)
+        loss = ce + cfg.l2 * torch.sum(w * w)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            t += 1
+            c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+            for p, mm, vv, g in zip(params, m, v, grads):
+                mm.mul_(0.9).add_(0.1 * g)
+                vv.mul_(0.999).add_(0.001 * g * g)
+                p.sub_(cfg.lr * (mm / c1) / (torch.sqrt(vv / c2) + 1e-8))
+    return w.detach(), bias.detach()
+
+
+def compare_trainer(report: dict) -> None:
+    """``--compare``: ``fit_logistic`` (the gather form) against
+    ``index_form_fit`` at phase 11's N = 32,768 and K = 512, 300 steps,
+    b in {1, 2, 4, 8}, in turns (index, gather, gather, index); seconds a
+    step on the host clock around a synchronised fit, the peak device
+    memory over the signatures, the largest weight the two forms put
+    apart.  Random codes with a learnable signal, made on the card."""
+    from repro_torch.core.linear_model import (HashedLinearConfig,
+                                               fit_logistic)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    y = torch.randint(0, 2, (LINEAR_TRAIN,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    sigs = torch.randint(0, 1 << 30, (LINEAR_TRAIN, LINEAR_K), generator=gen,
+                         device=dev, dtype=torch.int32)
+    sigs[y == 1, : LINEAR_K // 2] = 7
+    forms = {"index": index_form_fit, "gather": fit_logistic}
+    rows = []
+    for b in (1, 2, 4, 8):
+        cfg = HashedLinearConfig(b=b)
+        for f in forms.values():                  # warm-up
+            f(sigs[:1024], y[:1024], HashedLinearConfig(b=b, steps=5))
+        wb = {}
+        for name in ("index", "gather", "gather", "index"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wb[name] = forms[name](sigs, y, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rows.append({"b": b, "form": name, "ms_per_step":
+                         dt / cfg.steps * 1e3, "peak_bytes":
+                         torch.cuda.max_memory_allocated() - base})
+        apart = float((wb["index"][0] - wb["gather"][0]).abs().max())
+        print(f"[trainer] b = {b}, ms a step, index / gather / gather / "
+              "index: " + " / ".join(f"{r['ms_per_step']:.3f}"
+                                     for r in rows[-4:])
+              + "; peak MiB " + " / ".join(
+                  f"{r['peak_bytes'] / 2**20:.1f}" for r in rows[-4:])
+              + f"; weights apart at most {apart:.2e}")
+        rows[-1]["w_max_apart"] = apart
+    report["trainer_forms"] = rows
+
+
 def pack_codes_dev(codes: torch.Tensor, b: int) -> torch.Tensor:
     """``packfmt.pack_codes`` in row chunks, so its int64 temporaries stay
     small at the index's size."""
@@ -2637,6 +3002,7 @@ def main() -> None:
 
     if args.compare:
         compare(args.baseline, report)
+        compare_trainer(report)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "compare.json"),
                   "w") as f:
@@ -2645,7 +3011,8 @@ def main() -> None:
         return
 
     t0 = time.perf_counter()
-    idx, fresh_idx = corpus(args.docs)
+    docs, labels = documents(args.docs)
+    idx, fresh_idx = corpus(args.docs, docs)
     report["corpus_s"] = time.perf_counter() - t0
     print(f"[data] {len(idx)} docs x {idx.shape[1]} shingles + "
           f"{len(fresh_idx)} fresh in {report['corpus_s']:.1f} s")
@@ -2684,10 +3051,16 @@ def main() -> None:
     del svc, batch
     torch.cuda.empty_cache()
     dense_card_vs_cpu(idx, fresh_idx, report)
+    torch.cuda.empty_cache()
+
+    dedup_path(docs, labels, idx, report)
+    del docs, labels
+    torch.cuda.empty_cache()
+    linear_path(report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
              "tcp_path", "replica_path", "chaos_path", "stream_path",
-             "dense_path", "paper_path")
+             "dense_path", "paper_path", "dedup_path", "linear_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

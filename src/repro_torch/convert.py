@@ -4,7 +4,9 @@
 answer like a reference service takes the reference's two permutations as
 host arrays (``np.asarray(engine.sigma)``, ``np.asarray(engine.pi)``) and
 signs with exactly those; classical MinHash takes the reference's (K, D)
-permutation set the same way.
+permutation set the same way.  A trained hashed-feature model crosses as
+its ``(w, bias)`` host arrays, so both packages predict from one set of
+weights.
 """
 
 from __future__ import annotations
@@ -50,3 +52,17 @@ def k_permutations_from_jax(perms: np.ndarray, device: str | torch.device,
     rows = [_as_permutation(p, f"perms[{i}]") for i, p in enumerate(perms)]
     out = np.stack(rows) if rows else np.zeros(perms.shape, np.int32)
     return torch.tensor(out, device=resolve_device(device))
+
+
+def logistic_from_jax(wb, device: str | torch.device,
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference trained ``(w, bias)`` (``repro.core.linear_model.
+    fit_logistic``'s, as host arrays) -> the port's float32 ``(w, bias)``
+    on ``device``, for ``core.linear_model.predict_logistic``."""
+    w, bias = (np.asarray(a) for a in wb)
+    if w.ndim != 1 or bias.ndim != 0:
+        raise ValueError(f"wb must be ((F,), ()) (got shapes {w.shape}, "
+                         f"{bias.shape})")
+    dev = resolve_device(device)
+    return (torch.tensor(w, dtype=torch.float32, device=dev),
+            torch.tensor(bias, dtype=torch.float32, device=dev))

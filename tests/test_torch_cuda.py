@@ -842,6 +842,62 @@ def test_service_answers_the_same_on_card_and_cpu(cuda):
     assert np.array_equal(answers[0][1], answers[1][1])
 
 
+@pytest.mark.parametrize("kw", [
+    dict(),                                    # DedupConfig's defaults
+    dict(d=1 << 12, k=100, n_bands=25, rows_per_band=4, threshold=0.7)])
+def test_dedup_on_the_card_equals_the_cpu(cuda, kw):
+    """dedup_corpus on the card (one sparse-signing launch, the pair
+    verification's gather and count there) against the CPU run, every
+    field, with the same permutations."""
+    import dataclasses
+
+    from repro_torch.data.dedup import DedupConfig, dedup_corpus
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    from repro_torch.kernels import all_kernels
+    docs, _ = corpus_with_duplicates(3000, vocab=30_000, doc_len=128,
+                                     dup_fraction=0.4, seed=2)
+    cfg = DedupConfig(**kw)
+    gen = torch.Generator().manual_seed(7)
+    params = (torch.randperm(cfg.d, generator=gen),
+              torch.randperm(cfg.d, generator=gen))
+    sparse = all_kernels()["cminhash_sparse"]
+    before = sparse.launches
+    card = dedup_corpus(docs, cfg, device="cuda", params=params)
+    assert sparse.launches == before + 1
+    cpu = dedup_corpus(docs, cfg, device="cpu", params=params)
+    assert card.n_verified > 0
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        assert type(a) is type(b)
+        assert np.array_equal(a, b), f.name
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_fit_logistic_on_the_card_against_the_cpu(cuda, b):
+    """The trainer on the card against the CPU within the CPU tests'
+    tolerances (tests/test_torch_linear.py): 300 steps, w within 1e-3,
+    probabilities within 1e-3, equal accuracy."""
+    from repro_torch.core.linear_model import (HashedLinearConfig, accuracy,
+                                               fit_logistic,
+                                               predict_logistic)
+    rng = np.random.default_rng(b)
+    sigs = torch.from_numpy(rng.integers(0, 1 << 20, (1024, 512))
+                            .astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, 2, 1024).astype(np.int32))
+    sigs[y == 1, :256] = 7                     # a learnable signal
+    cfg = HashedLinearConfig(b=b)
+    wc, bc = fit_logistic(sigs.to(cuda), y.to(cuda), cfg)
+    assert wc.is_cuda and bc.is_cuda
+    w, bias = fit_logistic(sigs, y, cfg)
+    assert (wc.cpu() - w).abs().max() <= 1e-3
+    assert abs(float(bc) - float(bias)) <= 1e-3
+    pc = predict_logistic((wc, bc), sigs.to(cuda), b).cpu()
+    p = predict_logistic((w, bias), sigs, b)
+    assert (pc - p).abs().max() <= 1e-3
+    assert accuracy((wc, bc), sigs.to(cuda), y.to(cuda), b) == \
+        accuracy((w, bias), sigs, y, b)
+
+
 def _raw_corpus(n=600, k=64, seed=3):
     rng = np.random.default_rng(seed)
     sigs = rng.integers(0, 1 << 16, (n, k), dtype=np.int32)
