@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
-path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup
-and the hashed-feature trainer on one NVIDIA card, with its hand-written
-kernels (six CUDA sources).
+path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup,
+the hashed-feature trainer and the LM serving path on one NVIDIA card, with
+its hand-written kernels (six CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
@@ -231,11 +231,42 @@ printed then:
     CPU's (w and probabilities within 1e-3, equal accuracy); the
     bit-packed kernel against its plain version at one batch.  Prints
     seconds per step and the peak memory.
+12. The LM serving path (``lm_path``, ``[lm]`` lines), its counts set to 0
+    just before and read just after: it reaches no kernel of the port (the
+    JAX package computes these models in plain ``jnp``), so every count
+    must stay 0.  (a) ``llama3_2_1b`` at its full published config (16
+    layers, d_model 2048, 32 heads / 8 KV heads, d_ff 8192, vocab 128,256,
+    tied embeddings, bf16 compute, float32 parameters), weights drawn on
+    the card from ``--seed``: 8 requests of 32-token prompts from
+    ``data.synthetic.token_batches``, 32 greedy tokens each through
+    ``serve.decode.generate``, twice (equal tokens, each in [0, vocab));
+    then the same loop with a CUDA event after the prefill and after each
+    decode step.  Prints the prefill ms, the median decode ms a token,
+    tokens/s, the parameter bytes, the peak ``max_memory_allocated`` and
+    the step's bound (every float32 parameter read and its bf16 copy
+    written, at 3.35 TB/s); then the card's busy time in an 8-token
+    ``generate`` under ``torch.profiler`` (as in phase 4; the timeline to
+    ``chiprun_out/lm_trace.json``) against the same call's untraced wall.  Then the same weights in float32 with TF32
+    off: teacher-forced ``decode_step`` over the generated tokens within
+    1e-3 of ``forward``'s logits, and the card's prefill logits for 2
+    requests within 1e-3 of the port's CPU path on the same weights.  (b)
+    falcon_mamba_7b, hymba_1_5b, qwen3_moe_30b_a3b, pixtral_12b and
+    seamless_m4t_medium at full width, depth cut to 2 layers (encdec: 2 +
+    2): float32 prefill + 8 teacher-forced decode steps within 1e-3 of
+    ``forward`` (MoE at capacity_factor 64, so neither drops a token), then
+    a bf16 prefill (finite logits) and ``generate`` (tokens in range).
 
-``launches`` in the kernels line is the sum over the twelve counted paths
+``launches`` in the kernels line is the sum over the thirteen counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
 phase 5c's tcp path, coordinator and workers, phase 5d's two planes,
-coordinator and lanes, phase 5e's two streams, phases 6, 7, 10 and 11).
+coordinator and lanes, phase 5e's two streams, phases 6, 7, 10, 11 and
+12).
+
+The script makes itself the subreaper of what it starts
+(``PR_SET_CHILD_SUBREAPER``).  Before its result it stops and reaps every
+process still running that it started, workers, multiprocessing's
+resource tracker and any descendant whose parent died first, and names
+them in an ``[exit]`` line; it does the same when a phase fails.
 
 The second-to-last line is nvidia-smi's name and power limit of the card;
 the last is ``{"ok": true, "device": {...}}``.  Details, nvcc's full
@@ -276,6 +307,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -299,6 +331,81 @@ N_DENSE = 65_536              # documents ingested as dense rows
 PAPER_D = 2048
 PAPER_DOCS = 4096
 PAPER_KS = (64, 256, 512)
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_descendants() -> None:
+    """Make this process the subreaper of everything it starts, so that a
+    process whose parent dies first (a killed worker's child, a helper
+    that detaches) is reparented here, not to init, and ``stop_children``
+    finds it."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def child_processes() -> dict[int, tuple[str, str]]:
+    """This process's children, ``{pid: (state, command line)}``, from
+    /proc (state ``Z``: exited, not yet reaped)."""
+    me, out = os.getpid(), {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # the command name may hold spaces and ')': fields follow the last
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == me:
+            out[int(entry)] = (state, cmd.strip() or stat.split(" ", 2)[1])
+    return out
+
+
+def stop_children() -> list[str]:
+    """Stop and reap every process this script started that still runs:
+    multiprocessing's children (terminated, then killed after 10 s),
+    multiprocessing's resource tracker, then any other child or adopted
+    descendant (SIGTERM, then SIGKILL after 10 s).  Returns a line for each
+    process that was still running; an exited one is only reaped."""
+    import multiprocessing
+    from multiprocessing import resource_tracker
+    stopped = []
+    procs = multiprocessing.active_children()
+    for p in procs:
+        stopped.append(f"{p.pid} multiprocessing {p.name}")
+        p.terminate()
+    for p in procs:
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    tracker = resource_tracker._resource_tracker
+    if tracker._pid is not None:
+        stopped.append(f"{tracker._pid} multiprocessing resource tracker")
+    tracker._stop()
+    left = child_processes()
+    for pid, (state, cmd) in left.items():
+        if state != "Z":
+            stopped.append(f"{pid} {cmd[:160]}")
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 10
+    for pid in left:
+        try:
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+        except ChildProcessError:
+            pass                    # reaped by its own Popen meanwhile
+    return stopped
 
 
 def require(cond: bool, what: str) -> None:
@@ -816,23 +923,20 @@ def kernel_entry(name, source, replaces, got, want, ms, plain_ms, nbytes,
     return row
 
 
-def trace_query(svc, qdata, report: dict, layout: str = "sparse",
-                tag: str = "") -> None:
-    """Phase 4 (and the raw and dense paths' traces): one query batch under
-    torch.profiler.  Device busy time is the union of the trace's kernel,
-    memcpy and memset intervals, so no operator is counted twice with the
-    kernels it launched."""
+def profile_busy(fn, name: str) -> dict:
+    """``fn`` once under torch.profiler, the timeline to
+    ``chiprun_out/<name>.json``: its wall time and the device's busy time,
+    the union of the trace's kernel, memcpy and memset intervals, so no
+    operator is counted twice with the kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
-    query = svc.query_sparse if layout == "sparse" else svc.query_dense
-    tag = tag or ("" if layout == "sparse" else f"_{layout}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        query(qdata, top_k=TOP_K)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    path = os.path.join(ROOT, "chiprun_out", f"query_trace{tag}.json")
+    path = os.path.join(ROOT, "chiprun_out", f"{name}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -840,22 +944,34 @@ def trace_query(svc, qdata, report: dict, layout: str = "sparse",
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
-    for start, stop, name in device:
+    for start, stop, kname in device:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + stop - start
+        by_name[kname] = by_name.get(kname, 0.0) + stop - start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    report[f"query_trace{tag}"] = {
-        "wall_us": wall_us, "device_busy_us": busy_us,
-        "device_busy_share": busy_us / wall_us,
-        "device_events": len(device),
-        "top_device_time_us": [{"name": n, "us": t} for n, t in top]}
     require(busy_us > 0, "the profiler recorded device activity")
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "device_busy_share": busy_us / wall_us,
+            "device_events": len(device),
+            "top_device_time_us": [{"name": n, "us": t} for n, t in top]}
+
+
+def trace_query(svc, qdata, report: dict, layout: str = "sparse",
+                tag: str = "") -> None:
+    """Phase 4 (and the raw and dense paths' traces): one query batch under
+    torch.profiler."""
+    query = svc.query_sparse if layout == "sparse" else svc.query_dense
+    tag = tag or ("" if layout == "sparse" else f"_{layout}")
+    rec = profile_busy(lambda: query(qdata, top_k=TOP_K),
+                       f"query_trace{tag}")
+    report[f"query_trace{tag}"] = rec
+    wall_us, busy_us = rec["wall_us"], rec["device_busy_us"]
+    top = [(r["name"], r["us"]) for r in rec["top_device_time_us"]]
     print(f"[trace] {tag.lstrip('_') or layout} query batch: wall "
           f"{wall_us / 1e3:.3f} ms, "
           f"device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us * 100:.1f}%) over "
-          f"{len(device)} device events; top: "
+          f"{rec['device_events']} device events; top: "
           + ", ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top[:4]))
 
 
@@ -2459,6 +2575,250 @@ def linear_path(report: dict) -> None:
         "launches": launches, "kernels": [row]}
 
 
+LM_ARCH = "llama3_2_1b"
+LM_BATCH = 8                  # requests
+LM_PROMPT = 32                # tokens a prompt
+LM_NEW = 32                   # greedy tokens a request
+LM_CPU_ROWS = 2               # requests whose prefill the CPU repeats
+LM_FAMILIES = ("falcon_mamba_7b", "hymba_1_5b", "qwen3_moe_30b_a3b",
+               "pixtral_12b", "seamless_m4t_medium")
+LM_CUT_LAYERS = 2             # the families' depth (encdec: each side)
+LM_FAMILY_STEPS = 8           # teacher-forced decode steps a family
+LM_TRACE_NEW = 8              # greedy tokens of the traced generate
+LM_TOL = 1e-3                 # float32 decode against forward, and card
+                              # against CPU: sums in other orders (observed
+                              # <= 2e-5 on an H100)
+
+
+def lm_batch(cfg, tokens: np.ndarray, seed: int) -> dict:
+    """A prompt batch of ``cfg``'s family: the tokens, and the stub
+    frontend's embeddings (patches: one per 8 prompt tokens; frames: one a
+    prompt token) drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(size=(b, s // 8, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+def timed_generate(bundle, params, batch: dict, n_new: int):
+    """``serve.decode.generate``'s greedy loop with a CUDA event after the
+    prefill's token and after each decode step's: (tokens (B, n_new),
+    prefill ms, [ms of each decode step]).  The host enqueues ahead of the
+    card, so an event pair spans what the card waited for the host too."""
+    from repro_torch.serve.decode import sample_token
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 1)]
+    with torch.no_grad():
+        events[0].record()
+        logits, cache = bundle.prefill(params, batch, max_len=batch[
+            "tokens"].shape[1] + n_new)
+        toks = [sample_token(logits, None, 0.0)]
+        events[1].record()
+        for i in range(n_new - 1):
+            logits, cache = bundle.decode_step(params, cache, toks[-1])
+            toks.append(sample_token(logits, None, 0.0))
+            events[i + 2].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return torch.stack(toks, 1).cpu().numpy(), ms[0], ms[1:]
+
+
+def teacher_forced(bundle, params, batch: dict, prompt_len: int,
+                   seq: np.ndarray) -> tuple[float, torch.Tensor]:
+    """The prefill of ``seq``'s first ``prompt_len`` tokens, then one
+    decode step a later token of ``seq``, against ``forward`` over all of
+    ``seq``: (the largest |logit difference|, the prefill's logits)."""
+    full = bundle.forward(params, dict(batch, tokens=seq))
+    first, cache = bundle.prefill(
+        params, dict(batch, tokens=seq[:, :prompt_len]),
+        max_len=seq.shape[1])
+    err = max_abs_err(first, full[:, prompt_len - 1])
+    for t in range(prompt_len, seq.shape[1]):
+        logits, cache = bundle.decode_step(params, cache, seq[:, t])
+        err = max(err, max_abs_err(logits, full[:, t]))
+    del full, cache
+    return err, first
+
+
+def lm_path(seed: int, report: dict) -> None:
+    """Phase 12: the LM serving path.  (a) ``llama3_2_1b`` at its full
+    published config through ``models.build`` and ``serve.decode.generate``;
+    (b) one config of each other family at full width, cut to
+    ``LM_CUT_LAYERS`` layers.  Counted: the path reaches no kernel."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import build
+    from repro_torch.serve.decode import generate
+    # float32 products in full float32, not TF32, in every comparison here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ks_all = kernels()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts(ks_all)
+    # --- the LM path ---------------------------------------------------------
+    cfg = get_config(LM_ARCH)
+    bundle = build(cfg, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    require(n_params == cfg.param_count(),
+            f"{LM_ARCH}: {n_params} parameters, config {cfg.param_count()}")
+    batch = next(token_batches(cfg.vocab_size_real, LM_BATCH, LM_PROMPT,
+                               seed))
+    walls, runs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(generate(bundle, params, batch, max_new_tokens=LM_NEW))
+        walls.append(time.perf_counter() - t0)
+    toks = runs[0]
+    require(toks.shape == (LM_BATCH, LM_NEW) and toks.dtype == np.int32,
+            f"generate's tokens: {toks.shape} {toks.dtype}")
+    require(0 <= toks.min() and toks.max() < cfg.vocab_size,
+            "every token in [0, vocab_size)")
+    require(np.array_equal(runs[0], runs[1]),
+            "a second generate gives the first's tokens")
+    timed, prefill_ms, step_ms = timed_generate(bundle, params, batch, LM_NEW)
+    require(np.array_equal(timed, toks),
+            "the timed loop gives generate's tokens")
+    peak = torch.cuda.max_memory_allocated()
+    # the card's busy share: a shorter generate, untraced then traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(bundle, params, batch, max_new_tokens=LM_TRACE_NEW)
+    trace_wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = profile_busy(lambda: generate(
+        bundle, params, batch, max_new_tokens=LM_TRACE_NEW), "lm_trace")
+    busy_ms = trace["device_busy_us"] / 1e3
+    decode_ms = statistics.median(step_ms)
+    n_tok = LM_BATCH * LM_NEW
+    # a decode step reads every float32 parameter and writes its bf16 copy
+    bound = n_params * (4 + 2) / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] {LM_ARCH} (full config: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} compute, "
+          f"{cfg.param_dtype} parameters): {n_params} parameters, "
+          f"{param_bytes} B, drawn in {init_s:.2f} s")
+    print(f"[lm] {LM_BATCH} requests x {LM_PROMPT}-token prompts, {LM_NEW} "
+          f"greedy tokens each: generate {walls[0]:.3f} s, {walls[1]:.3f} s "
+          f"({n_tok / walls[1]:.1f} tokens/s); prefill {prefill_ms:.3f} ms, "
+          f"decode {decode_ms:.3f} ms a token (median of {len(step_ms)} "
+          f"steps; min {min(step_ms):.3f}, max {max(step_ms):.3f}); the "
+          f"step's bound {bound:.3f} ms (read {n_params} float32 "
+          f"parameters, write their bf16 copies, at 3.35 TB/s); peak "
+          f"memory {peak} B; sample {toks[0][:8].tolist()}; {card_line()}")
+    print(f"[lm] generate of {LM_TRACE_NEW} tokens: {trace_wall_ms:.3f} ms, "
+          f"the card busy {busy_ms:.3f} ms of it "
+          f"({busy_ms / trace_wall_ms * 100:.1f}%; traced wall "
+          f"{trace['wall_us'] / 1e3:.3f} ms, {trace['device_events']} "
+          f"device events); top: " + ", ".join(
+              f"{r['name'][:40]} {r['us'] / 1e3:.3f} ms"
+              for r in trace["top_device_time_us"][:4]))
+
+    # float32 on the same weights, TF32 off: decode against forward, and the
+    # card's prefill against the CPU's
+    t0 = time.perf_counter()
+    b32 = build(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    seq = np.concatenate([batch["tokens"], toks[:, :-1]], axis=1)
+    tf_err, logits32 = teacher_forced(b32, params, batch, LM_PROMPT, seq)
+    require(tf_err < LM_TOL, f"{LM_ARCH} float32: teacher-forced decode "
+            f"within {LM_TOL} of forward ({tf_err})")
+    cpu_params = copy.deepcopy(params).cpu()
+    del params
+    torch.cuda.empty_cache()
+    rows = {"tokens": batch["tokens"][:LM_CPU_ROWS]}
+    cpu_logits, _ = build(b32.cfg, device="cpu").prefill(cpu_params, rows)
+    cpu_err = max_abs_err(logits32[:LM_CPU_ROWS].cpu(), cpu_logits)
+    require(cpu_err < LM_TOL, f"{LM_ARCH} float32: the card's prefill "
+            f"logits within {LM_TOL} of the CPU's ({cpu_err})")
+    del cpu_params, logits32
+    check_s = time.perf_counter() - t0
+    print(f"[lm] {LM_ARCH} float32 (TF32 off): teacher-forced decode of "
+          f"{LM_NEW - 1} tokens vs forward {tf_err:.3e}; card vs CPU prefill "
+          f"logits ({LM_CPU_ROWS} requests) {cpu_err:.3e}; tolerance "
+          f"{LM_TOL} ({check_s:.1f} s)")
+    out = {"arch": LM_ARCH, "params": n_params, "param_bytes": param_bytes,
+           "init_s": init_s, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_NEW, "generate_s": walls,
+           "tokens_per_s": n_tok / walls[1], "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "step_ms": step_ms,
+           "decode_bound_ms": bound, "peak_bytes": peak,
+           "trace": dict(trace, new_tokens=LM_TRACE_NEW,
+                         untraced_wall_ms=trace_wall_ms),
+           "fp32_teacher_forced_err": tf_err, "card_vs_cpu_err": cpu_err,
+           "tf32": False, "tolerance": LM_TOL, "check_s": check_s}
+
+    # (b) each other family at full width, LM_CUT_LAYERS layers
+    families = {}
+    for arch in LM_FAMILIES:
+        t0 = time.perf_counter()
+        full_cfg = get_config(arch)
+        cut = {"n_layers": LM_CUT_LAYERS}
+        if full_cfg.is_encdec:
+            cut["n_enc_layers"] = LM_CUT_LAYERS
+        fcfg = dataclasses.replace(full_cfg, **cut)
+        # float32; MoE with room for every assignment, so forward over
+        # B * S tokens and decode over B drop none (the reference's test)
+        room = {"capacity_factor": 64.0} if fcfg.n_experts else {}
+        b32 = build(dataclasses.replace(fcfg, dtype="float32", **room),
+                    device="cuda")
+        params = b32.init(seed)
+        n = sum(p.numel() for p in params.parameters())
+        require(n == fcfg.param_count(),
+                f"{arch}: {n} parameters, config {fcfg.param_count()}")
+        seq = next(token_batches(fcfg.vocab_size_real, LM_BATCH,
+                                 LM_PROMPT + LM_FAMILY_STEPS, seed))["tokens"]
+        batch = lm_batch(fcfg, seq[:, :LM_PROMPT], seed)
+        tf_err, _ = teacher_forced(b32, params, batch, LM_PROMPT, seq)
+        require(tf_err < LM_TOL, f"{arch} float32: teacher-forced decode "
+                f"within {LM_TOL} of forward ({tf_err})")
+        b16 = build(fcfg, device="cuda")
+        logits, _ = b16.prefill(params, batch)
+        require(bool(torch.isfinite(logits).all()),
+                f"{arch} bf16: finite prefill logits")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = generate(b16, params, batch, max_new_tokens=LM_FAMILY_STEPS)
+        gen_s = time.perf_counter() - t1
+        require(toks.shape == (LM_BATCH, LM_FAMILY_STEPS)
+                and 0 <= toks.min() and toks.max() < fcfg.vocab_size,
+                f"{arch} bf16: tokens in [0, vocab_size)")
+        families[arch] = {
+            "family": fcfg.family, "params": n, "param_bytes": 4 * n,
+            "reduced": {**cut, **{f"fp32_{k}": v for k, v in room.items()}},
+            "fp32_teacher_forced_err": tf_err, "generate_s": gen_s,
+            "seconds": time.perf_counter() - t0}
+        print(f"[lm] {arch} ({fcfg.family}, full width, depth cut to "
+              f"{LM_CUT_LAYERS}{' + ' + str(LM_CUT_LAYERS) + ' encoder' if fcfg.is_encdec else ''}"
+              f" layers{', float32 capacity_factor 64' if room else ''}): "
+              f"{n} parameters; float32 prefill + {LM_FAMILY_STEPS} "
+              f"teacher-forced steps vs forward {tf_err:.3e}; bf16 generate "
+              f"of {LM_FAMILY_STEPS} tokens {gen_s:.3f} s, tokens in range "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del params, b32, b16, logits
+        torch.cuda.empty_cache()
+    launches_all = read_counts(ks_all)
+    require(sum(launches_all.values()) == 0,
+            f"the LM path reaches no kernel of the port ({launches_all})")
+    out.update(families=families, launches=launches_all,
+               wall_s=time.perf_counter() - t_phase)
+    report["lm_path"] = out
+    print(f"[lm] phase {out['wall_s']:.1f} s; kernel launches "
+          f"{launches_all}")
+
+
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
@@ -2969,7 +3329,8 @@ def main() -> None:
     ap.add_argument("--docs", type=int, default=262_144,
                     help="documents to ingest on the main path")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 5e's Poisson arrival gaps")
+                    help="seed of phase 5e's Poisson arrival gaps and of "
+                         "phase 12's weights and prompts")
     ap.add_argument("--compare", action="store_true",
                     help="only compare the signing kernels' table "
                          "placements, the collision kernel, the fold, the "
@@ -2982,6 +3343,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA card")
+    adopt_descendants()
     from repro_torch.kernels import _build
     t_all = time.perf_counter()
     card = card_line()
@@ -3057,10 +3419,13 @@ def main() -> None:
     del docs, labels
     torch.cuda.empty_cache()
     linear_path(report)
+    torch.cuda.empty_cache()
+    lm_path(args.seed, report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
              "tcp_path", "replica_path", "chaos_path", "stream_path",
-             "dense_path", "paper_path", "dedup_path", "linear_path")
+             "dense_path", "paper_path", "dedup_path", "linear_path",
+             "lm_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)
@@ -3069,6 +3434,9 @@ def main() -> None:
     for row in report["kernels"]:
         require(row["launches"] > 0,
                 f"kernel {row['name']} launched on a counted path")
+    report["stopped_at_exit"] = stopped = stop_children()
+    print(f"[exit] {len(stopped)} processes still running were stopped"
+          + "".join(f"; {line}" for line in stopped))
     report["wall_s"] = time.perf_counter() - t_all
     print(f"[done] {report['wall_s']:.1f} s in all")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3085,4 +3453,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

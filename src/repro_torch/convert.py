@@ -6,7 +6,7 @@ host arrays (``np.asarray(engine.sigma)``, ``np.asarray(engine.pi)``) and
 signs with exactly those; classical MinHash takes the reference's (K, D)
 permutation set the same way.  A trained hashed-feature model crosses as
 its ``(w, bias)`` host arrays, so both packages predict from one set of
-weights.
+weights; an LM crosses as its parameter pytree of host arrays.
 """
 
 from __future__ import annotations
@@ -66,3 +66,43 @@ def logistic_from_jax(wb, device: str | torch.device,
     dev = resolve_device(device)
     return (torch.tensor(w, dtype=torch.float32, device=dev),
             torch.tensor(bias, dtype=torch.float32, device=dev))
+
+
+def lm_params_from_jax(params: dict, cfg, device: str | torch.device):
+    """Reference LM parameters (``repro.models.build(cfg).init(key)``'s
+    pytree as host arrays, ``jax.tree.map(np.asarray, params)``, layers
+    stacked on a leading L axis) -> the port's ``ParamTree`` on ``device``,
+    one module a layer, for ``repro_torch.models.build(cfg)``'s functions.
+    Decoder families and encdec alike."""
+    from .models import encdec, transformer
+    dev = resolve_device(device)
+
+    def tree(x, i=None):
+        if isinstance(x, dict):
+            return {k: tree(v, i) for k, v in x.items()}
+        a = np.asarray(x)
+        return torch.tensor(a if i is None else a[i], device=dev)
+
+    depth = ({"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+             if cfg.is_encdec else {"layers": cfg.n_layers})
+    out = {}
+    for name, x in params.items():
+        if name not in depth:
+            out[name] = tree(x)
+            continue
+        for leaf in _leaves(x):
+            if np.shape(leaf)[0] != depth[name]:
+                raise ValueError(f"{name}: {np.shape(leaf)[0]} layers "
+                                 f"stacked, cfg has {depth[name]}")
+        out[name] = [tree(x, i) for i in range(depth[name])]
+    model = (encdec if cfg.is_encdec else transformer).params_from_tree(out)
+    n = sum(p.numel() for p in model.parameters())
+    if n != cfg.param_count():
+        raise ValueError(f"{n} parameters, {cfg.name} has {cfg.param_count()}")
+    return model
+
+
+def _leaves(x) -> list:
+    if isinstance(x, dict):
+        return [leaf for v in x.values() for leaf in _leaves(v)]
+    return [x]

@@ -16,6 +16,14 @@ def zipf_tokens(rng: np.random.Generator, n: int, vocab: int,
     return (2 + (ranks - 1) % (vocab - 2)).astype(np.int32)
 
 
+def token_batches(vocab: int, batch: int, seq: int, seed: int = 0):
+    """Infinite iterator of {'tokens': (B, S) int32} batches of Zipf
+    tokens (the LM serving path's prompts)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {"tokens": zipf_tokens(rng, batch * seq, vocab).reshape(batch, seq)}
+
+
 def corpus_with_duplicates(n_docs: int, *, vocab: int = 50_000,
                            doc_len: int = 256, dup_fraction: float = 0.3,
                            cluster_size: int = 3, edit_fraction: float = 0.05,

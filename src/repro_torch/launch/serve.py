@@ -1,13 +1,21 @@
-"""Similarity-search serving launcher for the card.
+"""Serving launcher for the card: LM generation and similarity search.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3_2_1b
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --docs 400
 
-Builds a synthetic corpus with planted near-duplicates, ingests it through
-the pipelined fused sign -> pack path and answers one query batch of
-indexed documents, printing the same ``[serve] ingest ...`` and
-``[serve] search ...`` lines as ``python -m repro.launch.serve --mode
-search``.  ``--device cuda`` (the default) needs a card and raises without
-one; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--mode lm`` (the default) builds the reduced config of ``--arch``
+(``configs.reduced``) with weights from seed 0, generates
+``--new-tokens`` tokens for ``--batch`` random prompts of
+``--prompt-len`` tokens and prints the same ``[serve] ...`` lines as
+``python -m repro.launch.serve --mode lm``.
+
+``--mode search`` builds a synthetic corpus with planted near-duplicates,
+ingests it through the pipelined fused sign -> pack path and answers one
+query batch of indexed documents, printing the same ``[serve] ingest
+...`` and ``[serve] search ...`` lines as ``python -m repro.launch.serve
+--mode search``.  ``--device cuda`` (the default) needs a card and raises
+without one; ``--device cpu`` runs the plain PyTorch versions of the
+kernels.
 
 ``--transport tcp`` spawns one shard worker process per shard, each with
 its store on ``--device``:
@@ -44,11 +52,14 @@ import time
 
 import numpy as np
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.data.shingle import batch_shingles
 from repro_torch.data.synthetic import corpus_with_duplicates
+from repro_torch.models import build
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.dump import MetricsDumper
+from repro_torch.serve.decode import generate
 from repro_torch.serve.search import SearchConfig, SimilaritySearchService
 
 
@@ -89,6 +100,31 @@ class _WorkerSnapshots:
     def close(self) -> None:
         for conn in self._conns or []:
             conn.close()
+
+
+def serve_lm(args) -> None:
+    cfg = reduced(get_config(args.arch))
+    bundle = build(cfg, device=args.device)
+    params = bundle.init(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": np.asarray(
+        rng.integers(0, cfg.vocab_size_real, (args.batch, args.prompt_len)),
+        np.int32)}
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.normal(
+            size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(
+            size=(args.batch, args.prompt_len // 8, cfg.d_model)
+        ).astype(np.float32)
+    t0 = time.perf_counter()
+    toks = generate(bundle, params, batch, max_new_tokens=args.new_tokens,
+                    temperature=args.temperature)
+    dt = time.perf_counter() - t0
+    n = args.batch * args.new_tokens
+    print(f"[serve] {cfg.name}: generated {n} tokens in {dt:.2f}s "
+          f"({n / dt:.0f} tok/s, batch={args.batch})")
+    print(f"[serve] sample: {toks[0][:16].tolist()}")
 
 
 def serve_search(args) -> None:
@@ -194,11 +230,14 @@ def stream_demo(svc, idx, args) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["search"], default="search",
-                    help="search serving (LM serving is not ported yet)")
+    ap.add_argument("--mode", choices=["lm", "search"], default="lm")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--arch", default="llama3_2_1b")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--docs", type=int, default=400)
     ap.add_argument("--shards", type=int, default=1,
                     help="index partitions")
@@ -264,7 +303,10 @@ def main() -> None:
     ap.add_argument("--ingest-batch", type=int, default=128,
                     help="documents per ingest pipeline batch")
     args = ap.parse_args()
-    serve_search(args)
+    if args.mode == "lm":
+        serve_lm(args)
+    else:
+        serve_search(args)
 
 
 if __name__ == "__main__":

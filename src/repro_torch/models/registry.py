@@ -1,0 +1,140 @@
+"""Model registry: ModelConfig -> a uniform bundle of functions on one
+device.
+
+A PyTorch copy of ``repro.models.registry``.  ``build(cfg, device=...)``
+resolves the device once (``"cuda"`` by default, raising without a card);
+every function of the bundle moves its batch there and runs under
+``torch.no_grad()``.  ``params`` is the ``ParamTree`` that ``init`` returns
+(or ``convert.lm_params_from_jax``).  The functions take no ``mesh``:
+sharded models come with the LM training slice.
+
+Batch conventions (numpy arrays or tensors):
+  decoder families : {"tokens": (B, S) int [, "patches": (B, P, D) (vlm)]}
+  encdec           : {"frames": (B, S_enc, D), "tokens": (B, S) int}
+  decode step      : token (B,) int + the cache dict
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from . import encdec, transformer
+
+AUX_WEIGHT = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: Any
+    device: torch.device
+    init: Callable[[int], Any]            # seed -> params
+    loss_fn: Callable[..., tuple]         # (params, batch) -> loss, metrics
+    forward: Callable[..., torch.Tensor]  # (params, batch) -> logits
+    prefill: Callable[..., tuple]         # (params, batch, max_len)
+    decode_step: Callable[..., tuple]     # (params, cache, token)
+    init_cache: Callable[..., dict]       # (batch, max_len)
+
+
+def _on(dev: torch.device, batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _decoder_bundle(cfg, dev: torch.device) -> ModelBundle:
+    def init(seed):
+        return transformer.init_params(seed, cfg, dev)
+
+    def _prefix(batch):
+        return batch.get("patches") if cfg.frontend == "patches" else None
+
+    @torch.no_grad()
+    def loss_fn(params, batch):
+        batch = _on(dev, batch)
+        tokens = batch["tokens"]
+        logits, aux = transformer.forward(params, tokens, cfg,
+                                          prefix_embeddings=_prefix(batch))
+        mask = batch.get("mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+                if mask is None else mask.float().clone())
+        if cfg.frontend == "patches":  # no LM loss on the image prefix
+            mask[:, :batch["patches"].shape[1]] = 0.0
+        ce = transformer.lm_loss(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+        return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
+
+    @torch.no_grad()
+    def forward(params, batch):
+        batch = _on(dev, batch)
+        logits, _ = transformer.forward(params, batch["tokens"], cfg,
+                                        prefix_embeddings=_prefix(batch))
+        return logits
+
+    @torch.no_grad()
+    def prefill(params, batch, max_len=None):
+        batch = _on(dev, batch)
+        return transformer.prefill(params, batch["tokens"], cfg,
+                                   max_len=max_len,
+                                   prefix_embeddings=_prefix(batch))
+
+    @torch.no_grad()
+    def decode_step(params, cache, token):
+        return transformer.decode_step(params, cache,
+                                       torch.as_tensor(token, device=dev), cfg)
+
+    def init_cache(batch, max_len):
+        return transformer.init_cache(cfg, batch, max_len, dev)
+
+    return ModelBundle(cfg, dev, init, loss_fn, forward, prefill, decode_step,
+                       init_cache)
+
+
+def _encdec_bundle(cfg, dev: torch.device) -> ModelBundle:
+    def init(seed):
+        return encdec.init_params(seed, cfg, dev)
+
+    @torch.no_grad()
+    def loss_fn(params, batch):
+        batch = _on(dev, batch)
+        tokens = batch["tokens"]
+        logits, aux = encdec.forward(params, batch["frames"], tokens, cfg)
+        mask = batch.get("mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+                if mask is None else mask.float())
+        ce = transformer.lm_loss(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+        return ce, {"ce": ce, "aux": aux}
+
+    @torch.no_grad()
+    def forward(params, batch):
+        batch = _on(dev, batch)
+        logits, _ = encdec.forward(params, batch["frames"], batch["tokens"],
+                                   cfg)
+        return logits
+
+    @torch.no_grad()
+    def prefill(params, batch, max_len=None):
+        batch = _on(dev, batch)
+        return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
+                              max_len=max_len)
+
+    @torch.no_grad()
+    def decode_step(params, cache, token):
+        return encdec.decode_step(params, cache,
+                                  torch.as_tensor(token, device=dev), cfg)
+
+    def init_cache(batch, max_len):
+        raise NotImplementedError(
+            "encdec caches come from prefill (cross-K/V need encoder states)")
+
+    return ModelBundle(cfg, dev, init, loss_fn, forward, prefill, decode_step,
+                       init_cache)
+
+
+def build(cfg, device: str | torch.device = DEFAULT_DEVICE) -> ModelBundle:
+    """The bundle of ``cfg``'s family on ``device`` (raises for the card
+    without one)."""
+    dev = resolve_device(device)
+    if cfg.is_encdec:
+        return _encdec_bundle(cfg, dev)
+    return _decoder_bundle(cfg, dev)

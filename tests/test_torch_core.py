@@ -7,6 +7,7 @@ caller asks for the CPU).
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -208,6 +209,9 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch.serve.search import SearchConfig, SimilaritySearchService
     from repro_torch.store import (BandedLSHTable, ShardedSketchStore,
                                    SketchStore, StoreConfig)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build, encdec, transformer
+    from repro_torch.serve.decode import generate
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scfg = StoreConfig(k=64, n_bands=16, rows_per_band=4)
     gen = torch.Generator().manual_seed(0)
@@ -230,6 +234,26 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     assert t_perm.make_two_permutations(gen, 64, device="cpu")[0].device \
         == CPU
     assert make_k_permutations(gen, 64, 8, device="cpu").device == CPU
+
+    # the LM stack: build, init and generate
+    cfg = reduced(get_config("llama3_2_1b"), d_model=64)
+    ecfg = reduced(get_config("seamless_m4t_medium"), d_model=64)
+    cpu = build(cfg, device="cpu")
+    params = cpu.init(0)
+    batch = {"tokens": np.ones((1, 4), np.int32)}
+    for make in (lambda: build(cfg), lambda: build(ecfg),
+                 lambda: transformer.init_params(0, cfg),
+                 lambda: encdec.init_params(0, ecfg),
+                 lambda: transformer.init_cache(cfg, 1, 8),
+                 lambda: convert.lm_params_from_jax({}, cfg, "cuda"),
+                 lambda: generate(dataclasses.replace(cpu, device="cuda"),
+                                  params, batch, max_new_tokens=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    # the CPU runs only when asked for
+    assert next(params.parameters()).device == CPU
+    assert generate(cpu, params, batch, max_new_tokens=2).shape == (1, 2)
+    assert encdec.init_params(0, ecfg, "cpu")["embed"].device == CPU
 
 
 def test_unported_options_raise_and_name_the_roadmap():

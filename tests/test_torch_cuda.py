@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core.lsh import band_hashes, band_hashes_packed
 from repro_torch.kernels import cminhash_kernel as kd
 from repro_torch.kernels import cminhash_packed as kpk
@@ -1091,3 +1092,127 @@ def test_tcp_worker_asked_for_cuda_without_a_visible_card_fails_at_spawn(
     with pytest.raises(RuntimeError, match="failed at boot"):
         spawn_workers(StoreConfig(k=64, n_bands=16, rows_per_band=4), 1,
                       device="cuda")
+
+
+# -- the LM stack: the card against the port's CPU path ---------------------
+
+def _lm_case(arch, monkeypatch, **changes):
+    """A reduced float32 config (d_model 64), its weights drawn on the
+    CPU and copied to the card, both bundles, and a seeded batch.  TF32 is
+    off: the card's float32 products run in float32."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=64),
+                              dtype="float32", **changes)
+    cpu = build(cfg, device="cpu")
+    params = cpu.init(0)
+    card_params = copy.deepcopy(params).cuda()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (2, 40))
+             .astype(np.int32)}
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(size=(2, 3, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.normal(size=(2, 40, cfg.d_model)).astype(
+            np.float32)
+    return cfg, cpu, params, build(cfg, device="cuda"), card_params, batch
+
+
+def _lm_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    assert a.shape == b.shape and a.dtype == b.dtype
+    return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+
+def _lm_caches_close(card: dict, cpu: dict, tol: float):
+    assert set(card) == set(cpu)
+    for name in card:
+        if name in ("t", "entry_pos"):
+            assert torch.equal(card[name].cpu(), cpu[name])
+        else:
+            assert card[name].device.type == "cuda"
+            assert _lm_err(card[name], cpu[name]) < tol, name
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_family_on_the_card_matches_the_cpu(cuda, monkeypatch, arch):
+    """Each reduced arch in float32: forward logits, prefill logits and
+    every cache tensor, 8 decode steps and greedy tokens on the card equal
+    the CPU's within 1e-4 (sums run in other orders)."""
+    from repro_torch.serve.decode import generate
+    cfg, cpu, params, card, card_params, batch = _lm_case(arch, monkeypatch)
+    assert _lm_err(card.forward(card_params, batch),
+                   cpu.forward(params, batch)) < 1e-4
+    s0 = 25
+    pb = dict(batch, tokens=batch["tokens"][:, :s0])
+    (gl, gc), (wl, wc) = (card.prefill(card_params, pb, max_len=40),
+                          cpu.prefill(params, pb, max_len=40))
+    assert _lm_err(gl, wl) < 1e-4
+    _lm_caches_close(gc, wc, 1e-4)
+    for t in range(s0, s0 + 8):
+        tok = batch["tokens"][:, t]
+        gl, gc = card.decode_step(card_params, gc, tok)
+        wl, wc = cpu.decode_step(params, wc, tok)
+        assert _lm_err(gl, wl) < 1e-4, t
+    _lm_caches_close(gc, wc, 1e-4)
+    assert np.array_equal(generate(card, card_params, pb, max_new_tokens=8),
+                          generate(cpu, params, pb, max_new_tokens=8))
+
+
+@pytest.mark.parametrize("arch,s0", [("h2o_danube3_4b", 25),
+                                     ("h2o_danube3_4b", 16),
+                                     ("hymba_1_5b", 30)])
+def test_lm_ring_cache_on_the_card_matches_the_cpu(cuda, monkeypatch, arch,
+                                                   s0):
+    """Sliding window 16, prefill S >= C: the ring's slots, their
+    positions and the decode past the wrap, card against CPU."""
+    cfg, cpu, params, card, card_params, batch = _lm_case(
+        arch, monkeypatch, sliding_window=16)
+    pb = dict(batch, tokens=batch["tokens"][:, :s0])
+    (gl, gc), (wl, wc) = (card.prefill(card_params, pb, max_len=40),
+                          cpu.prefill(params, pb, max_len=40))
+    assert gc["k"].shape[2] == 16
+    assert _lm_err(gl, wl) < 1e-4
+    _lm_caches_close(gc, wc, 1e-4)
+    for t in range(s0, 40):
+        tok = batch["tokens"][:, t]
+        gl, gc = card.decode_step(card_params, gc, tok)
+        wl, wc = cpu.decode_step(params, wc, tok)
+        assert _lm_err(gl, wl) < 1e-4, t
+        _lm_caches_close(gc, wc, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_bf16_generate_on_the_card(cuda, arch):
+    """The configs' own bf16 compute on the card: finite prefill logits,
+    tokens in range, the same tokens twice, and no kernel of the port."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import all_kernels
+    from repro_torch.models import build
+    from repro_torch.serve.decode import generate
+    cfg = reduced(get_config(arch))
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(0)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (4, 16))
+             .astype(np.int32)}
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(size=(4, 2, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.normal(size=(4, 16, cfg.d_model)).astype(
+            np.float32)
+    before = {n: k.launches for n, k in all_kernels().items()}
+    logits, _ = bundle.prefill(params, batch)
+    assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits)
+                                                   .all())
+    toks = generate(bundle, params, batch, max_new_tokens=6)
+    assert toks.shape == (4, 6) and toks.min() >= 0 \
+        and toks.max() < cfg.vocab_size
+    assert np.array_equal(toks, generate(bundle, params, batch,
+                                         max_new_tokens=6))
+    assert {n: k.launches for n, k in all_kernels().items()} == before
