@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
 path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup,
-the hashed-feature trainer and the LM serving path on one NVIDIA card, with
-its hand-written kernels (six CUDA sources).
+the hashed-feature trainer, the LM serving path and LM training on one
+NVIDIA card, with its hand-written kernels (six CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
@@ -256,11 +256,46 @@ printed then:
     ``forward`` (MoE at capacity_factor 64, so neither drops a token), then
     a bf16 prefill (finite logits) and ``generate`` (tokens in range).
 
-``launches`` in the kernels line is the sum over the thirteen counted paths
+13. LM training on one card (``train_path``, ``[train]`` lines), its counts
+    set to 0 just before and read just after: kernel 1 launches once (the
+    launcher's dedup) and no other kernel.  (a) ``llama3_2_1b`` at its full
+    published config (1,235,814,400 float32 parameters, bf16 compute,
+    ``remat="block"``, ``fused_qkv``), weights drawn on the card from
+    ``--seed``, through ``train.train_loop.make_train_step`` at the
+    launcher's defaults (batch 8 x 128 from ``data.synthetic.token_batches``,
+    AdamW at lr 3e-4, warmup 5 of 50 steps): 3 warm-up steps, 10 timed
+    with CUDA events (median step ms, tokens/s, the host's wall a step),
+    the peak ``max_memory_allocated``, every step's loss, lr and grad norm;
+    the losses finite and the last timed below the first timed; the step's
+    bound, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), with the work
+    it counts (``train_step_work``); one step under the profiler, as in
+    phase 4 (``chiprun_out/train_trace.json``); then 2 steps with
+    ``microbatches=2, grad_compression="bf16"``.  (b) Full width cut to 2
+    layers, float32, TF32 off: one step's loss and global grad norm on the
+    card within 1e-3 (relative) of the port's CPU path on the same weights
+    and a 2 x 128 batch; the parameters after one ``adamw_update`` on the
+    same gradients within 1e-5; after each side's whole step within 2 x
+    lr (AdamW's first step moves a parameter by up to lr whatever its
+    gradient's size, so a gradient near 0 that rounds differently moves
+    it differently).  (c)
+    ``TrainLoop`` at full width, 2 layers (a checkpoint is 4.6 GB there,
+    14.8 GB at 16), 4 steps, a checkpoint every 2, ``keep_checkpoints=1``,
+    in a temporary workdir deleted afterwards: SIGTERM raised while batch 2
+    is fetched stops the loop at the next step boundary with a save; a new
+    loop restores that step and runs on; the losses and the final
+    parameters equal an uninterrupted run's exactly.  Prints the save's
+    seconds, the load's and the bytes on disk.  (d)
+    ``launch/train.py --arch llama3_2_1b --reduced --dedup --steps 8`` in
+    process on the card (its default device): the ``[launch]`` lines, kernel
+    1 once in the dedup and no kernel in the training, then kernel 1 at that
+    launch (400 documents, D = 2^14, K = 256) against its plain version,
+    tolerance 0, timed and bounded as in phase 3.
+
+``launches`` in the kernels line is the sum over the fourteen counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
 phase 5c's tcp path, coordinator and workers, phase 5d's two planes,
-coordinator and lanes, phase 5e's two streams, phases 6, 7, 10, 11 and
-12).
+coordinator and lanes, phase 5e's two streams, phases 6, 7, 10, 11, 12
+and 13).
 
 The script makes itself the subreaper of what it starts
 (``PR_SET_CHILD_SUBREAPER``).  Before its result it stops and reaps every
@@ -303,6 +338,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -2819,6 +2855,394 @@ def lm_path(seed: int, report: dict) -> None:
           f"{launches_all}")
 
 
+TRAIN_ARCH = "llama3_2_1b"
+TRAIN_BATCH = 8               # the launcher's defaults: 8 x 128 tokens,
+TRAIN_SEQ = 128               # --steps 50 (warmup 5)
+TRAIN_STEPS = 50
+TRAIN_WARMUP_STEPS = 3        # untimed steps first
+TRAIN_TIMED = 10              # steps timed with CUDA events
+TRAIN_MICRO_STEPS = 2         # microbatches=2, grad_compression="bf16"
+TRAIN_CUT_LAYERS = 2          # (b), (c): depth cut so the host runs it and
+                              # a checkpoint is 4.6 GB, not 14.8 GB
+TRAIN_CPU_ROWS = 2            # (b): rows of the batch the CPU repeats
+TRAIN_TOL = 1e-3              # (b): loss and grad norm, relative
+TRAIN_PARAM_TOL = 1e-5        # (b): parameters after one update
+TRAIN_LOOP_STEPS = 4          # (c): checkpoint every 2, SIGTERM while
+TRAIN_STOP_BATCH = 2          # batch 2 is fetched
+H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
+
+
+def train_step_work(cfg, n_params: int, tokens: int) -> dict:
+    """The work of one llama train step, for its bound: FLOPs of the
+    products (2 a parameter a token forward, 4 backward, 2 more for each
+    block's recompute under remat; the tied head is outside the blocks; the
+    attention scores and values at full S x S a layer) and the bytes the
+    update and the casts must move (AdamW reads the parameter, gradient and
+    two moments and writes the parameter and moments, 28 B a parameter;
+    each use of a block parameter casts float32 -> bf16, 6 B, in the
+    forward and the recompute, and the gradient comes back bf16 -> float32,
+    6 B; the head's cast and gradient once each).  Activations are not
+    counted."""
+    head = cfg.vocab_size * cfg.d_model
+    blocks = n_params - head
+    s = TRAIN_SEQ
+    attn = (4 * TRAIN_BATCH * cfg.n_heads * s * s * cfg.head_dim
+            * cfg.n_layers)                     # QK^T and PV, forward
+    flops = tokens * (8 * blocks + 6 * head) + 4 * attn
+    update = 28 * n_params
+    casts = 18 * blocks + 12 * head
+    return {"flops": flops, "update_bytes": update, "cast_bytes": casts,
+            "bytes": update + casts}
+
+
+def train_path(seed: int, report: dict) -> None:
+    """Phase 13: LM training on one card.  (a) ``llama3_2_1b`` at its full
+    published config through ``train.train_loop.make_train_step``; (b) the
+    card's step against the CPU's, full width, ``TRAIN_CUT_LAYERS``
+    layers, float32; (c) ``TrainLoop`` stopped by SIGTERM and restarted
+    from its checkpoint; (d) ``launch/train.py --reduced --dedup`` in
+    process.  Counted: kernel 1 once (the launcher's dedup), no other."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (adamw_update, global_norm,
+                                             init_opt_state, lr_schedule)
+    from repro_torch.train.train_loop import (TrainLoop, loss_and_grads,
+                                              make_train_step)
+    ks_all = kernels()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts(ks_all)
+    # --- the training path ---------------------------------------------------
+    # (a) full width at the launcher's defaults
+    cfg = get_config(TRAIN_ARCH)
+    bundle = build(cfg, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(seed)
+    opt = init_opt_state(params)
+    n_params = sum(p.numel() for p in params.parameters())
+    require(n_params == cfg.param_count(),
+            f"{TRAIN_ARCH}: {n_params} parameters, config "
+            f"{cfg.param_count()}")
+    tc = TrainConfig(total_steps=TRAIN_STEPS,
+                     warmup_steps=max(TRAIN_STEPS // 10, 1))
+    step = make_train_step(bundle, tc)
+    data = token_batches(cfg.vocab_size_real, TRAIN_BATCH, TRAIN_SEQ, seed)
+    losses, step_ms, lrs, norms = [], [], [], []
+    for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED):
+        batch = next(data)
+        if i == TRAIN_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        losses.append(m["loss"])
+        lrs.append(m["lr"])
+        norms.append(m["grad_norm"])
+        if i >= TRAIN_WARMUP_STEPS:
+            step_ms.append((start, end))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    losses, lrs, norms = ([float(x) for x in xs]
+                          for xs in (losses, lrs, norms))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    work = train_step_work(cfg, n_params, n_tok)
+    t_flops = work["flops"] / H100_BF16_FLOPS * 1e3
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound, bound_by = max((t_flops, "operations"), (t_bytes, "bytes"))
+    require(all(np.isfinite(losses)), f"finite losses ({losses})")
+    require(losses[-1] < losses[TRAIN_WARMUP_STEPS],
+            f"the last timed loss {losses[-1]} below the first timed "
+            f"{losses[TRAIN_WARMUP_STEPS]}")
+    print(f"[train] {TRAIN_ARCH} (full config: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} "
+          f"compute, {cfg.param_dtype} parameters, remat {cfg.remat}, "
+          f"fused_qkv {cfg.fused_qkv}): {n_params} parameters; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, lr {tc.learning_rate} warmup "
+          f"{tc.warmup_steps} of {tc.total_steps}; {card_line()}")
+    print(f"[train] step {med:.3f} ms (median of {TRAIN_TIMED} after "
+          f"{TRAIN_WARMUP_STEPS} warm-up; min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; host wall {wall_ms:.3f} ms a step), "
+          f"{n_tok / med * 1e3:.1f} tokens/s; peak memory {peak} B; bound "
+          f"{bound:.3f} ms by {bound_by} ({work['flops']:.4e} FLOPs at "
+          f"989 TFLOP/s = {t_flops:.3f} ms; {work['update_bytes']} B of "
+          f"update + {work['cast_bytes']} B of casts at 3.35 TB/s = "
+          f"{t_bytes:.3f} ms)")
+    print("[train] losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; lr " + ", ".join(f"{x:.3e}" for x in lrs)
+          + "; grad_norm " + ", ".join(f"{x:.3f}" for x in norms))
+    trace = profile_busy(lambda: step(params, opt, next(data)),
+                         "train_trace")
+    print(f"[train] one step traced: wall {trace['wall_us'] / 1e3:.3f} ms, "
+          f"the card busy {trace['device_busy_us'] / 1e3:.3f} ms "
+          f"({trace['device_busy_share'] * 100:.1f}%, "
+          f"{trace['device_events']} device events); top: " + ", ".join(
+              f"{r['name'][:40]} {r['us'] / 1e3:.3f} ms"
+              for r in trace["top_device_time_us"][:5]))
+    torch.cuda.reset_peak_memory_stats()
+    micro = make_train_step(bundle, dataclasses.replace(
+        tc, microbatches=2, grad_compression="bf16"))
+    micro_losses, micro_s = [], []
+    for _ in range(TRAIN_MICRO_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = micro(params, opt, next(data))
+        micro_losses.append(float(m["loss"]))
+        micro_s.append(time.perf_counter() - t1)
+        require(np.isfinite(micro_losses[-1]) and np.isfinite(
+            float(m["grad_norm"])), "microbatched bf16 step: finite")
+    micro_peak = torch.cuda.max_memory_allocated()
+    print(f"[train] microbatches=2, grad_compression=bf16: losses "
+          + ", ".join(f"{x:.4f}" for x in micro_losses) + "; "
+          + ", ".join(f"{s * 1e3:.1f}" for s in micro_s)
+          + f" ms a step (host clock); peak memory {micro_peak} B")
+    out = {"arch": TRAIN_ARCH, "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "train_config": dataclasses.asdict(tc),
+           "losses": losses, "lr": lrs, "grad_norm": norms,
+           "step_ms": step_ms, "step_ms_median": med, "wall_ms": wall_ms,
+           "tokens_per_s": n_tok / med * 1e3, "peak_bytes": peak,
+           "bound_ms": bound, "bound_by": bound_by, "work": work,
+           "trace": trace, "micro_bf16": {"losses": micro_losses,
+                                           "seconds": micro_s,
+                                           "peak_bytes": micro_peak}}
+    del params, opt, step, micro, m
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU: float32, TF32 off, TRAIN_CUT_LAYERS
+    # layers.  The step's loss and gradients, then the update on the same
+    # gradients (the CPU's on both sides), then the card's whole step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS,
+                              dtype="float32")
+    card, cpu = build(cut, device="cuda"), build(cut, device="cpu")
+    start = card.init(seed)
+    host = start.map(lambda _, p: p.to("cpu", copy=True))
+    batch = next(token_batches(cut.vocab_size_real, TRAIN_CPU_ROWS,
+                               TRAIN_SEQ, seed + 1))
+    loss_c, _, g_card = loss_and_grads(card, start, batch)
+    loss_h, _, g_host = loss_and_grads(cpu, host, batch)
+    rel = {"loss": abs(float(loss_c) - float(loss_h)) / abs(float(loss_h)),
+           "grad_norm": abs(float(global_norm(g_card))
+                            - float(global_norm(g_host)))
+           / float(global_norm(g_host))}
+    g_err = max(max_abs_err(a.cpu(), b) for a, b in zip(g_card, g_host))
+    whole = start.map(lambda _, p: p.clone())
+    adamw_update(whole, g_card, init_opt_state(whole), tc)
+    adamw_update(start, [g.cuda() for g in g_host], init_opt_state(start),
+                 tc)
+    adamw_update(host, g_host, init_opt_state(host), tc)
+    p_err = max(max_abs_err(a.cpu(), b) for a, b in
+                zip(start.parameters(), host.parameters()))
+    step_err = max(max_abs_err(a.cpu(), b) for a, b in
+                   zip(whole.parameters(), host.parameters()))
+    lr1 = float(lr_schedule(torch.tensor(1), tc))
+    check_s = time.perf_counter() - t0
+    require(max(rel.values()) < TRAIN_TOL,
+            f"card vs CPU loss and grad norm within {TRAIN_TOL} ({rel})")
+    require(p_err < TRAIN_PARAM_TOL, f"card vs CPU parameters after one "
+            f"adamw_update within {TRAIN_PARAM_TOL} ({p_err})")
+    require(step_err <= 2 * lr1, f"the card's whole step within 2 x lr of "
+            f"the CPU's ({step_err})")
+    print(f"[train] card vs CPU ({TRAIN_CUT_LAYERS} layers, full width, "
+          f"float32, TF32 off, {TRAIN_CPU_ROWS} x {TRAIN_SEQ}): loss "
+          f"{float(loss_c):.6f} vs {float(loss_h):.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, "
+          f"largest gradient difference {g_err:.2e}; parameters after one "
+          f"adamw_update on the same gradients {p_err:.2e} (tolerances "
+          f"{TRAIN_TOL}, {TRAIN_PARAM_TOL}); after each side's whole step "
+          f"{step_err:.2e} (AdamW moves a parameter up to lr = {lr1:.1e} "
+          f"whatever its gradient's size) ({check_s:.1f} s)")
+    out["card_vs_cpu"] = {"layers": TRAIN_CUT_LAYERS, "rows": TRAIN_CPU_ROWS,
+                          "rel": rel, "grad_err": g_err, "param_err": p_err,
+                          "step_param_err": step_err, "seconds": check_s,
+                          "tf32": False}
+    del start, host, whole, card, cpu, g_card, g_host
+    torch.cuda.empty_cache()
+
+    # (c) TrainLoop: SIGTERM while a batch is fetched, then a restart
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    bundle = build(cut, device="cuda")
+    ltc = TrainConfig(total_steps=TRAIN_LOOP_STEPS, warmup_steps=1,
+                      checkpoint_every=2, keep_checkpoints=1, seed=seed)
+    batches = list(itertools.islice(token_batches(
+        cut.vocab_size_real, TRAIN_BATCH, TRAIN_SEQ, seed + 2),
+        TRAIN_LOOP_STEPS))
+    params = bundle.init(ltc.seed)
+    opt = init_opt_state(params)
+    step = make_train_step(bundle, ltc)
+    whole = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        whole.append(float(m["loss"]))
+    whole_params = params
+    del opt, step
+    wd = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def signalling():
+            for i, b in enumerate(batches):
+                if i == TRAIN_STOP_BATCH:
+                    require(signal.getsignal(signal.SIGTERM) not in (
+                        signal.SIG_DFL, signal.SIG_IGN, None),
+                        "the loop's SIGTERM handler is installed")
+                    signal.raise_signal(signal.SIGTERM)
+                yield b
+        logs: list[tuple[float, str]] = []
+
+        def log(msg):
+            logs.append((time.perf_counter(), msg))
+        handler = signal.getsignal(signal.SIGTERM)
+        first = TrainLoop(bundle, ltc, signalling(), wd, log=log).run()
+        t_end = time.perf_counter()
+        require(signal.getsignal(signal.SIGTERM) is handler,
+                "the loop put the SIGTERM handler back")
+        stops = [t for t, msg in logs if "preemption signal" in msg]
+        require(len(stops) == 1, f"one preemption save ({logs})")
+        save_s = t_end - stops[0]
+        saved = ckpt.committed_steps(wd)
+        require(saved == [TRAIN_STOP_BATCH + 1],
+                f"the stop saved step {TRAIN_STOP_BATCH + 1} ({saved})")
+        step_dir = os.path.join(wd, f"step_{saved[0]:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        second = TrainLoop(bundle, ltc, iter(batches[saved[0]:]), wd,
+                           log=log).run()
+        require(any(f"restored step {saved[0]}" in msg for _, msg in logs),
+                "the restart restored the saved step")
+        resumed = first["losses"] + second["losses"]
+        require(resumed == whole, f"the stopped and restarted loop's losses "
+                f"equal an uninterrupted run's ({resumed} vs {whole})")
+        require(all(torch.equal(a, b) for a, b in zip(
+            whole_params.parameters(), second["params"].parameters())),
+            "the restarted loop ends with the uninterrupted run's "
+            "parameters")
+        t1 = time.perf_counter()
+        step_r, restored = ckpt.restore_checkpoint(
+            wd, {"params": second["params"], "opt": second["opt"]})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        require(step_r == TRAIN_LOOP_STEPS and all(torch.equal(a, b) for a, b
+                in zip(restored["params"].parameters(),
+                       second["params"].parameters())),
+                "the final checkpoint restores the final parameters")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    print(f"[train] TrainLoop ({TRAIN_CUT_LAYERS} layers, full width, "
+          f"{TRAIN_LOOP_STEPS} steps, checkpoint every "
+          f"{ltc.checkpoint_every}, keep {ltc.keep_checkpoints}): SIGTERM "
+          f"at batch {TRAIN_STOP_BATCH}, saved step {saved[0]} "
+          f"({ckpt_bytes} B on disk, {save_s:.2f} s from the signal's save "
+          f"to the loop's return), restarted: losses equal an "
+          f"uninterrupted run's ({', '.join(f'{x:.4f}' for x in whole)}); "
+          f"final checkpoint loaded in {load_s:.2f} s")
+    out["train_loop"] = {"layers": TRAIN_CUT_LAYERS,
+                         "steps": TRAIN_LOOP_STEPS, "saved_step": saved[0],
+                         "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+                         "load_s": load_s, "losses": whole}
+    del bundle, params, whole_params, first, second, restored
+    torch.cuda.empty_cache()
+
+    # (d) the launcher with --dedup, in process; its dedup and its training
+    # counted apart
+    from repro_torch.launch import train as launch_train
+    wd = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    split: dict = {}
+    real_loop = launch_train.TrainLoop
+
+    class CountedLoop(real_loop):
+        def run(self, *a, **kw):
+            split["dedup"] = read_counts(ks_all)
+            res = super().run(*a, **kw)
+            split["train"] = {n: v - split["dedup"][n]
+                              for n, v in read_counts(ks_all).items()}
+            return res
+
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--dedup", "--steps", "8",
+            "--workdir", wd]
+    buf = io.StringIO()
+    launch_train.TrainLoop = CountedLoop
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = launch_train.main(argv)
+    finally:
+        launch_train.TrainLoop = real_loop
+        shutil.rmtree(wd, ignore_errors=True)
+    launch_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith("[launch]"):
+            print(line)
+    launches = read_counts(ks_all)
+    # -------------------------------------------------------------------------
+    require(any(line.startswith(f"[launch] {TRAIN_ARCH}: ") for line in lines)
+            and any(line.startswith("[launch] dedup kept ") for line in lines)
+            and any(line.startswith("[launch] final loss ")
+                    for line in lines), f"the [launch] lines ({lines})")
+    require(len(res["losses"]) == 8 and all(np.isfinite(res["losses"])),
+            "the launcher trained 8 finite steps")
+    require(split["dedup"]["cminhash_sparse"] == 1
+            and sum(split["dedup"].values()) == 1
+            and sum(split["train"].values()) == 0,
+            f"the launcher's dedup launched kernel 1 once, its training no "
+            f"kernel ({split})")
+    print(f"[train] launch/train.py {' '.join(argv[:-1])} <tmp>: "
+          f"{launch_s:.1f} s; launches: dedup {split['dedup']}, training "
+          f"{split['train']}")
+
+    # kernel 1 at the launcher's dedup launch against its plain version
+    from repro_torch.configs import reduced
+    from repro_torch.core.permutations import (apply_permutation_sparse,
+                                               make_two_permutations)
+    from repro_torch.data.dedup import DedupConfig
+    from repro_torch.data.shingle import batch_shingles
+    from repro_torch.data.synthetic import corpus_with_duplicates
+    from repro_torch.kernels import cminhash_sparse as ks
+    rcfg = reduced(cfg)
+    dcfg = DedupConfig(d=1 << 14, k=256, n_bands=64, rows_per_band=4,
+                       threshold=0.5)
+    docs, _ = corpus_with_duplicates(400, vocab=rcfg.vocab_size_real,
+                                     doc_len=128, dup_fraction=0.25, seed=0)
+    dev = torch.device("cuda")
+    sigma, pi = make_two_permutations(
+        torch.Generator().manual_seed(dcfg.seed), dcfg.d, device=dev)
+    idx = batch_shingles(docs, n=dcfg.shingle_n, d=dcfg.d)
+    sidx = apply_permutation_sparse(torch.from_numpy(idx).to(dev),
+                                    sigma).to(torch.int32).contiguous()
+    got = ks.cminhash_sparse_kernel(sidx, pi, dcfg.k)
+    require(np.array_equal(got.cpu().numpy(), res["dedup"].signatures),
+            "the kernel's output is the launcher's dedup signatures")
+    want = ks.cminhash_sparse_plain(sidx, pi, dcfg.k)
+    ms, dev_ms = both_ms(lambda: ks.cminhash_sparse_kernel(sidx, pi, dcfg.k),
+                         10)
+    plain_ms = time_ms(lambda: ks.cminhash_sparse_plain(sidx, pi, dcfg.k), 5)
+    n_valid = int((sidx >= 0).sum().item())
+    row = kernel_entry(
+        "cminhash_sparse", "src/repro_torch/csrc/cminhash_sparse.cu",
+        "src/repro/kernels/cminhash_sparse.py:186", got, want, ms, plain_ms,
+        sidx.numel() * 4 + pi.numel() * 4 + got.numel() * 4,
+        n_valid * dcfg.k, dev_ms, {"shape": list(sidx.shape),
+                                   "pack_b": None})
+    out.update(launches=launches, launch_split=split, launch_s=launch_s,
+               launch_lines=lines, kernels=[row],
+               wall_s=time.perf_counter() - t_phase)
+    report["train_path"] = out
+    print(f"[train] phase {out['wall_s']:.1f} s; kernel launches "
+          f"{launches}")
+
+
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
@@ -3330,7 +3754,7 @@ def main() -> None:
                     help="documents to ingest on the main path")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 5e's Poisson arrival gaps and of "
-                         "phase 12's weights and prompts")
+                         "phases 12-13's weights, prompts and batches")
     ap.add_argument("--compare", action="store_true",
                     help="only compare the signing kernels' table "
                          "placements, the collision kernel, the fold, the "
@@ -3421,11 +3845,13 @@ def main() -> None:
     linear_path(report)
     torch.cuda.empty_cache()
     lm_path(args.seed, report)
+    torch.cuda.empty_cache()
+    train_path(args.seed, report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
              "tcp_path", "replica_path", "chaos_path", "stream_path",
              "dense_path", "paper_path", "dedup_path", "linear_path",
-             "lm_path")
+             "lm_path", "train_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

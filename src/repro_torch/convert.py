@@ -6,13 +6,14 @@ host arrays (``np.asarray(engine.sigma)``, ``np.asarray(engine.pi)``) and
 signs with exactly those; classical MinHash takes the reference's (K, D)
 permutation set the same way.  A trained hashed-feature model crosses as
 its ``(w, bias)`` host arrays, so both packages predict from one set of
-weights; an LM crosses as its parameter pytree of host arrays.
+weights; an LM crosses as its parameter pytree of host arrays, both ways.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .device import resolve_device
 
@@ -106,3 +107,33 @@ def _leaves(x) -> list:
     if isinstance(x, dict):
         return [leaf for v in x.values() for leaf in _leaves(v)]
     return [x]
+
+
+def lm_params_to_numpy(model: nn.Module) -> dict:
+    """The port's ``ParamTree`` -> the reference's parameter pytree as host
+    arrays, layers stacked on a leading L axis (each ``ModuleList``
+    stacked): the inverse of ``lm_params_from_jax``.  Every array is a
+    copy, so a later in-place update does not reach it."""
+    if isinstance(model, nn.ModuleList):
+        return _stack([lm_params_to_numpy(c) for c in model])
+    out: dict = {n: p.detach().to("cpu", copy=True).numpy()
+                 for n, p in model._parameters.items()}
+    out.update({n: lm_params_to_numpy(c) for n, c in model._modules.items()})
+    return out
+
+
+def reference_path(name: str) -> tuple[str, int | None]:
+    """A ``ParamTree`` leaf's ``named_parameters`` name -> (its path in
+    ``lm_params_to_numpy``'s tree, its row on the stacked L axis or None):
+    ``layers.3.attn.wq`` -> (``layers/attn/wq``, 3).  Only a
+    ``ModuleList``'s children have integer names."""
+    parts = name.split(".")
+    rows = [int(p) for p in parts if p.isdigit()]
+    return ("/".join(p for p in parts if not p.isdigit()),
+            rows[0] if rows else None)
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

@@ -5,7 +5,8 @@ callers supply frame embeddings (B, S_enc, D).  Encoder: non-causal
 self-attention + SwiGLU; decoder: causal self-attention + cross-attention +
 SwiGLU.  The decode cache comes only from ``prefill`` (the cross K/V need
 the encoder's states); ``decode_step`` writes its K/V slot in place, as
-``transformer.decode_step`` does.
+``transformer.decode_step`` does.  ``cfg.remat`` recomputes each layer of
+both stacks in the backward pass, as ``transformer.remat`` says.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from .layers import (ParamTree, _project, apply_rope, attention_block,
                      decode_attention, init_attention, init_mlp, mlp_block,
                      normal_init, project_kv, rmsnorm)
-from .transformer import _dtype, _pdtype, _repeat_kv_to, kv_eff_heads
+from .transformer import _dtype, _pdtype, _repeat_kv_to, kv_eff_heads, remat
 
 Tensor = torch.Tensor
 
@@ -67,15 +68,19 @@ def init_params(seed: int, cfg, device: str | torch.device = DEFAULT_DEVICE
     })
 
 
+def _enc_block(lp, x: Tensor, positions: Tensor, cfg) -> Tensor:
+    x = x + attention_block(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                            positions, cfg, causal=False, window=0)
+    return x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
 def encode(params, frames: Tensor, cfg) -> Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states."""
     x = frames.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
+    block = remat(_enc_block, cfg)
     for lp in params["enc_layers"]:
-        x = x + attention_block(lp["attn"],
-                                rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                                positions, cfg, causal=False, window=0)
-        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = block(lp, x, positions, cfg)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -97,21 +102,23 @@ def forward(params, frames: Tensor, tokens: Tensor, cfg
     enc_out = encode(params, frames, cfg)
     x = F.embedding(tokens.long(), params["embed"]).to(dt)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    block = remat(_dec_block, cfg)
     for lp in params["dec_layers"]:
-        x = _dec_block(lp, x, positions, enc_out, cfg)
+        x = block(lp, x, positions, enc_out, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(dt), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
-def prefill(params, frames: Tensor, tokens: Tensor, cfg, *,
+def prefill(params, frames: Tensor, tokens: Tensor, cfg, *, tp: int = 1,
             max_len: int | None = None) -> tuple[Tensor, dict]:
-    """Encode + run the decoder prompt; returns (last logits, cache)."""
+    """Encode + run the decoder prompt; returns (last logits, cache).
+    ``tp`` must be 1 (``kv_eff_heads``)."""
+    kve = kv_eff_heads(cfg, tp)
     dt = _dtype(cfg)
     enc_out = encode(params, frames, cfg)
     s = tokens.shape[1]
     max_len = max_len or s
-    kve = kv_eff_heads(cfg)
     x = F.embedding(tokens.long(), params["embed"]).to(dt)
     positions = torch.arange(s, device=x.device)
     entries: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}

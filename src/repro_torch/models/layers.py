@@ -13,6 +13,7 @@ products here go to ``torch`` as the reference leaves them to XLA.
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -25,9 +26,10 @@ NEG_INF = -1e30
 
 class ParamTree(nn.Module):
     """A parameter pytree as a module: a dict becomes a submodule, a tensor
-    a parameter (no gradient: the serving path runs under ``no_grad``),
-    any other module (a ``ModuleList`` of layers) stays itself.  Indexed as
-    the reference's pytree: ``lp["attn"]["wq"]``."""
+    a parameter, any other module (a ``ModuleList`` of layers) stays
+    itself.  Indexed as the reference's pytree: ``lp["attn"]["wq"]``.
+    Parameters are made without ``requires_grad``, so serving builds no
+    graph; the train step turns it on for its own backward pass."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -40,6 +42,21 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def map(self, fn: Callable[[str, Tensor], Tensor]) -> "ParamTree":
+        """A tree of the same structure whose leaf ``name`` (the dotted name
+        ``named_parameters`` gives it) is ``fn(name, leaf)``."""
+        return _map_tree(self, fn, "")
+
+
+def _map_tree(mod: nn.Module, fn, prefix: str) -> nn.Module:
+    if isinstance(mod, nn.ModuleList):
+        return nn.ModuleList(_map_tree(c, fn, f"{prefix}{i}.")
+                             for i, c in enumerate(mod))
+    tree: dict = {n: fn(prefix + n, p) for n, p in mod._parameters.items()}
+    tree.update({n: _map_tree(c, fn, f"{prefix}{n}.")
+                 for n, c in mod._modules.items()})
+    return ParamTree(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +217,10 @@ def qkv_project(p, x: Tensor, cfg) -> tuple[Tensor, Tensor, Tensor]:
     """x: (..., D) -> q (..., H, hd), k, v (..., KV, hd).
 
     ``cfg.fused_qkv`` runs one product with the concatenated ``wq|wk|wv``
-    (the reference's ``_qkv_fused`` forward; its fused backward comes with
-    training).  The parameters are the same either way.
+    (the reference's ``_qkv_fused``).  Autograd through that product sums
+    the three dx contributions in one product, as the reference's custom
+    backward ``_qkv_fused_bwd`` does.  The parameters are the same either
+    way.
     """
     dtype = x.dtype
     ws = [p[n].to(dtype) for n in ("wq", "wk", "wv")]

@@ -2,8 +2,7 @@
 
 A PyTorch copy of ``repro.models.moe`` without its mesh branch: every
 expert runs here on the local tokens.  Expert parallelism over a mesh
-(``shard_map``) comes with ``distributed/sharding.py`` in the LM training
-slice (ROADMAP §1 item 3).
+(``shard_map``) comes with the mesh paths (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -95,7 +94,7 @@ def moe_block(p, x: Tensor, cfg, mesh=None) -> tuple[Tensor, Tensor]:
     if mesh is not None:
         raise NotImplementedError(
             "expert parallelism over a mesh is not ported yet: it comes with "
-            "distributed/sharding.py in the LM training slice (ROADMAP §1)")
+            "the mesh paths (ROADMAP §1)")
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(-1, x.shape[-1])
     gates, idx, aux = _route(xf, p["router"], e, k)

@@ -3,10 +3,13 @@ device.
 
 A PyTorch copy of ``repro.models.registry``.  ``build(cfg, device=...)``
 resolves the device once (``"cuda"`` by default, raising without a card);
-every function of the bundle moves its batch there and runs under
-``torch.no_grad()``.  ``params`` is the ``ParamTree`` that ``init`` returns
-(or ``convert.lm_params_from_jax``).  The functions take no ``mesh``:
-sharded models come with the LM training slice.
+every function of the bundle moves its batch there.  ``forward``,
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``; ``loss_fn``
+records a graph where autograd is on and a parameter requires a gradient
+(``train.train_loop.make_train_step``).  ``params`` is the ``ParamTree``
+that ``init`` returns (or ``convert.lm_params_from_jax``).  The functions
+take no ``mesh``, and ``tp`` must be 1: sharded models come with the mesh
+paths (ROADMAP §1).
 
 Batch conventions (numpy arrays or tensors):
   decoder families : {"tokens": (B, S) int [, "patches": (B, P, D) (vlm)]}
@@ -34,9 +37,9 @@ class ModelBundle:
     init: Callable[[int], Any]            # seed -> params
     loss_fn: Callable[..., tuple]         # (params, batch) -> loss, metrics
     forward: Callable[..., torch.Tensor]  # (params, batch) -> logits
-    prefill: Callable[..., tuple]         # (params, batch, max_len)
+    prefill: Callable[..., tuple]         # (params, batch, max_len, tp=1)
     decode_step: Callable[..., tuple]     # (params, cache, token)
-    init_cache: Callable[..., dict]       # (batch, max_len)
+    init_cache: Callable[..., dict]       # (batch, max_len, tp=1)
 
 
 def _on(dev: torch.device, batch: dict) -> dict:
@@ -50,7 +53,6 @@ def _decoder_bundle(cfg, dev: torch.device) -> ModelBundle:
     def _prefix(batch):
         return batch.get("patches") if cfg.frontend == "patches" else None
 
-    @torch.no_grad()
     def loss_fn(params, batch):
         batch = _on(dev, batch)
         tokens = batch["tokens"]
@@ -72,9 +74,9 @@ def _decoder_bundle(cfg, dev: torch.device) -> ModelBundle:
         return logits
 
     @torch.no_grad()
-    def prefill(params, batch, max_len=None):
+    def prefill(params, batch, max_len=None, tp=1):
         batch = _on(dev, batch)
-        return transformer.prefill(params, batch["tokens"], cfg,
+        return transformer.prefill(params, batch["tokens"], cfg, tp=tp,
                                    max_len=max_len,
                                    prefix_embeddings=_prefix(batch))
 
@@ -83,8 +85,8 @@ def _decoder_bundle(cfg, dev: torch.device) -> ModelBundle:
         return transformer.decode_step(params, cache,
                                        torch.as_tensor(token, device=dev), cfg)
 
-    def init_cache(batch, max_len):
-        return transformer.init_cache(cfg, batch, max_len, dev)
+    def init_cache(batch, max_len, tp=1):
+        return transformer.init_cache(cfg, batch, max_len, dev, tp=tp)
 
     return ModelBundle(cfg, dev, init, loss_fn, forward, prefill, decode_step,
                        init_cache)
@@ -94,7 +96,6 @@ def _encdec_bundle(cfg, dev: torch.device) -> ModelBundle:
     def init(seed):
         return encdec.init_params(seed, cfg, dev)
 
-    @torch.no_grad()
     def loss_fn(params, batch):
         batch = _on(dev, batch)
         tokens = batch["tokens"]
@@ -113,17 +114,17 @@ def _encdec_bundle(cfg, dev: torch.device) -> ModelBundle:
         return logits
 
     @torch.no_grad()
-    def prefill(params, batch, max_len=None):
+    def prefill(params, batch, max_len=None, tp=1):
         batch = _on(dev, batch)
         return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
-                              max_len=max_len)
+                              tp=tp, max_len=max_len)
 
     @torch.no_grad()
     def decode_step(params, cache, token):
         return encdec.decode_step(params, cache,
                                   torch.as_tensor(token, device=dev), cfg)
 
-    def init_cache(batch, max_len):
+    def init_cache(batch, max_len, tp=1):
         raise NotImplementedError(
             "encdec caches come from prefill (cross-K/V need encoder states)")
 

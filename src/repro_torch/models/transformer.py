@@ -10,15 +10,21 @@ keep the reference's keys and shapes (``k``/``v``: (L, B, C, KVe, hd),
 of form: ``t`` stays on the host (a 0-d int32 CPU tensor), so a decode step
 never waits for the card to learn its slot; and ``decode_step`` writes the
 new K/V slot and SSM state into the cache's tensors in place (the returned
-dict shares them), where the reference returns new arrays.  ``remat`` has
-no effect: the serving path runs under ``torch.no_grad()``.
+dict shares them), where the reference returns new arrays.
+``cfg.remat == "block"`` recomputes each layer's block in the backward
+pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+``nothing_saveable``) wherever autograd records the forward; the serving
+path runs under ``torch.no_grad()``, where it has no effect.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .layers import (ParamTree, apply_rope, attention_block,
@@ -52,8 +58,7 @@ def kv_eff_heads(cfg, tp: int = 1) -> int:
     if tp != 1:
         raise NotImplementedError(
             f"tp = {tp}: tensor-parallel caches are not ported yet; they come "
-            "with distributed/sharding.py in the LM training slice "
-            "(ROADMAP §1)")
+            "with the mesh paths (ROADMAP §1)")
     return cfg.n_kv_heads
 
 
@@ -120,6 +125,14 @@ def _embed(params, tokens: Tensor, dt: torch.dtype,
 # Blocks
 # ---------------------------------------------------------------------------
 
+def remat(fn, cfg):
+    """``fn`` recomputed in the backward pass when ``cfg.remat == "block"``
+    and autograd records the call; ``fn`` itself otherwise."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
+
+
 def _ffn(lp, x: Tensor, cfg) -> tuple[Tensor, Tensor | None]:
     """The layer's second residual branch on x: (B, S, D) or (B, D) ->
     (x, aux loss or None)."""
@@ -159,8 +172,9 @@ def forward(params, tokens: Tensor, cfg,
     x = _embed(params, tokens, dt, prefix_embeddings)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat(block_forward, cfg)
     for lp in params["layers"]:
-        x, a = block_forward(lp, x, positions, cfg)
+        x, a = block(lp, x, positions, cfg)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg).to(dt), aux
@@ -185,15 +199,17 @@ def cache_len(cfg, max_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, max_len: int,
-               device: str | torch.device = DEFAULT_DEVICE) -> dict:
-    """Decode cache (zeros/empty).  max_len includes prompt + generation."""
+               device: str | torch.device = DEFAULT_DEVICE, tp: int = 1
+               ) -> dict:
+    """Decode cache (zeros/empty).  max_len includes prompt + generation;
+    ``tp`` must be 1 (``kv_eff_heads``)."""
+    kve = kv_eff_heads(cfg, tp)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     n = cfg.n_layers
     cache: dict = {"t": torch.tensor(0, dtype=torch.int32)}
     if has_attention(cfg):
-        shape = (n, batch, cache_len(cfg, max_len), kv_eff_heads(cfg),
-                 cfg.head_dim)
+        shape = (n, batch, cache_len(cfg, max_len), kve, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["entry_pos"] = torch.full((shape[2],), -1, dtype=torch.int32,
@@ -242,9 +258,11 @@ def _entry_pos(s: int, c: int, device) -> Tensor:
     return torch.where(pos0 < s, pos0, -1).to(torch.int32)
 
 
-def prefill(params, tokens: Tensor, cfg, *, max_len: int | None = None,
+def prefill(params, tokens: Tensor, cfg, *, tp: int = 1,
+            max_len: int | None = None,
             prefix_embeddings: Tensor | None = None) -> tuple[Tensor, dict]:
-    """Returns (last-position logits (B, V), cache)."""
+    """Returns (last-position logits (B, V), cache); ``tp`` must be 1."""
+    kve = kv_eff_heads(cfg, tp)
     dt = _dtype(cfg)
     s = tokens.shape[1]
     c = cache_len(cfg, max_len or s)
@@ -258,7 +276,6 @@ def prefill(params, tokens: Tensor, cfg, *, max_len: int | None = None,
             delta = delta + attention_block(lp["attn"], xn, positions, cfg)
             k, v = project_kv(lp["attn"], xn, positions, cfg)
             k = apply_rope(k, positions, cfg.rope_theta)
-            kve = kv_eff_heads(cfg)
             entries.setdefault("k", []).append(_ring(_repeat_kv_to(k, kve), c))
             entries.setdefault("v", []).append(_ring(_repeat_kv_to(v, kve), c))
         if has_ssm(cfg):

@@ -33,12 +33,17 @@ def generate(bundle, params, batch: dict, *, max_new_tokens: int,
     """Prefill the prompt batch and decode ``max_new_tokens`` tokens.
 
     Returns (B, max_new_tokens) int32 numpy, as the reference: the token
-    sampled from the prompt's logits, then one a decode step.  The
-    reference also runs a last step whose token it drops; that step is not
-    run here.  Nothing waits for the card until the tokens come back.
+    sampled from the prompt's logits, then one a decode step ((B, 0) at
+    ``max_new_tokens=0``, with no prefill).  The reference also runs a last
+    step whose token it drops; that step is not run here.  Nothing waits
+    for the card until the tokens come back.
     """
     dev = resolve_device(bundle.device)
     prompt_len = batch["tokens"].shape[1]
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0 (got {max_new_tokens})")
+    if max_new_tokens == 0:
+        return np.zeros((len(batch["tokens"]), 0), np.int32)
     gen = (torch.Generator(device=dev).manual_seed(seed)
            if temperature > 0 else None)
     with torch.no_grad():

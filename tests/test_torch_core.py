@@ -188,7 +188,8 @@ def _imported_names(path: Path) -> list[str]:
 
 EXAMPLES = [ROOT / "examples" / f"{n}_torch.py"
             for n in ("quickstart", "similarity_search", "dedup_pipeline",
-                      "hash_features_classifier", "variance_validation")]
+                      "hash_features_classifier", "variance_validation",
+                      "train_lm")]
 
 
 def test_no_port_file_names_jax_or_repro_in_an_import():

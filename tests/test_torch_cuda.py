@@ -21,6 +21,7 @@ Without a card every test here skips.
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1216,3 +1217,114 @@ def test_lm_bf16_generate_on_the_card(cuda, arch):
     assert np.array_equal(toks, generate(bundle, params, batch,
                                          max_new_tokens=6))
     assert {n: k.launches for n, k in all_kernels().items()} == before
+
+
+# -- LM training: the card against the port's CPU path ------------------------
+
+TRAIN_FAMILIES = ("llama3_2_1b", "qwen3_moe_30b_a3b", "falcon_mamba_7b",
+                  "hymba_1_5b", "pixtral_12b", "seamless_m4t_medium")
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch):
+    """Two ``make_train_step`` steps (the second microbatched) of each
+    family, reduced to d_model 64 in float32 with TF32 off: losses and grad
+    norms within 1e-5 relative (sums in other orders), the parameters and
+    moments after within 1e-4, a tenth of a step's move at lr 1e-3 (AdamW
+    moves a parameter by about lr whatever its gradient's size, so a
+    gradient near 0 that rounds differently moves it differently)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    cfg, cpu, params, card, card_params, batch = _lm_case(arch, monkeypatch)
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+    states = [(params, init_opt_state(params)),
+              (card_params, init_opt_state(card_params))]
+    for n in (1, 2):
+        step = [make_train_step(b, dataclasses.replace(tc, microbatches=n))
+                for b in (cpu, card)]
+        out = [s(p, o, batch) for s, (p, o) in zip(step, states)]
+        states = [(p, o) for p, o, _ in out]
+        (_, _, want), (_, _, got) = out
+        for k in ("loss", "grad_norm", "lr"):
+            assert got[k].device.type == "cuda"
+            assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5)
+    (wp, wo), (gp, go) = states
+    for a, b in zip([*gp.parameters(), *go.mu.parameters(),
+                     *go.nu.parameters()],
+                    [*wp.parameters(), *wo.mu.parameters(),
+                     *wo.nu.parameters()]):
+        assert a.device.type == "cuda"
+        assert _lm_err(a, b) < 1e-4
+    assert int(go.step) == 2 and go.step.device.type == "cuda"
+
+
+def test_lm_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A state trained on the card, saved, restored onto the CPU's tree and
+    onto the card (``device=``): every leaf equal."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    cfg = reduced(get_config("llama3_2_1b"))
+    card = build(cfg, device="cuda")
+    params = card.init(0)
+    opt = init_opt_state(params)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size_real, (4, 32)).astype(np.int32)}
+    params, opt, _ = make_train_step(card, TrainConfig())(params, opt, batch)
+    state = {"params": params, "opt": opt}
+    ckpt.save_checkpoint(str(tmp_path), 1, state)
+    host = build(cfg, device="cpu").init(1)
+    target = {"params": host, "opt": init_opt_state(host)}
+    _, on_cpu = ckpt.restore_checkpoint(str(tmp_path), target)
+    _, on_card = ckpt.restore_checkpoint(str(tmp_path), target,
+                                         device="cuda")
+    want = ckpt._flatten(ckpt.host_tree(state))
+    for got, dev in ((on_cpu, "cpu"), (on_card, "cuda")):
+        assert next(got["params"].parameters()).device.type == dev
+        assert got["opt"].step.device.type == dev
+        flat = ckpt._flatten(ckpt.host_tree(got))
+        assert [p for p, _ in flat] == [p for p, _ in want]
+        for (path, a), (_, b) in zip(flat, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b), path
+
+
+def test_lm_train_loop_restarts_on_the_card(cuda, tmp_path):
+    """``TrainLoop`` on the card: stopped after 3 of 5 steps, restarted from
+    its checkpoint, its losses and final parameters equal an uninterrupted
+    run's exactly."""
+    import itertools
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import TrainLoop
+    cfg = reduced(get_config("llama3_2_1b"))
+    bundle = build(cfg, device="cuda")
+    tc = TrainConfig(total_steps=5, checkpoint_every=2, keep_checkpoints=1,
+                     warmup_steps=1)
+    batches = list(itertools.islice(token_batches(cfg.vocab_size_real, 4,
+                                                  32, seed=2), 5))
+    whole = TrainLoop(bundle, tc, iter(batches), str(tmp_path / "a"),
+                      log=lambda *_: None).run()
+    loop = TrainLoop(bundle, tc, iter(batches), str(tmp_path / "b"),
+                     log=lambda *_: None)
+
+    def stopping():
+        for i, b in enumerate(batches):
+            if i == 2:
+                loop.stop()
+            yield b
+    loop.data = stopping()
+    first = loop.run()
+    assert ckpt.committed_steps(str(tmp_path / "b")) == [3]
+    second = TrainLoop(bundle, tc, iter(batches[3:]), str(tmp_path / "b"),
+                       log=lambda *_: None).run()
+    assert first["losses"] + second["losses"] == whole["losses"]
+    for a, b in zip(whole["params"].parameters(),
+                    second["params"].parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)

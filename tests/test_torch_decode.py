@@ -101,6 +101,19 @@ def test_greedy_generate_matches_reference(family):
     assert np.array_equal(want, got)
 
 
+@pytest.mark.parametrize("n_new", [0, 1])
+def test_generate_of_zero_and_one_tokens_matches_reference(n_new):
+    """At 0 new tokens the reference scans over no keys and returns (B, 0);
+    at 1, the token sampled from the prompt's logits."""
+    rb, params, tb, tp = _models("llama3_2_1b", dtype="float32")
+    batch = _batch(tb.cfg, np.random.default_rng(2), b=2, s=8)
+    want = ref_generate(rb, params, batch, max_new_tokens=n_new)
+    got = generate(tb, tp, batch, max_new_tokens=n_new)
+    assert want.shape == (2, n_new)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert np.array_equal(want, got)
+
+
 def test_sample_token():
     logits = torch.tensor([[0.0, 2.0, 2.0, -1.0], [5.0, 1.0, 0.0, 5.0]])
     # greedy: the first maximum, as jnp.argmax

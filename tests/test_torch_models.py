@@ -422,6 +422,31 @@ def test_init_cache_matches_reference():
         t_tf.kv_eff_heads(tcfg, tp=2)
 
 
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "seamless_m4t_medium"])
+def test_init_cache_and_prefill_take_tp(arch):
+    """``tp=1`` (the reference's keyword) gives what the call without it
+    gives; ``tp=2`` raises and names the roadmap's mesh item."""
+    rb, params, tb, tp = _models(arch, dtype="float32")
+    batch = _batch(tb.cfg, np.random.default_rng(4), b=2, s=12)
+    (l1, c1), (l0, c0) = (tb.prefill(tp, batch, max_len=16, tp=1),
+                          tb.prefill(tp, batch, max_len=16))
+    assert torch.equal(l1, l0) and set(c1) == set(c0)
+    assert all(torch.equal(c1[k], c0[k]) for k in c0)
+    with pytest.raises(NotImplementedError, match="mesh paths"):
+        tb.prefill(tp, batch, max_len=16, tp=2)
+    if tb.cfg.is_encdec:
+        with pytest.raises(NotImplementedError, match="prefill"):
+            tb.init_cache(2, 16, tp=1)
+        return
+    ones, none = tb.init_cache(2, 16, tp=1), tb.init_cache(2, 16)
+    assert set(ones) == set(none)
+    assert all(torch.equal(ones[k], none[k]) for k in none)
+    want = rb.init_cache(2, 16, tp=1)
+    assert all(np.array_equal(_np(want[k]), _np(ones[k])) for k in want)
+    with pytest.raises(NotImplementedError, match="mesh paths"):
+        tb.init_cache(2, 16, tp=2)
+
+
 def test_causal_conv_and_ssm_decode_step_match_reference():
     rng = np.random.default_rng(11)
     x, w, b = _rand(rng, 2, 9, 12), _rand(rng, 4, 12), _rand(rng, 12)
