@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the similarity-search serving
 path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup,
-the hashed-feature trainer, the LM serving path and LM training on one
-NVIDIA card, with its hand-written kernels (six CUDA sources).
+the hashed-feature trainer, the LM serving path, LM training on one NVIDIA
+card and the mesh paths over two ranks sharing it, with its hand-written
+kernels (six CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
@@ -291,11 +292,39 @@ printed then:
     launch (400 documents, D = 2^14, K = 256) against its plain version,
     tolerance 0, timed and bounded as in phase 3.
 
-``launches`` in the kernels line is the sum over the fourteen counted paths
+14. The mesh paths over two ranks sharing the card (``mesh_path``,
+    ``[mesh]`` lines), its counts set to 0 just before and read just
+    after: no kernel launches (the LM stack reaches none).  Two processes
+    (``launch.ranks.RankPool``, the spawn context) join one gloo process
+    group on ``cuda:0`` (NCCL takes one rank a card); the script is their
+    subreaper and closes the pool in a ``finally``.  TF32 off throughout.
+    (a) ``llama3_2_1b`` at its full published config in float32, batch 8
+    x 128 from ``--seed``: one ``make_train_step`` step on one device in
+    this process (its parameters to a temporary file, then a second step
+    timed with CUDA events), the card freed; then the same first step on
+    a ``(1, 2)`` mesh, ``sharding_mode="tp"`` (``jit_train_step``, each
+    rank its slices of the same seeded weights): loss and grad norm
+    within 1e-4 (relative), every parameter within 2 x lr of one device's,
+    each rank's peak memory below the one device's, no weight all-gather;
+    a second step timed.  Prints the collectives by kind (calls, bytes;
+    gloo carries every kind on CUDA tensors, through the host inside the
+    backend).  (b)
+    ``qwen3_moe_30b_a3b`` at its published widths, 2 layers, float32,
+    capacity 64: the expert-parallel forward of 8 x 32 tokens on ``(1,
+    2)`` within 1e-4 of one device's.  (c) llama3_2_1b's widths at 2
+    layers on ``(2, 1)``: ZeRO-1 off and on, and ``sharding_mode="fsdp"``,
+    each against one device's step as in (a).  (d) A ZeRO-1 state (llama
+    reduced to d_model 512, vocab 8192, 2 layers) saved on ``(2, 1)``,
+    restored on ``(1, 2)`` and saved again: both directories byte-equal
+    to one device's save of the restored state.  (e) ``compressed_psum``
+    bf16 and int8 with error feedback on CUDA tensors of the two ranks:
+    within 0.05 of the exact sum, the 20-step int8 mean within 0.02.
+
+``launches`` in the kernels line is the sum over the fifteen counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
 phase 5c's tcp path, coordinator and workers, phase 5d's two planes,
-coordinator and lanes, phase 5e's two streams, phases 6, 7, 10, 11, 12
-and 13).
+coordinator and lanes, phase 5e's two streams, phases 6, 7, 10, 11, 12,
+13 and 14).
 
 The script makes itself the subreaper of what it starts
 (``PR_SET_CHILD_SUBREAPER``).  Before its result it stops and reaps every
@@ -3243,6 +3272,461 @@ def train_path(seed: int, report: dict) -> None:
           f"{launches}")
 
 
+MESH_LR = 3e-4                # the launcher's lr; warmup 0, so step 1 runs
+MESH_MOE_ARCH = "qwen3_moe_30b_a3b"
+MESH_MOE_LAYERS = 2           # (b): published widths, depth cut
+MESH_MOE_ROWS, MESH_MOE_SEQ = 8, 32
+MESH_TOL = 1e-4               # loss and grad norm (relative), MoE logits
+MESH_GRAD_TOL = 1e-5          # gradients, x the leaf's largest gradient
+MESH_PSUM_STEPS = 20          # (e): error-feedback steps
+MESH_TIMEOUT = 240.0          # seconds a rank may take for one call
+
+
+def _no_tf32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_counts(before: dict) -> dict:
+    from repro_torch.distributed import collectives as col
+    return {k: v - before.get(k, 0) for k, v in col.counters().items()
+            if v - before.get(k, 0)}
+
+
+def _mesh_rank(fn, *args) -> dict:
+    """``fn(*args)`` on a rank of phase 14, the rank's kernel counts set to
+    0 just before and read just after (``launches`` in the result)."""
+    ks = kernels()
+    zero_counts(ks)
+    out = fn(*args)
+    out["launches"] = read_counts(ks)
+    return out
+
+
+def _mesh_rank_step(cfg, tc, shape, batch, seed, want_path, grad_path,
+                    timed):
+    """A rank of phase 14 (a), (c): its slices of the parameters drawn
+    from ``seed``; the gradients a step hands its update, held against the
+    single device's (``grad_path``) relative to each leaf's largest; one
+    step through ``jit_train_step``, held against the single device's
+    parameters after the same step (``want_path``); with ``timed``, a
+    second step timed with CUDA events."""
+    from repro_torch.convert import reference_path
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import stacked_shapes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train.train_loop import (init_train_state,
+                                              jit_train_step, mesh_gradients,
+                                              train_state_shardings)
+    _no_tf32()
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    full = bundle.init(seed)
+    p_sh, _ = train_state_shardings(full, tc, mesh)
+    shapes = stacked_shapes(full)
+    params, opt = init_train_state(full, tc, mesh)
+    del full
+    want = torch.load(grad_path, mmap=True, weights_only=True)
+    grad_err = 0.0
+    for name, sl, g in mesh_gradients(bundle, tc, mesh, params, batch):
+        w = want[name].cuda()
+        scale = max(float(w.abs().max()), 1e-30)
+        grad_err = max(grad_err, float((g - w[sl]).abs().max()) / scale)
+    del want, w, g
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for tree in (params, opt.mu,
+                                                         opt.nu)
+               for t in tree.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    step = jit_train_step(bundle, tc, mesh)
+    before = col.counters()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    counts = _rank_counts(before)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "lr": float(m["lr"]), "counts": counts, "state_bytes": held,
+           "grad_err": grad_err}
+    want = torch.load(want_path, mmap=True, weights_only=True)
+    err = 0.0
+    for name, p in params.named_parameters():
+        rel, i = reference_path(name)
+        sl = p_sh[rel].slices(shapes[rel])
+        w = want[name][sl if i is None else sl[1:]]
+        err = max(err, float((p.detach().cpu() - w).abs().max()))
+    out["param_err"] = err
+    del want
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = col.counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out.update(step_ms=start.elapsed_time(end),
+                   wall_ms=(time.perf_counter() - t0) * 1e3,
+                   timed_counts=_rank_counts(before))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _mesh_rank_moe(cfg, batch, seed, want_path):
+    """Phase 14 (b) on a rank: expert parallelism over (1, 2)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    _no_tf32()
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(1, 2, device="cuda")
+    full = bundle.init(seed)
+    local = shard_tree(full, param_shardings(full, mesh))
+    del full
+    torch.cuda.empty_cache()
+    before = col.counters()
+    logits = bundle.forward(local, batch, mesh=mesh)
+    torch.cuda.synchronize()
+    want = torch.from_numpy(np.load(want_path))
+    return {"err": float((logits.cpu() - want).abs().max()),
+            "counts": _rank_counts(before),
+            "held": sum(p.numel() for p in local.parameters())}
+
+
+def _mesh_rank_save(cfg, tc, shape, batch, seed, d):
+    """Phase 14 (d): a ZeRO-1 step on ``shape``, then a sharded save."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import (init_train_state,
+                                              jit_train_step,
+                                              train_state_shardings)
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    full = bundle.init(seed)
+    p_sh, o_sh = train_state_shardings(full, tc, mesh)
+    params, opt = init_train_state(full, tc, mesh)
+    params, opt, _ = jit_train_step(bundle, tc, mesh)(params, opt, batch)
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(d, 1, {"params": params, "opt": opt},
+                         shardings={"params": p_sh, "opt": o_sh})
+    return {"save_s": time.perf_counter() - t0,
+            "moments_held": sum(t.numel() for t in opt.mu.parameters())}
+
+
+def _mesh_rank_restore(cfg, tc, shape, src, dst, seed):
+    """Phase 14 (d): restore ``src`` onto another mesh, save it again."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import (init_train_state,
+                                              train_state_shardings)
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    full = bundle.init(seed + 1)           # other values: all restored
+    p_sh, o_sh = train_state_shardings(full, tc, mesh)
+    params, opt = init_train_state(full, tc, mesh)
+    shardings = {"params": p_sh, "opt": o_sh}
+    t0 = time.perf_counter()
+    step, state = ckpt.restore_checkpoint(
+        src, {"params": params, "opt": opt}, shardings=shardings)
+    restore_s = time.perf_counter() - t0
+    ckpt.save_checkpoint(dst, step, state, shardings=shardings)
+    return {"step": step, "restore_s": restore_s}
+
+
+def _mesh_rank_psum(g_all, steps):
+    """Phase 14 (e): ``compressed_psum`` bf16 and int8 (error feedback) on
+    CUDA tensors over the two ranks' ``data`` axis."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import coordinate
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(2, 1, device="cuda")
+    r = coordinate(mesh)["data"]
+    grads = {"w": torch.from_numpy(g_all[r]).cuda()}
+    before = col.counters()
+    bf16, _ = col.compressed_psum(grads, "bf16", ("data",), mesh=mesh)
+    err = col.init_error_feedback(grads)
+    int8 = []
+    for _ in range(steps):
+        out, err = col.compressed_psum(grads, "int8", ("data",), err,
+                                       mesh=mesh)
+        int8.append(out["w"].cpu().numpy())
+    return {"bf16": bf16["w"].cpu().numpy(), "int8": int8,
+            "device": str(grads["w"].device), "counts": _rank_counts(before)}
+
+
+def _counts_line(counts: dict) -> str:
+    kinds = sorted({k.split(".")[1] for k in counts
+                    if k.endswith(".calls")})
+    return "; ".join(f"{k} {counts[f'mesh.{k}.calls']} calls "
+                     f"{counts.get(f'mesh.{k}.bytes', 0)} B" for k in kinds)
+
+
+def mesh_path(seed: int, report: dict) -> None:
+    """Phase 14: the mesh paths over two ranks sharing the card (gloo).
+    (a) llama3_2_1b at full width, float32, TF32 off: one step on one
+    device, then the same step tensor parallel on (1, 2); (b) qwen3_moe at
+    published widths, 2 layers: the expert-parallel forward on (1, 2)
+    against the one-device fallback; (c) llama widths at 2 layers, data
+    parallel on (2, 1): ZeRO-1 off and on, and FSDP; (d) an elastic
+    checkpoint at reduced widths (d_model 512, vocab 8192, 2 layers): a
+    ZeRO-1 state saved on (2, 1), restored on (1, 2) and saved again, the
+    files byte-equal to the one device's; (e) ``compressed_psum`` bf16 and
+    int8 on CUDA tensors.  In (a) and (c) each rank's gradients are held
+    against one device's, and its parameters after the step.  Reaches no
+    kernel of the port: the parent's counts and each rank's, each set to 0
+    just before its part, summed."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.ranks import RankPool
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    ks_all = kernels()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts(ks_all)
+    _no_tf32()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out: dict = {"card": card}
+    pool = None
+    rank_launches: list = []
+
+    def run(fn, *args) -> list:
+        """``fn(*args)`` on both ranks, their kernel counts kept."""
+        res = pool.run(_mesh_rank, fn, *args)
+        rank_launches.extend(r["launches"] for r in res)
+        return res
+
+    try:
+        # --- the mesh path ---------------------------------------------------
+        # (a) one device, then (1, 2) tensor parallel, full width
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+        tc = TrainConfig(learning_rate=MESH_LR, warmup_steps=0,
+                         total_steps=TRAIN_STEPS)
+        batch = next(token_batches(cfg.vocab_size_real, TRAIN_BATCH,
+                                   TRAIN_SEQ, seed + 4))
+        a_paths = (os.path.join(tmp, "a.pt"), os.path.join(tmp, "a_g.pt"))
+        single = _one_device_step(cfg, tc, batch, seed, *a_paths,
+                                  timed=True)
+        t0 = time.perf_counter()
+        pool = RankPool(2, device="cuda", timeout=MESH_TIMEOUT)
+        boot_s = time.perf_counter() - t0
+        ranks = run(_mesh_rank_step, cfg, tc, (1, 2), batch, seed, *a_paths,
+                    True)
+        rel = {k: max(abs(r[k] - single[k]) / abs(single[k]) for r in ranks)
+               for k in ("loss", "grad_norm")}
+        p_err = max(r["param_err"] for r in ranks)
+        g_err = max(r["grad_err"] for r in ranks)
+        require(max(rel.values()) < MESH_TOL, f"(1, 2) tensor parallel loss "
+                f"and grad norm within {MESH_TOL} of one device ({rel})")
+        require(g_err <= MESH_GRAD_TOL, f"(1, 2) gradients within "
+                f"{MESH_GRAD_TOL} x each leaf's largest of one device's "
+                f"({g_err})")
+        require(p_err <= 2 * single["lr"], f"(1, 2) parameters within 2 x "
+                f"lr of one device ({p_err})")
+        require(all(r["peak"] < single["peak"] for r in ranks),
+                "each rank's peak below the one device's")
+        require(all("mesh.all_gather.calls" not in r["counts"]
+                    for r in ranks), "tensor parallel gathers no weight")
+        print(f"[mesh] (a) {TRAIN_ARCH} full width ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}), float32, "
+              f"TF32 off, batch {TRAIN_BATCH} x {TRAIN_SEQ}, lr "
+              f"{single['lr']:.3e}, two gloo ranks on one card (boot "
+              f"{boot_s:.1f} s); {card}")
+        print(f"[mesh] (a) one device: loss {single['loss']:.6f}, grad norm "
+              f"{single['grad_norm']:.6f}, step {single['step_ms']:.3f} ms "
+              f"(CUDA events, the second step), peak {single['peak']} B")
+        for i, r in enumerate(ranks):
+            print(f"[mesh] (a) (1, 2) rank {i}: loss rel {abs(r['loss'] - single['loss']) / abs(single['loss']):.2e}, "
+                  f"grad norm rel {abs(r['grad_norm'] - single['grad_norm']) / abs(single['grad_norm']):.2e}, "
+                  f"gradients {r['grad_err']:.2e} of each leaf's largest "
+                  f"(bound {MESH_GRAD_TOL:.0e}), "
+                  f"largest parameter difference {r['param_err']:.2e} "
+                  f"(2 x lr = {2 * single['lr']:.1e}); step "
+                  f"{r['step_ms']:.3f} ms (host wall {r['wall_ms']:.3f}); "
+                  f"peak {r['peak']} B; parameters + moments held "
+                  f"{r['state_bytes']} B; a step's collectives: "
+                  + _counts_line(r["timed_counts"]))
+        out["tp"] = {"single": single, "ranks": ranks, "rel": rel,
+                     "grad_err": g_err, "param_err": p_err,
+                     "boot_s": boot_s}
+
+        # (b) expert-parallel MoE forward
+        mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                                   n_layers=MESH_MOE_LAYERS, dtype="float32",
+                                   capacity_factor=64.0)
+        rng = np.random.default_rng(seed + 5)
+        mbatch = {"tokens": rng.integers(0, mcfg.vocab_size_real, (
+            MESH_MOE_ROWS, MESH_MOE_SEQ)).astype(np.int32)}
+        bundle = build(mcfg, device="cuda")
+        params = bundle.init(seed)
+        n_moe = sum(p.numel() for p in params.parameters())
+        np.save(os.path.join(tmp, "moe.npy"),
+                bundle.forward(params, mbatch).cpu().numpy())
+        del bundle, params
+        torch.cuda.empty_cache()
+        moe = run(_mesh_rank_moe, mcfg, mbatch, seed,
+                  os.path.join(tmp, "moe.npy"))
+        require(all(r["err"] < MESH_TOL for r in moe), f"the expert-parallel "
+                f"forward within {MESH_TOL} of the fallback "
+                f"({[r['err'] for r in moe]})")
+        print(f"[mesh] (b) {MESH_MOE_ARCH} (d_model {mcfg.d_model}, "
+              f"{mcfg.n_experts} experts top-{mcfg.top_k}, d_ff {mcfg.d_ff}, "
+              f"vocab {mcfg.vocab_size}, {MESH_MOE_LAYERS} layers, float32, "
+              f"capacity 64) forward of {MESH_MOE_ROWS} x {MESH_MOE_SEQ} on "
+              f"(1, 2): largest logit difference "
+              f"{max(r['err'] for r in moe):.2e} from one device; each rank "
+              f"holds {moe[0]['held']} of {n_moe} parameters; "
+              + _counts_line(moe[0]["counts"]))
+        out["moe"] = {"ranks": moe, "params": n_moe}
+
+        # (c) data parallel on (2, 1), 2 layers
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+        c_paths = (os.path.join(tmp, "c.pt"), os.path.join(tmp, "c_g.pt"))
+        one = _one_device_step(cut, tc, batch, seed, *c_paths, timed=False)
+        out["dp"] = {"single": one}
+        for mode, zero1 in (("tp", False), ("tp", True), ("fsdp", False)):
+            ctc = dataclasses.replace(tc, sharding_mode=mode, zero1=zero1)
+            t0 = time.perf_counter()
+            dp = run(_mesh_rank_step, cut, ctc, (2, 1), batch, seed,
+                     *c_paths, False)
+            secs = time.perf_counter() - t0
+            rel = {k: max(abs(r[k] - one[k]) / abs(one[k]) for r in dp)
+                   for k in ("loss", "grad_norm")}
+            err = max(r["param_err"] for r in dp)
+            g_err = max(r["grad_err"] for r in dp)
+            tag = f"{mode}{', ZeRO-1' if zero1 else ''}"
+            require(max(rel.values()) < MESH_TOL and g_err <= MESH_GRAD_TOL
+                    and err <= 2 * one["lr"],
+                    f"(2, 1) {tag}: loss, grad norm within {MESH_TOL}, "
+                    f"gradients within {MESH_GRAD_TOL} x each leaf's "
+                    f"largest and parameters within 2 x lr of one device "
+                    f"({rel}, {g_err}, {err})")
+            print(f"[mesh] (c) (2, 1) {tag}, {TRAIN_CUT_LAYERS} layers at "
+                  f"full width: loss rel {rel['loss']:.2e}, grad norm rel "
+                  f"{rel['grad_norm']:.2e}, gradients {g_err:.2e}, "
+                  f"parameters {err:.2e}; "
+                  f"parameters + moments held {dp[0]['state_bytes']} B a "
+                  f"rank; {secs:.1f} s; "
+                  + _counts_line(dp[0]["counts"]))
+            out["dp"][tag] = {"ranks": dp, "rel": rel, "grad_err": g_err,
+                              "param_err": err, "seconds": secs}
+
+        # (d) elastic checkpoint: (2, 1) -> (1, 2), bytes against one device
+        small = dataclasses.replace(reduced(get_config(TRAIN_ARCH),
+                                            d_model=512, vocab=8192),
+                                    dtype="float32")
+        ztc = dataclasses.replace(tc, zero1=True)
+        sbatch = next(token_batches(small.vocab_size_real, TRAIN_BATCH,
+                                    TRAIN_SEQ, seed + 6))
+        a, b, c = (os.path.join(tmp, n) for n in ("ck_a", "ck_b", "ck_c"))
+        saved = run(_mesh_rank_save, small, ztc, (2, 1), sbatch, seed, a)
+        restored = run(_mesh_rank_restore, small, ztc, (1, 2), a, b, seed)
+        host = build(small, device="cpu").init(seed)
+        _, state = ckpt.restore_checkpoint(a, {
+            "params": host, "opt": init_opt_state(host)})
+        ckpt.save_checkpoint(c, 1, state)
+        files = sorted(os.listdir(os.path.join(c, "step_00000001")))
+        same = all(open(os.path.join(d, "step_00000001", f), "rb").read()
+                   == open(os.path.join(c, "step_00000001", f), "rb").read()
+                   for d in (a, b) for f in files)
+        require(same and all(r["step"] == 1 for r in restored),
+                "the (2, 1) save and its (1, 2) restore-and-save write the "
+                "one device's files byte for byte")
+        n_bytes = sum(os.path.getsize(os.path.join(c, "step_00000001", f))
+                      for f in files)
+        print(f"[mesh] (d) ZeRO-1 state of {TRAIN_ARCH} reduced (d_model "
+              f"512, vocab 8192, 2 layers) saved on (2, 1) (each rank held "
+              f"{saved[0]['moments_held']} moment elements a tree), "
+              f"restored on (1, 2) in {restored[0]['restore_s']:.2f} s and "
+              f"saved again: {len(files)} files, {n_bytes} B, byte-equal to "
+              f"the one device's save")
+        out["elastic"] = {"saved": saved, "restored": restored,
+                          "files": len(files), "bytes": n_bytes}
+
+        # (e) compressed psum on CUDA tensors
+        g_all = np.random.default_rng(seed + 7).normal(
+            size=(2, 256, 1024)).astype(np.float32)
+        exact = g_all.sum(0)
+        ps = run(_mesh_rank_psum, g_all, MESH_PSUM_STEPS)
+        scale = np.abs(exact).max()
+        bf16 = max(np.abs(r["bf16"] - exact).max() / scale for r in ps)
+        int8 = max(np.abs(r["int8"][0] - exact).max() / scale for r in ps)
+        mean = max(np.abs(np.mean(r["int8"], 0) - exact).max() / scale
+                   for r in ps)
+        require(bf16 < 0.05 and int8 < 0.05 and mean < 0.02
+                and all(r["device"].startswith("cuda") for r in ps),
+                f"compressed psum within its bounds ({bf16}, {int8}, {mean})")
+        print(f"[mesh] (e) compressed_psum over 2 ranks, 256 x 1024 float32 "
+              f"on the card: bf16 {bf16:.2e} relative (bound 0.05), int8 "
+              f"{int8:.2e} a step (0.05), mean of {MESH_PSUM_STEPS} "
+              f"error-feedback steps {mean:.2e} (0.02); "
+              + _counts_line(ps[0]["counts"]))
+        out["psum"] = {"bf16": float(bf16), "int8": float(int8),
+                       "int8_mean": float(mean), "counts": ps[0]["counts"]}
+        # ---------------------------------------------------------------------
+    finally:
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    parent = read_counts(ks_all)
+    launches = {n: parent[n] + sum(r[n] for r in rank_launches)
+                for n in ks_all}
+    require(sum(launches.values()) == 0, "the mesh paths launch no kernel "
+            f"of the port, the parent's and both ranks' counts summed "
+            f"({launches})")
+    out.update(launches=launches, launches_parent=parent,
+               launches_ranks=rank_launches,
+               wall_s=time.perf_counter() - t_phase)
+    report["mesh_path"] = out
+    print(f"[mesh] phase {out['wall_s']:.1f} s; kernel launches {launches}")
+
+
+def _one_device_step(cfg, tc, batch, seed, path, grad_path, timed
+                     ) -> dict:
+    """One ``make_train_step`` step of ``cfg`` on one device of the card
+    from ``seed``'s weights: the loss's gradients at those weights, to
+    ``grad_path``; the parameters after the step, to ``path``; with
+    ``timed``, a second step timed with CUDA events.  Frees the card."""
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import loss_and_grads, make_train_step
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(seed)
+    opt = init_opt_state(params)
+    _, _, grads = loss_and_grads(bundle, params, batch)
+    torch.save({n: g.cpu() for (n, _), g in zip(params.named_parameters(),
+                                                grads, strict=True)},
+               grad_path)
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(bundle, tc)
+    params, opt, m = step(params, opt, batch)
+    out = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
+               path)
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"] = start.elapsed_time(end)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del bundle, params, opt, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
@@ -3847,11 +4331,13 @@ def main() -> None:
     lm_path(args.seed, report)
     torch.cuda.empty_cache()
     train_path(args.seed, report)
+    torch.cuda.empty_cache()
+    mesh_path(args.seed, report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
              "tcp_path", "replica_path", "chaos_path", "stream_path",
              "dense_path", "paper_path", "dedup_path", "linear_path",
-             "lm_path", "train_path")
+             "lm_path", "train_path", "mesh_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)

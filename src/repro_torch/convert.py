@@ -74,33 +74,34 @@ def lm_params_from_jax(params: dict, cfg, device: str | torch.device):
     pytree as host arrays, ``jax.tree.map(np.asarray, params)``, layers
     stacked on a leading L axis) -> the port's ``ParamTree`` on ``device``,
     one module a layer, for ``repro_torch.models.build(cfg)``'s functions.
-    Decoder families and encdec alike."""
+    Decoder families and encdec alike.  The leaves come in the order the
+    port's ``init`` makes them (``jax.tree`` sorts a dict's keys)."""
     from .models import encdec, transformer
     dev = resolve_device(device)
-
-    def tree(x, i=None):
-        if isinstance(x, dict):
-            return {k: tree(v, i) for k, v in x.items()}
-        a = np.asarray(x)
-        return torch.tensor(a if i is None else a[i], device=dev)
-
     depth = ({"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
              if cfg.is_encdec else {"layers": cfg.n_layers})
-    out = {}
-    for name, x in params.items():
-        if name not in depth:
-            out[name] = tree(x)
-            continue
-        for leaf in _leaves(x):
-            if np.shape(leaf)[0] != depth[name]:
+    for name, n_layers in depth.items():
+        for leaf in _leaves(params.get(name, {})):
+            if np.shape(leaf)[0] != n_layers:
                 raise ValueError(f"{name}: {np.shape(leaf)[0]} layers "
-                                 f"stacked, cfg has {depth[name]}")
-        out[name] = [tree(x, i) for i in range(depth[name])]
-    model = (encdec if cfg.is_encdec else transformer).params_from_tree(out)
-    n = sum(p.numel() for p in model.parameters())
+                                 f"stacked, cfg has {n_layers}")
+    n = sum(int(np.prod(np.shape(leaf))) for leaf in _leaves(params))
     if n != cfg.param_count():
         raise ValueError(f"{n} parameters, {cfg.name} has {cfg.param_count()}")
-    return model
+    meta = (encdec if cfg.is_encdec else transformer).init_params(
+        0, cfg, "meta")
+
+    def leaf(name: str, like: torch.Tensor) -> torch.Tensor:
+        rel, i = reference_path(name)
+        a = params
+        for part in rel.split("/"):
+            a = a[part]
+        a = np.asarray(a) if i is None else np.asarray(a)[i]
+        if tuple(a.shape) != tuple(like.shape):
+            raise ValueError(f"{name}: shape {a.shape}, {cfg.name} has "
+                             f"{tuple(like.shape)}")
+        return torch.tensor(a, device=dev)
+    return meta.map(leaf)
 
 
 def _leaves(x) -> list:

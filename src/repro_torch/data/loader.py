@@ -1,7 +1,8 @@
-"""Host data loading: packing deduplicated documents into token batches, and
-a prefetch thread that keeps batches ready (overlaps host data prep with
-device work).  Copies of ``repro.data.loader``'s ``PrefetchIterator`` and
-``deduped_token_batches``; the mesh placer waits for the LM stack.
+"""Host data loading: packing deduplicated documents into token batches, a
+prefetch thread that keeps batches ready (overlaps host data prep with
+device work), and the placer that gives each rank of a mesh its rows.
+Copies of ``repro.data.loader``'s ``PrefetchIterator``,
+``device_placer`` and ``deduped_token_batches``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,27 @@ class PrefetchIterator:
         if item is self._done:
             raise StopIteration
         return item
+
+
+def device_placer(mesh, shardings_fn: Callable) -> Callable:
+    """Returns a function placing a host batch onto the mesh with the given
+    sharding builder (e.g. ``distributed.sharding.batch_shardings``): each
+    rank gets its slice of every array (``local_slices``), on the mesh's
+    device."""
+    import torch
+
+    device = torch.device(mesh.device_type)
+
+    def place(batch: dict):
+        shardings = shardings_fn(batch, mesh)
+        out = {}
+        for k, x in batch.items():
+            x = x.cpu() if isinstance(x, torch.Tensor) else np.asarray(x)
+            out[k] = torch.as_tensor(x[shardings[k].slices(x.shape)]) \
+                .to(device)
+        return out
+
+    return place
 
 
 def deduped_token_batches(docs: list[np.ndarray], keep: np.ndarray,

@@ -31,6 +31,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def resolve_or_meta(device: str | torch.device) -> torch.device:
+    """``resolve_device``, or the meta device: shapes and dtypes with no
+    storage (``launch.specs``)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def u32_to_device(words, device: torch.device) -> torch.Tensor:
     """Host uint32 array (any int array of uint32 values) -> int32 tensor
     with the same bits on ``device`` (always a copy)."""

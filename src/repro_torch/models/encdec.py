@@ -15,10 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE
 from .layers import (ParamTree, _project, apply_rope, attention_block,
-                     decode_attention, init_attention, init_mlp, mlp_block,
-                     normal_init, project_kv, rmsnorm)
+                     decode_attention, generator, init_attention, init_mlp,
+                     mlp_block, normal_init, project_kv, rmsnorm)
 from .transformer import _dtype, _pdtype, _repeat_kv_to, kv_eff_heads, remat
 
 Tensor = torch.Tensor
@@ -53,8 +53,8 @@ def init_params(seed: int, cfg, device: str | torch.device = DEFAULT_DEVICE
                 ) -> ParamTree:
     """Random weights drawn on ``device`` from ``seed`` (raises for the card
     without one)."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(seed, device)
+    dev = gen.device
     dt = _pdtype(cfg)
     return params_from_tree({
         "enc_layers": [init_enc_layer(gen, cfg)
@@ -112,8 +112,8 @@ def forward(params, frames: Tensor, tokens: Tensor, cfg
 
 def prefill(params, frames: Tensor, tokens: Tensor, cfg, *, tp: int = 1,
             max_len: int | None = None) -> tuple[Tensor, dict]:
-    """Encode + run the decoder prompt; returns (last logits, cache).
-    ``tp`` must be 1 (``kv_eff_heads``)."""
+    """Encode + run the decoder prompt; returns (last logits, cache); the
+    self-attention cache holds ``kv_eff_heads(cfg, tp)`` KV heads."""
     kve = kv_eff_heads(cfg, tp)
     dt = _dtype(cfg)
     enc_out = encode(params, frames, cfg)

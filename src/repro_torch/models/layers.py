@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
+
 Tensor = torch.Tensor
 NEG_INF = -1e30
 
@@ -63,11 +65,29 @@ def _map_tree(mod: nn.Module, fn, prefix: str) -> nn.Module:
 # Initializers
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands in for a ``torch.Generator`` on the meta device, where none
+    can live: ``normal_init`` draws nothing from it, so a model built from
+    it has shapes and dtypes and no storage (``launch.specs.params_shape``).
+    """
+    device = torch.device("meta")
+
+
+def generator(seed: int, device) -> "torch.Generator | ShapesOnly":
+    """The generator a model's ``init_params`` draws from on ``device``
+    (raises for the card without one), or ``ShapesOnly`` on ``meta``."""
+    if torch.device(device).type == "meta":
+        return ShapesOnly()
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
 def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale: float,
                 dtype: torch.dtype) -> Tensor:
     """N(0, scale^2) drawn in float32 from ``gen`` on its device.  torch
     cannot draw what ``jax.random`` draws: tests carry the reference's
     weights across with ``convert.lm_params_from_jax``."""
+    if isinstance(gen, ShapesOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
 
@@ -234,13 +254,25 @@ def qkv_project(p, x: Tensor, cfg) -> tuple[Tensor, Tensor, Tensor]:
 
 def attention_block(p, x: Tensor, positions: Tensor, cfg, *,
                     causal: bool = True, window: int | None = None,
-                    kv_override: tuple[Tensor, Tensor] | None = None
-                    ) -> Tensor:
+                    kv_override: tuple[Tensor, Tensor] | None = None,
+                    par=None) -> Tensor:
     """x: (B, S, D) -> (B, S, D).  ``kv_override`` supplies cross-attention
-    K/V (no rope, not causal)."""
+    K/V (no rope, not causal).  With ``par`` (a ``distributed.parallel.
+    Parallel`` whose query heads are split), the rank's heads of ``p``'s
+    local slices, then ``wo``'s partial sums summed over ``model``."""
     dtype = x.dtype
     w = cfg.sliding_window if window is None else window
-    if kv_override is None:
+    if par is not None and par.q_split:
+        xq = par.enter(x)
+        if par.kv_split:
+            q, k, v = qkv_project(p, xq, cfg)
+        else:   # KV heads replicated: projected whole, each rank's taken
+            q = _project(xq, p["wq"].to(dtype))
+            k, v = (par.local_kv(par.enter(_project(x, p[n].to(dtype))))
+                    for n in ("wk", "wv"))
+        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta)
+    elif kv_override is None:
         q, k, v = qkv_project(p, x, cfg)
         k = apply_rope(k, positions, cfg.rope_theta)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -249,7 +281,8 @@ def attention_block(p, x: Tensor, positions: Tensor, cfg, *,
         k, v = kv_override
     out = chunked_attention(q, k, v, causal=causal, window=w,
                             q_chunk=cfg.q_chunk)
-    return out.flatten(-2) @ p["wo"].to(dtype).flatten(0, 1)
+    out = out.flatten(-2) @ p["wo"].to(dtype).flatten(0, 1)
+    return par.exit(out) if par is not None and par.q_split else out
 
 
 def project_kv(p, x: Tensor, positions: Tensor, cfg) -> tuple[Tensor, Tensor]:
@@ -273,8 +306,14 @@ def init_mlp(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
-def mlp_block(p, x: Tensor) -> Tensor:
+def mlp_block(p, x: Tensor, par=None) -> Tensor:
+    """SwiGLU; with ``par`` whose ff dim is split, column-parallel gate and
+    up, row-parallel down, summed over ``model``."""
     dtype = x.dtype
+    split = par is not None and par.ff_split
+    if split:
+        x = par.enter(x)
     gate = F.silu(x @ p["w_gate"].to(dtype))
     up = x @ p["w_up"].to(dtype)
-    return (gate * up) @ p["w_down"].to(dtype)
+    y = (gate * up) @ p["w_down"].to(dtype)
+    return par.exit(y) if split else y

@@ -16,6 +16,14 @@ checkpoint written by either package restores in the other.  Restores
 build new tensors in the target tree's structure, on ``device`` or each
 target leaf's own.  Async saves run on a single background thread; the
 next save joins the previous one.
+
+Sharded state (elastic restarts: save on one mesh, restore on another):
+``shardings`` mirrors the tree with a ``{stacked path: NamedSharding}``
+dict for a ``ParamTree`` and a ``NamedSharding`` for a tensor
+(``train_loop.train_state_shardings``).  A save all-gathers every leaf
+(every rank takes part) and rank 0 writes the same files a single device
+writes; a restore reads each file memory-mapped and keeps the rank's
+slice.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ from torch import nn
 
 from ..convert import lm_params_to_numpy, reference_path
 from ..device import resolve_device
+from ..distributed import collectives as col
+from ..distributed.sharding import (NamedSharding, leaf_slices,
+                                    stacked_shapes)
 from .optimizer import OptState
 
 
@@ -44,9 +55,13 @@ def _path_str(path: tuple[str, ...]) -> str:
     return "/".join(path)
 
 
-def host_tree(tree):
+def host_tree(tree, shardings=None):
     """``tree`` (dicts, ``OptState``\\ s, ``ParamTree``\\ s, tensors, arrays)
-    as the reference's pytree of host arrays; tensors are copied."""
+    as the reference's pytree of host arrays; tensors are copied.  With
+    ``shardings``, the rank's slices are all-gathered first (a collective:
+    every rank calls it) and only rank 0 gets the arrays (others None)."""
+    if shardings is not None:
+        return _gathered(tree, shardings, _writer())
     if isinstance(tree, OptState):
         return OptState(*(host_tree(x) for x in tree))
     if isinstance(tree, dict):
@@ -56,6 +71,53 @@ def host_tree(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True).numpy()
     return np.asarray(tree)
+
+
+def _writer() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _full(local: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """A rank's block of an array all-gathered to the whole array."""
+    for dim, ax in enumerate(sharding.spec):
+        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        for a in reversed(axes):        # the minor axis first
+            local = col.all_gather(local.contiguous(), sharding.mesh, a, dim)
+    return local
+
+
+def _gathered(tree, shardings, keep: bool):
+    if isinstance(tree, OptState):
+        return OptState(*(_gathered(x, sh, keep)
+                          for x, sh in zip(tree, shardings)))
+    if isinstance(tree, dict):
+        return {k: _gathered(v, shardings[k], keep) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        full = _full(tree.detach(), shardings)
+        return full.to("cpu", copy=True).numpy() if keep else None
+    groups: dict[str, list] = {}
+    for name, p in tree.named_parameters():
+        rel, i = reference_path(name)
+        groups.setdefault(rel, []).append((i, p.detach()))
+    out: dict = {}
+    for rel, leaves in groups.items():
+        if leaves[0][0] is None:
+            local = leaves[0][1]
+        else:       # the layers this rank holds, stacked
+            local = torch.stack([p for _, p in leaves if p.numel()
+                                 or not _layer_sharded(shardings[rel])])
+        full = _full(local, shardings[rel])
+        node = out
+        *parents, leaf = rel.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = full.to("cpu", copy=True).numpy() if keep else None
+    return out
+
+
+def _layer_sharded(sharding: NamedSharding) -> bool:
+    return bool(sharding.spec) and sharding.spec[0] is not None
 
 
 def _flatten(tree, path: tuple[str, ...] = ()) -> list[tuple[str, object]]:
@@ -70,10 +132,18 @@ def _flatten(tree, path: tuple[str, ...] = ()) -> list[tuple[str, object]]:
     return [(_path_str(path), tree)]
 
 
-def save_checkpoint(base: str, step: int, tree) -> str:
-    """Blocking save. Returns the committed directory."""
-    os.makedirs(base, exist_ok=True)
+def save_checkpoint(base: str, step: int, tree, *, shardings=None) -> str:
+    """Blocking save. Returns the committed directory.  With
+    ``shardings``, every rank calls it, rank 0 writes, and all return once
+    the directory is committed."""
     final = _step_dir(base, step)
+    if shardings is not None:
+        host = host_tree(tree, shardings)
+        if _writer():
+            save_checkpoint(base, step, host)
+        col.barrier(next(_mesh_of(shardings)))
+        return final
+    os.makedirs(base, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -97,6 +167,15 @@ def save_checkpoint(base: str, step: int, tree) -> str:
     return final
 
 
+def _mesh_of(shardings):
+    if isinstance(shardings, NamedSharding):
+        yield shardings.mesh
+    elif isinstance(shardings, (dict, tuple)):
+        for v in (shardings.values() if isinstance(shardings, dict)
+                  else shardings):
+            yield from _mesh_of(v)
+
+
 def committed_steps(base: str) -> list[int]:
     if not os.path.isdir(base):
         return []
@@ -114,10 +193,14 @@ def latest_step(base: str) -> int | None:
 
 
 def restore_checkpoint(base: str, target_tree, *, step: int | None = None,
-                       device: str | torch.device | None = None):
+                       device: str | torch.device | None = None,
+                       shardings=None):
     """Restore into the structure of ``target_tree``: new tensors of each
     target leaf's dtype, on ``device`` (default: the target leaf's own;
-    ``"cuda"`` raises without a card).  Returns (step, tree)."""
+    ``"cuda"`` raises without a card).  ``shardings`` (the tree's layout,
+    see the module's docstring) restores the rank's slices onto the
+    current mesh, whatever mesh saved the files; the target leaves are the
+    rank's slices then.  Returns (step, tree)."""
     dev = resolve_device(device) if device is not None else None
     if step is None:
         step = latest_step(base)
@@ -128,41 +211,56 @@ def restore_checkpoint(base: str, target_tree, *, step: int | None = None,
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
 
-    def load(path: str, shape: tuple[int, ...]) -> np.ndarray:
+    def load(path: str, shape: tuple[int, ...] | None) -> np.ndarray:
         arr = np.load(os.path.join(d, by_path[path]["file"]),
-                      allow_pickle=False)
-        if tuple(arr.shape) != tuple(shape):
+                      mmap_mode="c", allow_pickle=False)
+        if shape is not None and tuple(arr.shape) != tuple(shape):
             raise ValueError(f"shape mismatch for {path}: {arr.shape} vs "
                              f"{tuple(shape)}")
         return arr
 
-    def tensor(arr: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
+    def tensor(arr, ref: torch.Tensor) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch: {arr.shape} vs "
+                             f"{tuple(ref.shape)}")
         return torch.from_numpy(arr).to(dev or ref.device, ref.dtype,
-                                        copy=True)
+                                        copy=True).contiguous()
 
-    def restore(tree, path: tuple[str, ...]):
+    def restore(tree, path: tuple[str, ...], sh):
         if isinstance(tree, OptState):
-            return OptState(*(restore(x, path + ("." + name,))
-                              for name, x in zip(tree._fields, tree)))
+            return OptState(*(restore(x, path + ("." + name,),
+                                      None if sh is None else s)
+                              for name, x, s in zip(tree._fields, tree,
+                                                    sh or tree)))
         if isinstance(tree, dict):
-            return {k: restore(v, path + (str(k),)) for k, v in tree.items()}
+            return {k: restore(v, path + (str(k),),
+                               None if sh is None else sh[k])
+                    for k, v in tree.items()}
         if isinstance(tree, nn.Module):
-            # a stacked leaf's shape: (layers,) + one layer's shape
-            shapes: dict[str, tuple] = {}
-            for name, p in tree.named_parameters():
-                rel, i = reference_path(name)
-                shapes[rel] = tuple(p.shape) if i is None else \
-                    (shapes.get(rel, (0,))[0] + 1, *p.shape)
-            arrays = {rel: load(_path_str(path + (rel,)), shape)
-                      for rel, shape in shapes.items()}
+            shapes = None if sh is not None else stacked_shapes(tree)
+            arrays: dict[str, np.ndarray] = {}
 
             def leaf(name, p):
                 rel, i = reference_path(name)
-                return tensor(arrays[rel] if i is None else arrays[rel][i], p)
+                if rel not in arrays:
+                    arrays[rel] = load(_path_str(path + (rel,)),
+                                       None if shapes is None
+                                       else shapes[rel])
+                arr = arrays[rel]
+                if sh is None:
+                    return tensor(arr if i is None else arr[i], p)
+                sl = leaf_slices(sh[rel], arr.shape, i)
+                if sl is None:          # a layer this rank does not hold
+                    return p.new_empty(0)
+                return tensor((arr if i is None else arr[i])[sl], p)
             return tree.map(leaf)
-        return tensor(load(_path_str(path), tuple(tree.shape)), tree)
+        arr = load(_path_str(path), None if sh is not None
+                   else tuple(tree.shape))
+        return tensor(arr if sh is None else arr[sh.slices(arr.shape)],
+                      tree)
 
-    return step, restore(target_tree, ())
+    return step, restore(target_tree, (), shardings)
 
 
 def prune_checkpoints(base: str, keep: int) -> None:
@@ -174,11 +272,14 @@ def prune_checkpoints(base: str, keep: int) -> None:
 class CheckpointManager:
     """Periodic async checkpointing with retention.  A step already saved
     is not saved again (the loop's forced save at its end often follows a
-    periodic save of the same step)."""
+    periodic save of the same step).  With ``shardings`` every rank calls
+    ``maybe_save`` alike; the state is gathered on the callers' thread and
+    rank 0 writes."""
 
     def __init__(self, base: str, *, every: int, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, shardings=None):
         self.base = base
+        self.shardings = shardings
         self.every = max(every, 1)
         self.keep = keep
         self.async_save = async_save
@@ -187,10 +288,14 @@ class CheckpointManager:
         self._saved: int | None = None
 
     def wait(self) -> None:
-        """Join the save in flight; raise what it raised."""
+        """Join the save in flight; raise what it raised.  With
+        ``shardings`` every rank calls it alike, and all return once rank
+        0's save is committed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.shardings is not None:
+            col.barrier(next(_mesh_of(self.shardings)))
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -201,11 +306,12 @@ class CheckpointManager:
         self.wait()
         # copy to the host on the caller thread: the step after this one
         # updates the parameters and moments in place
-        host = host_tree(tree)
+        host = host_tree(tree, self.shardings)
 
         def work():
-            save_checkpoint(self.base, step, host)
-            prune_checkpoints(self.base, self.keep)
+            if self.shardings is None or _writer():
+                save_checkpoint(self.base, step, host)
+                prune_checkpoints(self.base, self.keep)
 
         def background():
             try:
@@ -218,5 +324,6 @@ class CheckpointManager:
             self._thread = threading.Thread(target=background, daemon=True)
             self._thread.start()
         else:
-            work()
+            background()
+            self.wait()
         return True

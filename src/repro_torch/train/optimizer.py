@@ -68,8 +68,37 @@ def global_norm(tree) -> Tensor:
 def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float
                         ) -> tuple[list[Tensor], Tensor]:
     norm = global_norm(grads)
+    return clip_to(grads, norm, max_norm), norm
+
+
+def clip_to(grads: Sequence[Tensor], norm: Tensor, max_norm: float
+            ) -> list[Tensor]:
+    """``grads`` scaled so that their global ``norm`` is at most
+    ``max_norm``."""
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return [g * scale for g in grads], norm
+    return [g * scale for g in grads]
+
+
+def step_scalars(step: Tensor, tc) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(the new step, its lr, the two bias corrections)."""
+    step = step + 1
+    bc1, bc2 = (1 - torch.pow(torch.full((), b, dtype=torch.float32,
+                                         device=step.device), step.float())
+                for b in (tc.beta1, tc.beta2))
+    return step, lr_schedule(step, tc), bc1, bc2
+
+
+def leaf_update(p: Tensor, m: Tensor, v: Tensor, g: Tensor, lr: Tensor,
+                bc1: Tensor, bc2: Tensor, tc) -> None:
+    """One leaf's AdamW step, in place (``p`` may be a view)."""
+    b1, b2 = tc.beta1, tc.beta2
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * g * g)
+    mhat = m / bc1
+    vhat = v / bc2
+    pf = p.float()
+    delta = mhat / (torch.sqrt(vhat) + tc.eps) + tc.weight_decay * pf
+    p.copy_((pf - lr * delta).to(p.dtype))
 
 
 @torch.no_grad()
@@ -81,20 +110,9 @@ def adamw_update(params, grads: Sequence[Tensor], state: OptState, tc
         grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
     else:
         gnorm = global_norm(grads)
-    step = state.step + 1
-    lr = lr_schedule(step, tc)
-    b1, b2 = tc.beta1, tc.beta2
-    bc1, bc2 = (1 - torch.pow(torch.full((), b, dtype=torch.float32,
-                                         device=step.device), step.float())
-                for b in (b1, b2))
+    step, lr, bc1, bc2 = step_scalars(state.step, tc)
     for p, m, v, g in zip(params.parameters(), state.mu.parameters(),
                           state.nu.parameters(), grads, strict=True):
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        mhat = m / bc1
-        vhat = v / bc2
-        pf = p.float()
-        delta = mhat / (torch.sqrt(vhat) + tc.eps) + tc.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        leaf_update(p, m, v, g, lr, bc1, bc2, tc)
     return params, OptState(step, state.mu, state.nu), {"lr": lr,
                                                          "grad_norm": gnorm}

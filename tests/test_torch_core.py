@@ -157,6 +157,10 @@ def _port_modules() -> list[str]:
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.serve.search" in mods
+    for m in ("distributed.sharding", "distributed.parallel",
+              "distributed.collectives", "launch.mesh", "launch.specs",
+              "launch.ranks"):
+        assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -1328,3 +1328,217 @@ def test_lm_train_loop_restarts_on_the_card(cuda, tmp_path):
     for a, b in zip(whole["params"].parameters(),
                     second["params"].parameters()):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- the mesh paths: two ranks sharing the card --------------------------------
+
+@pytest.fixture(scope="module")
+def card_pool():
+    """Two gloo ranks on ``cuda:0`` (NCCL takes one rank a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    from repro_torch.launch.ranks import RankPool
+    pool = RankPool(2, device="cuda", timeout=300)
+    try:
+        yield pool
+    finally:
+        pool.close()
+
+
+def _mesh_cfg(arch, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch), d_model=128),
+                               dtype="float32", param_dtype="float32",
+                               **changes)
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_collectives(x):
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import coordinate
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, device="cuda")
+    r = coordinate(mesh)["model"]
+    before = col.counters()
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        t = torch.from_numpy(x).to("cuda", dt) * (r + 1)
+        out[f"sum {dt}"] = col.all_reduce(t.clone(), mesh, "model").cpu()
+    t = torch.from_numpy(x).cuda() * (r + 1)
+    out["max"] = col.all_reduce(t.clone(), mesh, "model", "max").cpu()
+    out["gather"] = col.all_gather(t, mesh, "model", 0).cpu()
+    out["scatter"] = col.reduce_scatter(t, mesh, "model", 0).cpu()
+    after = col.counters()
+    return {"r": r, "out": {k: v.float().numpy() for k, v in out.items()},
+            "counts": {k: v - before.get(k, 0) for k, v in after.items()}}
+
+
+def test_mesh_collectives_on_the_card(card_pool):
+    """The wrappers on CUDA tensors across two ranks of one card (gloo
+    carries each kind there): right sums in float32, bf16 and int32, max,
+    gather and scatter, each counted with its bytes."""
+    x = np.arange(32, dtype=np.float32).reshape(4, 8)
+    res = card_pool.run(_rank_collectives, x)
+    for r in res:
+        o = r["out"]
+        for k in ("sum torch.float32", "sum torch.bfloat16",
+                  "sum torch.int32"):
+            assert np.array_equal(o[k], x * 3), k
+        assert np.array_equal(o["max"], x * 2)
+        assert np.array_equal(o["gather"], np.concatenate([x, x * 2]))
+        assert np.array_equal(o["scatter"], (x * 3)[2 * r["r"]:
+                                                    2 * r["r"] + 2])
+        c = r["counts"]
+        assert c["mesh.all_reduce.calls"] == 4
+        assert c["mesh.all_gather.calls"] == 1
+        assert c["mesh.reduce_scatter.calls"] == 1
+        assert c["mesh.all_gather.bytes"] == x.nbytes
+
+
+def _rank_step(arch, shape, mode, zero1, batch, want: dict, lr):
+    """One mesh step of ``arch`` (reduced, float32) on the card, against
+    the single-device step's parameters ``want``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import reference_path
+    from repro_torch.distributed.sharding import stacked_shapes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train.train_loop import (init_train_state,
+                                              jit_train_step,
+                                              train_state_shardings)
+    _no_tf32()
+    cfg = _mesh_cfg(arch, capacity_factor=64.0)
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    tc = TrainConfig(warmup_steps=0, learning_rate=lr, sharding_mode=mode,
+                     zero1=zero1)
+    full = bundle.init(0)
+    p_sh, _ = train_state_shardings(full, tc, mesh)
+    shapes = stacked_shapes(full)
+    params, opt = init_train_state(full, tc, mesh)
+    params, opt, m = jit_train_step(bundle, tc, mesh)(params, opt, batch)
+    err = 0.0
+    for name, p in params.named_parameters():
+        rel, i = reference_path(name)
+        sl = p_sh[rel].slices(shapes[rel])
+        w = torch.from_numpy(want[name])[sl if i is None else sl[1:]]
+        assert p.device.type == "cuda"
+        err = max(err, float((p.cpu() - w).abs().max()))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "err": err}
+
+
+@pytest.mark.parametrize("arch,shape,mode,zero1", [
+    ("llama3_2_1b", (1, 2), "tp", False),
+    ("llama3_2_1b", (2, 1), "tp", True),
+    ("llama3_2_1b", (2, 1), "fsdp", False),
+    ("qwen3_moe_30b_a3b", (1, 2), "tp", False)])
+def test_mesh_step_on_the_card_matches_one_device(card_pool, arch, shape,
+                                                  mode, zero1):
+    """Two ranks of one card, tensor parallel (the MoE expert parallel) or
+    data parallel: loss and grad norm within 1e-5 relative of the same step
+    on one device of the card, parameters within 1e-4 (lr 1e-3; float32,
+    TF32 off)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    _no_tf32()
+    cfg = _mesh_cfg(arch, capacity_factor=64.0)
+    bundle = build(cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (4, 32))
+             .astype(np.int32)}
+    params = bundle.init(0)
+    tc = TrainConfig(warmup_steps=0, learning_rate=1e-3)
+    params, _, m = make_train_step(bundle, tc)(params, init_opt_state(params),
+                                               batch)
+    want = {n: p.cpu().numpy() for n, p in params.named_parameters()}
+    res = card_pool.run(_rank_step, arch, shape, mode, zero1, batch, want,
+                        1e-3)
+    for r in res:
+        if not (arch.startswith("qwen") and shape[0] > 1):
+            assert r["loss"] == pytest.approx(float(m["loss"]), rel=1e-5)
+        assert r["grad_norm"] == pytest.approx(float(m["grad_norm"]),
+                                               rel=1e-5)
+        assert r["err"] < 1e-4
+
+
+def _rank_moe_forward(batch, want):
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    _no_tf32()
+    cfg = _mesh_cfg("qwen3_moe_30b_a3b", capacity_factor=64.0)
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(1, 2, device="cuda")
+    full = bundle.init(0)
+    local = shard_tree(full, param_shardings(full, mesh))
+    logits = bundle.forward(local, batch, mesh=mesh)
+    return float((logits.cpu() - torch.from_numpy(want)).abs().max())
+
+
+def test_mesh_moe_forward_on_the_card(card_pool):
+    """Expert parallelism over two ranks of one card: the forward equals
+    the single-device fallback within 1e-4."""
+    from repro_torch.models import build
+    _no_tf32()
+    cfg = _mesh_cfg("qwen3_moe_30b_a3b", capacity_factor=64.0)
+    bundle = build(cfg, device="cuda")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (8, 32))
+             .astype(np.int32)}
+    want = bundle.forward(bundle.init(0), batch).cpu().numpy()
+    assert all(e < 1e-4 for e in card_pool.run(_rank_moe_forward, batch,
+                                                want))
+
+
+def _rank_decode(batch, feed, want: list):
+    """Prefill and teacher-forced decode over (1, 2) on the card, tp = 2,
+    against one device's logits ``want``."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    _no_tf32()
+    cfg = _mesh_cfg("llama3_2_1b")
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(1, 2, device="cuda")
+    full = bundle.init(0)
+    local = shard_tree(full, param_shardings(full, mesh))
+    logits, cache = bundle.prefill(local, batch, mesh=mesh, tp=2,
+                                   max_len=batch["tokens"].shape[1]
+                                   + len(feed))
+    errs = [float((logits.cpu() - torch.from_numpy(want[0])).abs().max())]
+    for tok, w in zip(feed, want[1:]):
+        logits, cache = bundle.decode_step(local, cache, tok, mesh=mesh)
+        errs.append(float((logits.cpu() - torch.from_numpy(w)).abs().max()))
+    return {"errs": errs, "heads": cache["k"].shape[-2]}
+
+
+def test_mesh_prefill_and_decode_on_the_card(card_pool):
+    """Two ranks of one card serve a prompt and 4 teacher-forced tokens
+    from their halves of the KV heads: logits within 1e-4 of one
+    device's."""
+    from repro_torch.models import build
+    _no_tf32()
+    cfg = _mesh_cfg("llama3_2_1b")
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(0)
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (4, 16))
+             .astype(np.int32)}
+    feed = rng.integers(0, cfg.vocab_size_real, (4, 4)).astype(np.int32)
+    logits, cache = bundle.prefill(params, batch, tp=2, max_len=20)
+    want = [logits.cpu().numpy()]
+    for tok in feed:
+        logits, cache = bundle.decode_step(params, cache, tok)
+        want.append(logits.cpu().numpy())
+    for r in card_pool.run(_rank_decode, batch, feed, want):
+        assert max(r["errs"]) < 1e-4
+        assert r["heads"] == cache["k"].shape[-2] // 2

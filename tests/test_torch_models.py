@@ -357,11 +357,79 @@ def test_expert_ffn_matches_reference_with_drops():
 
 
 def test_moe_mesh_branch_raises():
-    _, tcfg = _cfgs("qwen3_moe_30b_a3b")
-    p = build(tcfg, device="cpu").init(0)["layers"][0]["moe"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_moe.moe_block(p, torch.zeros(1, 2, tcfg.d_model), tcfg,
-                        mesh=object())
+    """The layout the expert-parallel branch once refused, experts split
+    over ``model`` with d_model not divisible by it, now runs it: the
+    features are whole on every model rank, so nothing splits them.  The
+    ``tp`` ranks' outputs summed equal the reference's ``moe_block`` (which
+    leaves that layout to GSPMD; capacity 64: no drops), and every rank's
+    aux loss is the reference's."""
+    import types
+    from repro_torch.distributed.parallel import parallel_for
+    tp = 8
+    rcfg, tcfg = _cfgs("qwen3_moe_30b_a3b", d_model=100, dtype="float32",
+                       capacity_factor=64.0)
+    for r in range(tp):
+        mesh = types.SimpleNamespace(
+            shape={"data": 1, "model": tp}, axis_names=("data", "model"),
+            get_coordinate=lambda r=r: (0, r))
+        par = parallel_for(mesh, tcfg)
+        assert par.ep and par.rank == r and tcfg.d_model % par.tp
+    rp = ref_moe.init_moe(jax.random.PRNGKey(5), rcfg, jnp.float32)
+    tp_ = {k: torch.tensor(np.asarray(v)) for k, v in rp.items()}
+    x = _rand(np.random.default_rng(15), 2, 6, tcfg.d_model)
+    ry, raux = ref_moe.moe_block(rp, jnp.asarray(x), rcfg)
+    el = tcfg.n_experts // tp
+    y, auxes = 0, []
+    for r in range(tp):
+        local = dict(tp_, **{k: tp_[k][r * el:(r + 1) * el]
+                             for k in ("e_gate", "e_up", "e_down")})
+        yr, ar = t_moe.moe_block(local, torch.from_numpy(x), tcfg,
+                                 mesh=_OneRankOf(tp, r))
+        y, auxes = y + yr, auxes + [float(ar)]
+    assert _err(ry, y) < 1e-5
+    assert all(abs(a - float(raux)) < 1e-6 for a in auxes)
+
+
+class _OneRankOf:
+    """A ``distributed.parallel.Parallel`` stand-in: rank ``rank`` of
+    ``tp`` over ``model``, its collectives the identity, so a rank's
+    partial sums are summed by the caller."""
+
+    def __init__(self, tp, rank):
+        self.ep, self.tp, self.rank = True, tp, rank
+
+    def enter(self, x):
+        return x
+
+    def exit(self, y):
+        return y
+
+    def batch_mean(self, x):
+        return x
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_moe_expert_parallel_body_sums_to_the_reference(tp):
+    """Each of ``tp`` ranks runs its E/tp experts on the same tokens (ids
+    offset by rank x E/tp); their outputs summed equal the reference's
+    single-device ``moe_block`` (capacity 64: no drops), and every rank's
+    aux loss is the reference's."""
+    rcfg, tcfg = _cfgs("qwen3_moe_30b_a3b", dtype="float32",
+                       capacity_factor=64.0)
+    rp = ref_moe.init_moe(jax.random.PRNGKey(3), rcfg, jnp.float32)
+    tp_ = {k: torch.tensor(np.asarray(v)) for k, v in rp.items()}
+    x = _rand(np.random.default_rng(13), 2, 12, tcfg.d_model)
+    ry, raux = ref_moe.moe_block(rp, jnp.asarray(x), rcfg)
+    el = tcfg.n_experts // tp
+    y, auxes = 0, []
+    for r in range(tp):
+        local = dict(tp_, **{k: tp_[k][r * el:(r + 1) * el]
+                             for k in ("e_gate", "e_up", "e_down")})
+        yr, ar = t_moe.moe_block(local, torch.from_numpy(x), tcfg,
+                                 mesh=_OneRankOf(tp, r))
+        y, auxes = y + yr, auxes + [float(ar)]
+    assert _err(ry, y) < 1e-5
+    assert all(abs(a - float(raux)) < 1e-6 for a in auxes)
 
 
 @pytest.mark.parametrize("s,chunk,scan_dtype", [
@@ -418,22 +486,32 @@ def test_init_cache_matches_reference():
             assert str(got[name].dtype) == f"torch.{jnp.asarray(want[name]).dtype}"
     with pytest.raises(NotImplementedError, match="prefill"):
         build(_cfgs("seamless_m4t_medium")[1], device="cpu").init_cache(2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.kv_eff_heads(tcfg, tp=2)
+    # KV heads replicated up to the TP degree where that divides cleanly
+    for arch in ARCH_IDS:
+        rcfg, tcfg = ref_configs.get_config(arch), t_configs.get_config(arch)
+        for tp in (1, 2, 4, 8, 16, 3):
+            assert t_tf.kv_eff_heads(tcfg, tp=tp) == \
+                ref_tf.kv_eff_heads(rcfg, tp), (arch, tp)
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "seamless_m4t_medium"])
 def test_init_cache_and_prefill_take_tp(arch):
     """``tp=1`` (the reference's keyword) gives what the call without it
-    gives; ``tp=2`` raises and names the roadmap's mesh item."""
+    gives; ``tp=2`` gives the reference's caches, KV heads replicated up to
+    the TP degree where that divides cleanly (llama's reduced kv = 2 stays
+    2)."""
     rb, params, tb, tp = _models(arch, dtype="float32")
     batch = _batch(tb.cfg, np.random.default_rng(4), b=2, s=12)
     (l1, c1), (l0, c0) = (tb.prefill(tp, batch, max_len=16, tp=1),
                           tb.prefill(tp, batch, max_len=16))
     assert torch.equal(l1, l0) and set(c1) == set(c0)
     assert all(torch.equal(c1[k], c0[k]) for k in c0)
-    with pytest.raises(NotImplementedError, match="mesh paths"):
-        tb.prefill(tp, batch, max_len=16, tp=2)
+    rl, rc = rb.prefill(params, batch, tp=2, max_len=16)
+    l2, c2 = tb.prefill(tp, batch, max_len=16, tp=2)
+    assert _err(rl, l2) < 1e-4 and set(rc) == set(c2)
+    for k in rc:
+        assert tuple(c2[k].shape) == tuple(np.shape(rc[k])), k
+        assert _err(rc[k], c2[k]) < 1e-4, k
     if tb.cfg.is_encdec:
         with pytest.raises(NotImplementedError, match="prefill"):
             tb.init_cache(2, 16, tp=1)
@@ -443,8 +521,8 @@ def test_init_cache_and_prefill_take_tp(arch):
     assert all(torch.equal(ones[k], none[k]) for k in none)
     want = rb.init_cache(2, 16, tp=1)
     assert all(np.array_equal(_np(want[k]), _np(ones[k])) for k in want)
-    with pytest.raises(NotImplementedError, match="mesh paths"):
-        tb.init_cache(2, 16, tp=2)
+    want2, got2 = rb.init_cache(2, 16, tp=2), tb.init_cache(2, 16, tp=2)
+    assert all(np.array_equal(_np(want2[k]), _np(got2[k])) for k in want2)
 
 
 def test_causal_conv_and_ssm_decode_step_match_reference():

@@ -354,9 +354,42 @@ def test_microbatch_equals_full_batch():
 
 
 def test_mesh_step_raises_and_names_the_roadmap():
-    cfg, bundle = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(bundle, TrainConfig(), mesh=object())
+    """The dense and moe families step over a mesh (tests/test_torch_
+    sharding.py); the ssm, hybrid, vlm and encdec families do not yet, and
+    their mesh step names the roadmap."""
+    import types
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
+                                 axis_names=("data", "model"))
+    for arch in ("falcon_mamba_7b", "hymba_1_5b", "pixtral_12b",
+                 "seamless_m4t_medium"):
+        bundle = build(t_configs.reduced(t_configs.get_config(arch)),
+                       device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_step(bundle, TrainConfig(), mesh=mesh)
+
+
+def test_mesh_step_on_one_rank_is_the_plain_step():
+    """A (1,1) mesh of this process alone: nothing shards, and the mesh step
+    (``jit_train_step``, the host batch placed by its layout) gives the
+    reference's single-device step, as the plain step does."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.train_loop import init_train_state, jit_train_step
+    rb, tree, tb, params = _both(dtype="float32")
+    tree = jax.tree.map(np.asarray, tree)
+    batch = next(token_batches(tb.cfg.vocab_size_real, 4, 16, seed=3))
+    rp, _, rm = jax.jit(ref_make_train_step(rb, RefTrainConfig(
+        warmup_steps=0, learning_rate=1e-3)))(tree, ref_opt.init_opt_state(
+            tree), batch)
+    tc = TrainConfig(warmup_steps=0, learning_rate=1e-3)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        p, o = init_train_state(params, tc, mesh)
+        p, o, m = jit_train_step(tb, tc, mesh)(p, o, batch)
+    finally:
+        dist.destroy_process_group()
+    assert float(m["loss"]) == pytest.approx(float(rm["loss"]), abs=1e-5)
+    assert _max_err(rp, p) < 5e-5
 
 
 # -- the loop ------------------------------------------------------------------
