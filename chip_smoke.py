@@ -271,16 +271,16 @@ printed then:
     bound, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), with the work
     it counts (``train_step_work``); one step under the profiler, as in
     phase 4 (``chiprun_out/train_trace.json``); then 2 steps with
-    ``microbatches=2, grad_compression="bf16"``.  (b) Full width cut to 2
-    layers, float32, TF32 off: one step's loss and global grad norm on the
+    ``microbatches=2, grad_compression="bf16"``.  (b) Full width cut to 1
+    layer, float32, TF32 off: one step's loss and global grad norm on the
     card within 1e-3 (relative) of the port's CPU path on the same weights
     and a 2 x 128 batch; the parameters after one ``adamw_update`` on the
     same gradients within 1e-5; after each side's whole step within 2 x
     lr (AdamW's first step moves a parameter by up to lr whatever its
     gradient's size, so a gradient near 0 that rounds differently moves
     it differently).  (c)
-    ``TrainLoop`` at full width, 2 layers (a checkpoint is 4.6 GB there,
-    14.8 GB at 16), 4 steps, a checkpoint every 2, ``keep_checkpoints=1``,
+    ``TrainLoop`` at full width, 1 layer (a checkpoint is 14.8 GB at
+    16 layers), 4 steps, a checkpoint every 2, ``keep_checkpoints=1``,
     in a temporary workdir deleted afterwards: SIGTERM raised while batch 2
     is fetched stops the loop at the next step boundary with a save; a new
     loop restores that step and runs on; the losses and the final
@@ -311,14 +311,32 @@ printed then:
     backend).  (b)
     ``qwen3_moe_30b_a3b`` at its published widths, 2 layers, float32,
     capacity 64: the expert-parallel forward of 8 x 32 tokens on ``(1,
-    2)`` within 1e-4 of one device's.  (c) llama3_2_1b's widths at 2
-    layers on ``(2, 1)``: ZeRO-1 off and on, and ``sharding_mode="fsdp"``,
+    2)`` within 1e-4 of one device's.  (c) llama3_2_1b's widths at 1
+    layer on ``(2, 1)``: ZeRO-1 off and on, and ``sharding_mode="fsdp"``,
     each against one device's step as in (a).  (d) A ZeRO-1 state (llama
     reduced to d_model 512, vocab 8192, 2 layers) saved on ``(2, 1)``,
     restored on ``(1, 2)`` and saved again: both directories byte-equal
     to one device's save of the restored state.  (e) ``compressed_psum``
     bf16 and int8 with error feedback on CUDA tensors of the two ranks:
-    within 0.05 of the exact sum, the 20-step int8 mean within 0.02.
+    within 0.05 of the exact sum, the 20-step int8 mean within 0.02.  (f)
+    ``hymba_1_5b`` at its full published config (1,662,209,600 parameters,
+    float32), batch 8 x 128: one step on one device, then on ``(1, 2)`` as
+    in (a) (its 25 query heads and 5 KV heads do not split: attention runs
+    replicated, the SSM and MLP split), each leaf's gradients within the
+    larger of 1e-5 and twice that leaf's own float32 spread on the one
+    device, of its largest (the spread measured in the same run: the
+    whole batch's gradients against the mean of two halves', over two
+    splits of the rows; it must stay below 1e-4), the grad norm the same
+    on both ranks, a second step timed; then prefill of 8 x 32 prompts
+    and 8 teacher-forced decode
+    steps on ``(1, 2)`` with the replicated attention cache, each rank's
+    logits and cache blocks (``k``, ``v``, ``h``, ``conv``) within 1e-4 of
+    one device's.  (g) ``falcon_mamba_7b`` (a ``tp`` and an ``fsdp``
+    step), ``pixtral_12b`` (the forward with a 16-patch prefix) and
+    ``seamless_m4t_medium`` (a ``tp`` step; 64 encoder frames a row) at
+    their published widths, 1 layer (seamless: 1 a side; cut from 2 to
+    keep the phase in its time), each with prefill and 4 decode steps on
+    ``(1, 2)``, held as in (f) (gradients to 1e-5).
 
 ``launches`` in the kernels line is the sum over the fifteen counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
@@ -2891,8 +2909,9 @@ TRAIN_STEPS = 50
 TRAIN_WARMUP_STEPS = 3        # untimed steps first
 TRAIN_TIMED = 10              # steps timed with CUDA events
 TRAIN_MICRO_STEPS = 2         # microbatches=2, grad_compression="bf16"
-TRAIN_CUT_LAYERS = 2          # (b), (c): depth cut so the host runs it and
-                              # a checkpoint is 4.6 GB, not 14.8 GB
+TRAIN_CUT_LAYERS = 1          # phase 13 (b), (c), phase 14 (c): depth cut
+                              # so the host runs it, a checkpoint is small
+                              # and phase 14 keeps to its time
 TRAIN_CPU_ROWS = 2            # (b): rows of the batch the CPU repeats
 TRAIN_TOL = 1e-3              # (b): loss and grad norm, relative
 TRAIN_PARAM_TOL = 1e-5        # (b): parameters after one update
@@ -3278,8 +3297,18 @@ MESH_MOE_LAYERS = 2           # (b): published widths, depth cut
 MESH_MOE_ROWS, MESH_MOE_SEQ = 8, 32
 MESH_TOL = 1e-4               # loss and grad norm (relative), MoE logits
 MESH_GRAD_TOL = 1e-5          # gradients, x the leaf's largest gradient
+MESH_SPREAD_K = 2             # (f): or K x the leaf's own one-device
+MESH_SPREAD_CAP = 1e-4        # spread, itself held below the cap
 MESH_PSUM_STEPS = 20          # (e): error-feedback steps
 MESH_TIMEOUT = 240.0          # seconds a rank may take for one call
+MESH_HYBRID_ARCH = "hymba_1_5b"   # (f): at its full published config
+MESH_HYBRID_PARAMS = 1_662_209_600
+MESH_PROMPT = 32              # (f), (g): prefill 8 x 32, then teacher-
+MESH_HYBRID_DECODE = 8        # forced decode steps
+MESH_FAMILY_LAYERS = 1        # (g): published widths, depth cut (encdec:
+MESH_FAMILY_DECODE = 4        # each side) to keep phase 14 in its time
+MESH_FRAMES = 64              # (g): seamless's encoder frames a row
+MESH_PATCHES = 16             # (g): pixtral's patch prefix a row
 
 
 def _no_tf32() -> None:
@@ -3303,14 +3332,14 @@ def _mesh_rank(fn, *args) -> dict:
     return out
 
 
-def _mesh_rank_step(cfg, tc, shape, batch, seed, want_path, grad_path,
-                    timed):
-    """A rank of phase 14 (a), (c): its slices of the parameters drawn
-    from ``seed``; the gradients a step hands its update, held against the
-    single device's (``grad_path``) relative to each leaf's largest; one
-    step through ``jit_train_step``, held against the single device's
-    parameters after the same step (``want_path``); with ``timed``, a
-    second step timed with CUDA events."""
+def _mesh_rank_step(cfg, tc, shape, batch, seed, want, timed):
+    """A rank of phase 14 (a), (c), (f), (g): its slices of the parameters
+    drawn from ``seed``; the gradients a step hands its update, held
+    against the single device's (``want["grads"]``) relative to each
+    leaf's largest; one step through ``jit_train_step``, held against the
+    single device's parameters after the same step (``want["params"]``);
+    with ``timed``, a second step timed with CUDA events.  ``want`` holds
+    the parent's tensors on the card, shared through the pool's pipe."""
     from repro_torch.convert import reference_path
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed.sharding import stacked_shapes
@@ -3327,13 +3356,17 @@ def _mesh_rank_step(cfg, tc, shape, batch, seed, want_path, grad_path,
     shapes = stacked_shapes(full)
     params, opt = init_train_state(full, tc, mesh)
     del full
-    want = torch.load(grad_path, mmap=True, weights_only=True)
-    grad_err = 0.0
+    secs: dict = {}
+    t0 = time.perf_counter()
+    grad_errs: dict = {}
     for name, sl, g in mesh_gradients(bundle, tc, mesh, params, batch):
-        w = want[name].cuda()
+        w = want["grads"][name]
         scale = max(float(w.abs().max()), 1e-30)
-        grad_err = max(grad_err, float((g - w[sl]).abs().max()) / scale)
-    del want, w, g
+        err = float((g - w[sl]).abs().max()) / scale
+        grad_errs[name] = max(grad_errs.get(name, 0.0), err)
+    del w, g
+    secs["grads"] = time.perf_counter() - t0
+    worst = max(grad_errs, key=grad_errs.get)
     torch.cuda.empty_cache()
     held = sum(t.numel() * t.element_size() for tree in (params, opt.mu,
                                                          opt.nu)
@@ -3341,21 +3374,23 @@ def _mesh_rank_step(cfg, tc, shape, batch, seed, want_path, grad_path,
     torch.cuda.reset_peak_memory_stats()
     step = jit_train_step(bundle, tc, mesh)
     before = col.counters()
+    t0 = time.perf_counter()
     params, opt, m = step(params, opt, batch)
     torch.cuda.synchronize()
+    secs["step"] = time.perf_counter() - t0
     counts = _rank_counts(before)
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "lr": float(m["lr"]), "counts": counts, "state_bytes": held,
-           "grad_err": grad_err}
-    want = torch.load(want_path, mmap=True, weights_only=True)
+           "grad_errs": grad_errs, "grad_err": grad_errs[worst],
+           "grad_worst": worst, "secs": secs}
     err = 0.0
     for name, p in params.named_parameters():
         rel, i = reference_path(name)
         sl = p_sh[rel].slices(shapes[rel])
-        w = want[name][sl if i is None else sl[1:]]
-        err = max(err, float((p.detach().cpu() - w).abs().max()))
+        w = want["params"][name][sl if i is None else sl[1:]]
+        err = max(err, float((p.detach() - w).abs().max()))
     out["param_err"] = err
-    del want
+    del want, w
     if timed:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3393,6 +3428,63 @@ def _mesh_rank_moe(cfg, batch, seed, want_path):
     return {"err": float((logits.cpu() - want).abs().max()),
             "counts": _rank_counts(before),
             "held": sum(p.numel() for p in local.parameters())}
+
+
+def _mesh_rank_serve(cfg, shape, batch, feed, seed, want_path):
+    """Phase 14 (f), (g) on a rank: its slices of ``seed``'s weights on
+    ``shape``; the forward of its rows where ``want_path`` holds one
+    device's, then prefill (tp = the model axis) and teacher-forced decode
+    steps of ``feed``; each logit and each cache block held against one
+    device's (its slices under ``cache_specs``)."""
+    from repro_torch.data.loader import device_placer
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  cache_specs, local_slices,
+                                                  param_shardings,
+                                                  shard_tree)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    _no_tf32()
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    full = bundle.init(seed)
+    local = shard_tree(full, param_shardings(full, mesh))
+    del full
+    torch.cuda.empty_cache()
+    rows = device_placer(mesh, batch_shardings)(batch)
+    sl = batch_shardings(batch, mesh)["tokens"].slices(
+        batch["tokens"].shape)[0]
+    want = torch.load(want_path, weights_only=True)
+    out: dict = {}
+    before = col.counters()
+    if "forward" in want:
+        got = bundle.forward(local, rows, mesh=mesh)
+        out["forward_err"] = float((got.cpu() - want["forward"][sl])
+                                   .abs().max())
+        del got
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(local, rows, mesh=mesh, tp=shape[1],
+                                   max_len=batch["tokens"].shape[1]
+                                   + len(feed))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    errs = [float((logits.cpu() - want["logits"][0][sl]).abs().max())]
+    t0 = time.perf_counter()
+    for tok, w in zip(feed, want["logits"][1:]):
+        logits, cache = bundle.decode_step(local, cache, tok[sl], mesh=mesh)
+        errs.append(float((logits.cpu() - w[sl]).abs().max()))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(len(feed), 1)
+    counts = _rank_counts(before)
+    specs = cache_specs(want["cache"], mesh)
+    cache_err = {k: float((cache[k].cpu() - want["cache"][k][local_slices(
+        specs[k], want["cache"][k].shape, mesh)]).abs().max())
+        for k in want["cache"] if k != "t"}
+    out.update(logit_err=max(errs), cache_err=cache_err,
+               heads=(cache["k"].shape[-2] if "k" in cache else None),
+               prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
+               held=sum(p.numel() for p in local.parameters()))
+    return out
 
 
 def _mesh_rank_save(cfg, tc, shape, batch, seed, d):
@@ -3458,6 +3550,70 @@ def _mesh_rank_psum(g_all, steps):
             "device": str(grads["w"].device), "counts": _rank_counts(before)}
 
 
+def _step_text(one: dict, r: dict) -> str:
+    return (f"loss rel {abs(r['loss'] - one['loss']) / abs(one['loss']):.2e}"
+            f", grad norm rel {abs(r['grad_norm'] - one['grad_norm']) / abs(one['grad_norm']):.2e}, "
+            f"gradients {r['grad_err']:.2e} of each leaf's largest "
+            f"({r['grad_worst']}), "
+            f"parameters {r['param_err']:.2e}")
+
+
+def _grad_bound(one: dict, name: str) -> float:
+    """A leaf's gradient bound, relative to its largest gradient:
+    MESH_GRAD_TOL, or MESH_SPREAD_K x the leaf's own one-device float32
+    spread where ``one`` measured it (``grad_spread``) and that is
+    larger."""
+    return max(MESH_GRAD_TOL,
+               MESH_SPREAD_K * one.get("grad_spread", {}).get(name, 0.0))
+
+
+def _leaf_pairs(one: dict, ranks: list) -> str:
+    """Each kind of leaf (its name without the layer index): the leaf
+    nearest its bound over the ranks, as error / bound."""
+    worst: dict = {}
+    for r in ranks:
+        for name, err in r["grad_errs"].items():
+            kind = re.sub(r"\.\d+\.", ".", name)
+            bound = _grad_bound(one, name)
+            if kind not in worst or err / bound > worst[kind][0]:
+                worst[kind] = (err / bound, err, bound, name)
+    return "; ".join(f"{kind} {err:.2e} / {bound:.2e} ({name})"
+                     for kind, (_, err, bound, name) in sorted(worst.items()))
+
+
+def _check_step(tag: str, one: dict, ranks: list) -> None:
+    """A mesh step against one device's: loss and grad norm within
+    MESH_TOL relative, the grad norm the same on every rank, each leaf's
+    gradients within ``_grad_bound`` of its largest (where ``one``
+    measured its own spread, that spread below MESH_SPREAD_CAP),
+    parameters within 2 x lr."""
+    rel = max(abs(r[k] - one[k]) / abs(one[k]) for r in ranks
+              for k in ("loss", "grad_norm"))
+    require(rel < MESH_TOL, f"{tag}: loss and grad norm within {MESH_TOL} "
+            f"of one device ({rel})")
+    require(len({r["grad_norm"] for r in ranks}) == 1,
+            f"{tag}: the grad norm the same on every rank "
+            f"({[r['grad_norm'] for r in ranks]})")
+    spread = max(one.get("grad_spread", {}).values(), default=0.0)
+    require(spread < MESH_SPREAD_CAP, f"{tag}: the one device's own "
+            f"float32 spread below {MESH_SPREAD_CAP} of each leaf's largest "
+            f"gradient ({spread})")
+    over = sorted((err / _grad_bound(one, n), n, err, _grad_bound(one, n))
+                  for r in ranks for n, err in r["grad_errs"].items())[-3:]
+    require(over[-1][0] <= 1.0, f"{tag}: each leaf's gradients within the "
+            f"larger of {MESH_GRAD_TOL} and {MESH_SPREAD_K} x its own "
+            f"one-device spread, of its largest (nearest: "
+            + ", ".join(f"{n} {e:.2e} / {b:.2e}" for _, n, e, b in over)
+            + ")")
+    p_err = max(r["param_err"] for r in ranks)
+    require(p_err <= 2 * one["lr"], f"{tag}: parameters within 2 x lr "
+            f"of one device ({p_err})")
+
+
+def _secs(secs: dict) -> str:
+    return ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+
+
 def _counts_line(counts: dict) -> str:
     kinds = sorted({k.split(".")[1] for k in counts
                     if k.endswith(".calls")})
@@ -3470,13 +3626,19 @@ def mesh_path(seed: int, report: dict) -> None:
     (a) llama3_2_1b at full width, float32, TF32 off: one step on one
     device, then the same step tensor parallel on (1, 2); (b) qwen3_moe at
     published widths, 2 layers: the expert-parallel forward on (1, 2)
-    against the one-device fallback; (c) llama widths at 2 layers, data
+    against the one-device fallback; (c) llama widths at 1 layer, data
     parallel on (2, 1): ZeRO-1 off and on, and FSDP; (d) an elastic
     checkpoint at reduced widths (d_model 512, vocab 8192, 2 layers): a
     ZeRO-1 state saved on (2, 1), restored on (1, 2) and saved again, the
     files byte-equal to the one device's; (e) ``compressed_psum`` bf16 and
-    int8 on CUDA tensors.  In (a) and (c) each rank's gradients are held
-    against one device's, and its parameters after the step.  Reaches no
+    int8 on CUDA tensors; (f) hymba_1_5b at its full published config: a
+    step on one device, then on (1, 2), then prefill and decode on (1, 2)
+    with the replicated attention cache; (g) falcon_mamba_7b,
+    pixtral_12b and seamless_m4t_medium at published widths, 1 layer:
+    steps (not pixtral's: 30 GB of state) and prefill + decode on (1, 2).
+    In (a), (c), (f) and (g) each rank's gradients are held against one
+    device's, and its parameters after the step; the grad norm must be
+    the same on every rank.  Reaches no
     kernel of the port: the parent's counts and each rank's, each set to 0
     just before its part, summed."""
     from repro_torch.configs import get_config, reduced
@@ -3498,6 +3660,15 @@ def mesh_path(seed: int, report: dict) -> None:
     pool = None
     rank_launches: list = []
 
+    parts: dict = {}
+    t_part = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        """The seconds since the last part ended, as ``name``'s."""
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
     def run(fn, *args) -> list:
         """``fn(*args)`` on both ranks, their kernel counts kept."""
         res = pool.run(_mesh_rank, fn, *args)
@@ -3512,25 +3683,19 @@ def mesh_path(seed: int, report: dict) -> None:
                          total_steps=TRAIN_STEPS)
         batch = next(token_batches(cfg.vocab_size_real, TRAIN_BATCH,
                                    TRAIN_SEQ, seed + 4))
-        a_paths = (os.path.join(tmp, "a.pt"), os.path.join(tmp, "a_g.pt"))
-        single = _one_device_step(cfg, tc, batch, seed, *a_paths,
-                                  timed=True)
+        single, want = _one_device_step(cfg, tc, batch, seed, timed=True)
         t0 = time.perf_counter()
         pool = RankPool(2, device="cuda", timeout=MESH_TIMEOUT)
         boot_s = time.perf_counter() - t0
-        ranks = run(_mesh_rank_step, cfg, tc, (1, 2), batch, seed, *a_paths,
+        ranks = run(_mesh_rank_step, cfg, tc, (1, 2), batch, seed, want,
                     True)
+        del want
+        _release_shared()
         rel = {k: max(abs(r[k] - single[k]) / abs(single[k]) for r in ranks)
                for k in ("loss", "grad_norm")}
         p_err = max(r["param_err"] for r in ranks)
         g_err = max(r["grad_err"] for r in ranks)
-        require(max(rel.values()) < MESH_TOL, f"(1, 2) tensor parallel loss "
-                f"and grad norm within {MESH_TOL} of one device ({rel})")
-        require(g_err <= MESH_GRAD_TOL, f"(1, 2) gradients within "
-                f"{MESH_GRAD_TOL} x each leaf's largest of one device's "
-                f"({g_err})")
-        require(p_err <= 2 * single["lr"], f"(1, 2) parameters within 2 x "
-                f"lr of one device ({p_err})")
+        _check_step("(a) (1, 2) tp", single, ranks)
         require(all(r["peak"] < single["peak"] for r in ranks),
                 "each rank's peak below the one device's")
         require(all("mesh.all_gather.calls" not in r["counts"]
@@ -3557,6 +3722,7 @@ def mesh_path(seed: int, report: dict) -> None:
         out["tp"] = {"single": single, "ranks": ranks, "rel": rel,
                      "grad_err": g_err, "param_err": p_err,
                      "boot_s": boot_s}
+        part("a")
 
         # (b) expert-parallel MoE forward
         mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
@@ -3586,29 +3752,24 @@ def mesh_path(seed: int, report: dict) -> None:
               f"holds {moe[0]['held']} of {n_moe} parameters; "
               + _counts_line(moe[0]["counts"]))
         out["moe"] = {"ranks": moe, "params": n_moe}
+        part("b")
 
-        # (c) data parallel on (2, 1), 2 layers
+        # (c) data parallel on (2, 1), TRAIN_CUT_LAYERS layers
         cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
-        c_paths = (os.path.join(tmp, "c.pt"), os.path.join(tmp, "c_g.pt"))
-        one = _one_device_step(cut, tc, batch, seed, *c_paths, timed=False)
+        one, want = _one_device_step(cut, tc, batch, seed, timed=False)
         out["dp"] = {"single": one}
         for mode, zero1 in (("tp", False), ("tp", True), ("fsdp", False)):
             ctc = dataclasses.replace(tc, sharding_mode=mode, zero1=zero1)
             t0 = time.perf_counter()
-            dp = run(_mesh_rank_step, cut, ctc, (2, 1), batch, seed,
-                     *c_paths, False)
+            dp = run(_mesh_rank_step, cut, ctc, (2, 1), batch, seed, want,
+                     False)
             secs = time.perf_counter() - t0
             rel = {k: max(abs(r[k] - one[k]) / abs(one[k]) for r in dp)
                    for k in ("loss", "grad_norm")}
             err = max(r["param_err"] for r in dp)
             g_err = max(r["grad_err"] for r in dp)
             tag = f"{mode}{', ZeRO-1' if zero1 else ''}"
-            require(max(rel.values()) < MESH_TOL and g_err <= MESH_GRAD_TOL
-                    and err <= 2 * one["lr"],
-                    f"(2, 1) {tag}: loss, grad norm within {MESH_TOL}, "
-                    f"gradients within {MESH_GRAD_TOL} x each leaf's "
-                    f"largest and parameters within 2 x lr of one device "
-                    f"({rel}, {g_err}, {err})")
+            _check_step(f"(c) (2, 1) {tag}", one, dp)
             print(f"[mesh] (c) (2, 1) {tag}, {TRAIN_CUT_LAYERS} layers at "
                   f"full width: loss rel {rel['loss']:.2e}, grad norm rel "
                   f"{rel['grad_norm']:.2e}, gradients {g_err:.2e}, "
@@ -3618,6 +3779,9 @@ def mesh_path(seed: int, report: dict) -> None:
                   + _counts_line(dp[0]["counts"]))
             out["dp"][tag] = {"ranks": dp, "rel": rel, "grad_err": g_err,
                               "param_err": err, "seconds": secs}
+        del want
+        _release_shared()
+        part("c")
 
         # (d) elastic checkpoint: (2, 1) -> (1, 2), bytes against one device
         small = dataclasses.replace(reduced(get_config(TRAIN_ARCH),
@@ -3650,6 +3814,7 @@ def mesh_path(seed: int, report: dict) -> None:
               f"the one device's save")
         out["elastic"] = {"saved": saved, "restored": restored,
                           "files": len(files), "bytes": n_bytes}
+        part("d")
 
         # (e) compressed psum on CUDA tensors
         g_all = np.random.default_rng(seed + 7).normal(
@@ -3671,6 +3836,13 @@ def mesh_path(seed: int, report: dict) -> None:
               + _counts_line(ps[0]["counts"]))
         out["psum"] = {"bf16": float(bf16), "int8": float(int8),
                        "int8_mean": float(mean), "counts": ps[0]["counts"]}
+        part("e")
+
+        # (f) hymba_1_5b at full width, (g) three families cut in depth
+        out["hybrid"] = _mesh_hybrid(run, tmp, tc, seed, card)
+        part("f")
+        out["families"] = _mesh_families(run, tmp, tc, seed)
+        part("g")
         # ---------------------------------------------------------------------
     finally:
         if pool is not None:
@@ -3683,37 +3855,207 @@ def mesh_path(seed: int, report: dict) -> None:
             f"of the port, the parent's and both ranks' counts summed "
             f"({launches})")
     out.update(launches=launches, launches_parent=parent,
-               launches_ranks=rank_launches,
+               launches_ranks=rank_launches, parts_s=parts,
                wall_s=time.perf_counter() - t_phase)
     report["mesh_path"] = out
-    print(f"[mesh] phase {out['wall_s']:.1f} s; kernel launches {launches}")
+    print(f"[mesh] phase {out['wall_s']:.1f} s (" + _secs(parts)
+          + f"); kernel launches {launches}")
 
 
-def _one_device_step(cfg, tc, batch, seed, path, grad_path, timed
-                     ) -> dict:
+def _mesh_hybrid(run, tmp: str, tc, seed: int, card: str) -> dict:
+    """Phase 14 (f): hymba_1_5b at its full published config, one step on
+    one device, then on (1, 2) (``run`` calls a function on both ranks);
+    then prefill and decode on (1, 2) with the replicated attention
+    cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    t0 = time.perf_counter()
+    hcfg = dataclasses.replace(get_config(MESH_HYBRID_ARCH),
+                               dtype="float32")
+    hbatch = next(token_batches(hcfg.vocab_size_real, TRAIN_BATCH,
+                                TRAIN_SEQ, seed + 8))
+    hone, want = _one_device_step(hcfg, tc, hbatch, seed, timed=True,
+                                  spread=True)
+    t1 = time.perf_counter()
+    hranks = run(_mesh_rank_step, hcfg, tc, (1, 2), hbatch, seed, want,
+                 True)
+    del want
+    _release_shared()
+    t2 = time.perf_counter()
+    print(f"[mesh] (f) {MESH_HYBRID_ARCH} full width ({hcfg.n_layers} "
+          f"layers, d_model {hcfg.d_model}, {hcfg.n_heads} heads / "
+          f"{hcfg.n_kv_heads} KV, d_inner {hcfg.d_inner}, d_ff "
+          f"{hcfg.d_ff}, vocab {hcfg.vocab_size}), float32, TF32 off, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, lr {hone['lr']:.3e}; "
+          f"one device: loss {hone['loss']:.6f}, grad norm "
+          f"{hone['grad_norm']:.6f}, step {hone['step_ms']:.3f} ms "
+          f"(CUDA events, the second step), peak {hone['peak']} B, its "
+          f"own float32 spread up to "
+          f"{max(hone['grad_spread'].values()):.2e} of a leaf's largest "
+          f"gradient (cap {MESH_SPREAD_CAP}; the whole batch against two "
+          f"halves); {card}")
+    for i, r in enumerate(hranks):
+        print(f"[mesh] (f) (1, 2) rank {i}: " + _step_text(hone, r)
+              + f"; step {r['step_ms']:.3f} ms (host wall "
+              f"{r['wall_ms']:.3f}); peak {r['peak']} B; parameters + "
+              f"moments held {r['state_bytes']} B; a step's "
+              "collectives: " + _counts_line(r["timed_counts"]))
+    print(f"[mesh] (f) gradients, each leaf kind's leaf nearest its bound "
+          f"(the larger of {MESH_GRAD_TOL} and {MESH_SPREAD_K} x the leaf's "
+          f"own one-device spread), error / bound of its largest: "
+          + _leaf_pairs(hone, hranks))
+    print("[mesh] (f) seconds: one device " + _secs(hone["secs"])
+          + "; rank 0 " + _secs(hranks[0]["secs"]))
+    _check_step("(f) (1, 2) tp", hone, hranks)
+    require(all(r["peak"] < hone["peak"] for r in hranks),
+            "(f) each rank's peak below the one device's")
+    rng = np.random.default_rng(seed + 9)
+    dbatch = _mesh_family_batch(hcfg, TRAIN_BATCH, MESH_PROMPT, seed + 9)
+    feed = rng.integers(0, hcfg.vocab_size_real, (
+        MESH_HYBRID_DECODE, TRAIN_BATCH)).astype(np.int32)
+    want = os.path.join(tmp, "f_serve.pt")
+    n_h = _one_device_serve(hcfg, dbatch, feed, seed, 2, want, False)
+    require(n_h == MESH_HYBRID_PARAMS, f"(f) {MESH_HYBRID_ARCH} has "
+            f"{MESH_HYBRID_PARAMS} parameters ({n_h})")
+    hserve = run(_mesh_rank_serve, hcfg, (1, 2), dbatch, feed, seed,
+                 want)
+    _check_serve("(f)", hserve)
+    require(all(r["heads"] == hcfg.n_kv_heads for r in hserve),
+            "(f) each rank holds the whole attention cache (5 KV heads "
+            "do not split over 2)")
+    print(_serve_line(f"(f) {MESH_HYBRID_ARCH} prefill {TRAIN_BATCH} x "
+                      f"{MESH_PROMPT}", hserve, n_h, feed))
+    print(f"[mesh] (f) seconds: one device {t1 - t0:.1f}, the ranks' steps "
+          f"{t2 - t1:.1f}, decode {time.perf_counter() - t2:.1f}")
+    return {"single": hone, "ranks": hranks, "serve": hserve, "params": n_h,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_families(run, tmp: str, tc, seed: int) -> dict:
+    """Phase 14 (g): falcon_mamba_7b, pixtral_12b and seamless_m4t_medium
+    at published widths, depth cut to MESH_FAMILY_LAYERS: their steps
+    (not pixtral's) and prefill + decode on (1, 2)."""
+    from repro_torch.configs import get_config
+    out: dict = {}
+    for arch, modes in (("falcon_mamba_7b", ("tp", "fsdp")),
+                        ("pixtral_12b", ()),
+                        ("seamless_m4t_medium", ("tp",))):
+        t0 = time.perf_counter()
+        gcfg = get_config(arch)
+        gcfg = dataclasses.replace(
+            gcfg, n_layers=MESH_FAMILY_LAYERS, dtype="float32",
+            n_enc_layers=MESH_FAMILY_LAYERS if gcfg.is_encdec else 0)
+        depth = f"{MESH_FAMILY_LAYERS} layer" + \
+            ("s" if MESH_FAMILY_LAYERS > 1 else "")
+        fam: dict = {}
+        if modes:
+            gbatch = _mesh_family_batch(gcfg, TRAIN_BATCH, TRAIN_SEQ,
+                                        seed + 10)
+            gone, want = _one_device_step(gcfg, tc, gbatch, seed,
+                                          timed=False)
+            for mode in modes:
+                gtc = dataclasses.replace(tc, sharding_mode=mode)
+                gr = run(_mesh_rank_step, gcfg, gtc, (1, 2), gbatch,
+                         seed, want, False)
+                _check_step(f"(g) {arch} (1, 2) {mode}", gone, gr)
+                print(f"[mesh] (g) {arch} ({depth} at full width) (1, 2) "
+                      f"{mode} step: "
+                      + _step_text(gone, gr[0]) + "; parameters + "
+                      f"moments held {gr[0]['state_bytes']} B a rank; "
+                      + _counts_line(gr[0]["counts"]))
+                fam[mode] = gr
+            del want
+            _release_shared()
+        rng = np.random.default_rng(seed + 11)
+        dbatch = _mesh_family_batch(gcfg, TRAIN_BATCH, MESH_PROMPT,
+                                    seed + 11)
+        feed = rng.integers(0, gcfg.vocab_size_real, (
+            MESH_FAMILY_DECODE, TRAIN_BATCH)).astype(np.int32)
+        want = os.path.join(tmp, "g_serve.pt")
+        n_g = _one_device_serve(gcfg, dbatch, feed, seed, 2, want,
+                                gcfg.frontend == "patches")
+        gs = run(_mesh_rank_serve, gcfg, (1, 2), dbatch, feed, seed,
+                 want)
+        _check_serve(f"(g) {arch}", gs)
+        os.remove(want)
+        print(_serve_line(f"(g) {arch} ({depth}"
+                          f"{' a side' if gcfg.is_encdec else ''}) "
+                          f"prefill {TRAIN_BATCH} x {MESH_PROMPT}", gs,
+                          n_g, feed)
+              + f"; {time.perf_counter() - t0:.1f} s")
+        fam.update(serve=gs, params=n_g,
+                   seconds=time.perf_counter() - t0)
+        out[arch] = fam
+    return out
+
+
+def _release_shared() -> None:
+    """Free the card's memory of tensors the ranks were handed and have
+    dropped (``_one_device_step``'s), and the cache."""
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def _one_device_step(cfg, tc, batch, seed, timed, spread: bool = False
+                     ) -> tuple[dict, dict]:
     """One ``make_train_step`` step of ``cfg`` on one device of the card
-    from ``seed``'s weights: the loss's gradients at those weights, to
-    ``grad_path``; the parameters after the step, to ``path``; with
-    ``timed``, a second step timed with CUDA events.  Frees the card."""
+    from ``seed``'s weights.  Returns its results and, kept on the card
+    for the ranks (the caller passes them to ``_mesh_rank_step``, the
+    pool's pipe shares them, then drops them), the loss's gradients at
+    those weights (``"grads"``) and the parameters after the step
+    (``"params"``); the peak leaves those out.  With ``timed``, a second
+    step timed with CUDA events.  With ``spread``, the one device's own
+    float32 spread of each leaf's gradients (``grad_spread``): relative
+    to the leaf's largest gradient, the largest difference between the
+    whole batch's gradients and the mean of two halves' (the same
+    function summed in another order), over two splits of the rows
+    (first and second half; even and odd).  Frees the rest of the card."""
     from repro_torch.models import build
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_loop import loss_and_grads, make_train_step
+    secs: dict = {}
+    t0 = time.perf_counter()
     bundle = build(cfg, device="cuda")
     params = bundle.init(seed)
     opt = init_opt_state(params)
     _, _, grads = loss_and_grads(bundle, params, batch)
-    torch.save({n: g.cpu() for (n, _), g in zip(params.named_parameters(),
-                                                grads, strict=True)},
-               grad_path)
+    names = [n for n, _ in params.named_parameters()]
+    out: dict = {"secs": secs}
+    torch.cuda.synchronize()
+    secs["grads"] = time.perf_counter() - t0
+    if spread:
+        n = len(batch["tokens"])
+        out["grad_spread"] = dict.fromkeys(names, 0.0)
+        for split in ((slice(0, n // 2), slice(n // 2, n)),
+                      (slice(0, n, 2), slice(1, n, 2))):
+            parts = [loss_and_grads(bundle, params,
+                                    {k: v[s] for k, v in batch.items()})[2]
+                     for s in split]
+            for name, g, a, b in zip(names, grads, *parts, strict=True):
+                err = float(((a + b) / 2 - g).abs().max()) \
+                    / max(float(g.abs().max()), 1e-30)
+                out["grad_spread"][name] = max(out["grad_spread"][name], err)
+            del parts
+        torch.cuda.synchronize()
+        secs["spread"] = time.perf_counter() - t0 - secs["grads"]
+    t0 = time.perf_counter()
+    want = {"grads": dict(zip(names, grads, strict=True))}
+    held = sum(g.numel() * g.element_size() for g in grads)
     del grads
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step = make_train_step(bundle, tc)
     params, opt, m = step(params, opt, batch)
-    out = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
-    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
-               path)
+    out.update({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    want["params"] = {n: p.detach().clone()
+                      for n, p in params.named_parameters()}
+    held += sum(p.numel() * p.element_size()
+                for p in want["params"].values())
+    secs["step"] = time.perf_counter() - t0
     if timed:
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3721,10 +4063,81 @@ def _one_device_step(cfg, tc, batch, seed, path, grad_path, timed
         end.record()
         torch.cuda.synchronize()
         out["step_ms"] = start.elapsed_time(end)
-    out["peak"] = torch.cuda.max_memory_allocated()
+        peak = max(peak, torch.cuda.max_memory_allocated() - held)
+    out["peak"] = peak
     del bundle, params, opt, step, m
     torch.cuda.empty_cache()
-    return out
+    return out, want
+
+
+def _one_device_serve(cfg, batch, feed, seed, tp, path, forward: bool
+                      ) -> int:
+    """Phase 14 (f), (g): ``seed``'s weights on one device of the card:
+    the forward (``forward``), prefill with ``tp`` and teacher-forced
+    decode steps of ``feed``, to ``path`` for the ranks to hold theirs
+    against; frees the card.  Returns the parameter count."""
+    from repro_torch.models import build
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(seed)
+    want: dict = {}
+    if forward:
+        want["forward"] = bundle.forward(params, batch).cpu()
+    logits, cache = bundle.prefill(params, batch, tp=tp,
+                                   max_len=batch["tokens"].shape[1]
+                                   + len(feed))
+    want["logits"] = [logits.cpu()]
+    for tok in feed:
+        logits, cache = bundle.decode_step(params, cache, tok)
+        want["logits"].append(logits.cpu())
+    want["cache"] = {k: v.cpu() for k, v in cache.items()}
+    torch.save(want, path)
+    n = sum(p.numel() for p in params.parameters())
+    del bundle, params, cache, logits, want
+    torch.cuda.empty_cache()
+    return n
+
+
+def _mesh_family_batch(cfg, rows, seq, seed) -> dict:
+    """Tokens from ``seed``, with seamless's frames or pixtral's patch
+    prefix."""
+    from repro_torch.data.synthetic import token_batches
+    rng = np.random.default_rng(seed)
+    batch = next(token_batches(cfg.vocab_size_real, rows, seq, seed))
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(rows, MESH_FRAMES, cfg.d_model)
+                                     ).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(size=(rows, MESH_PATCHES, cfg.d_model)
+                                      ).astype(np.float32)
+    return batch
+
+
+def _serve_line(tag: str, ranks: list, n_params: int, feed) -> str:
+    heads = ranks[0]["heads"]
+    cache = {k: max(r["cache_err"][k] for r in ranks)
+             for k in ranks[0]["cache_err"]}
+    fwd = [r["forward_err"] for r in ranks if "forward_err" in r]
+    return (f"[mesh] {tag} on (1, 2): "
+            + (f"forward {max(fwd):.2e}, " if fwd else "")
+            + f"prefill + {len(feed)} teacher-forced decode logits "
+            f"{max(r['logit_err'] for r in ranks):.2e} from one device; "
+            "cache blocks " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                        sorted(cache.items()))
+            + (f"; attention cache {heads} KV heads a rank" if heads
+               else "")
+            + f"; each rank holds {ranks[0]['held']} of {n_params} "
+            f"parameters; prefill {ranks[0]['prefill_ms']:.1f} ms, decode "
+            f"{ranks[0]['decode_ms']:.1f} ms a step (host wall); "
+            + _counts_line(ranks[0]["counts"]))
+
+
+def _check_serve(tag: str, ranks: list) -> None:
+    errs = [r["logit_err"] for r in ranks] + [
+        r.get("forward_err", 0.0) for r in ranks] + [
+        v for r in ranks for v in r["cache_err"].values()]
+    require(max(errs) < MESH_TOL, f"{tag}: forward, prefill and decode "
+            f"logits and every cache block within {MESH_TOL} of one "
+            f"device's ({ranks})")
 
 
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}

@@ -7,24 +7,30 @@ collectives out, following ``sharding._RULES``:
 
 * ``mode="tp"`` (tensor parallel over ``model``, the batch over the data
   axes): the embedding's vocab rows are sharded (a masked lookup, then an
-  all-reduce); ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are
-  column-parallel, ``wo`` and ``w_down`` row-parallel, each followed by an
-  all-reduce; the head (or the tied embedding) is vocab-parallel and the
-  loss a vocab-parallel cross-entropy (all-reduces of the max and of the
-  sum of exponentials; the logits are never gathered).  A leaf that the
-  divisor rule leaves replicated is computed replicated: KV heads that do
-  not divide the axis are projected whole and each rank takes the heads
-  its query heads read.  Experts shard over ``model`` (expert parallelism,
-  the reference's ``shard_map`` body).
+  all-reduce); ``wq``/``wk``/``wv`` (self- and cross-attention) and
+  ``w_gate``/``w_up`` are column-parallel, ``wo`` and ``w_down``
+  row-parallel, each followed by an all-reduce; the head (or the tied
+  embedding) is vocab-parallel and the loss a vocab-parallel cross-entropy
+  (all-reduces of the max and of the sum of exponentials; the logits are
+  never gathered).  A leaf that the divisor rule leaves replicated is
+  computed replicated: KV heads that do not divide the axis are projected
+  whole and each rank takes the heads its query heads read; query heads
+  that do not divide it (hymba's 25) run the whole attention on every
+  rank, as does a decode cache whose heads do not split.  Experts shard
+  over ``model`` (expert parallelism, the reference's ``shard_map`` body).
+  The SSM shards its ``d_inner`` channels: ``x_proj`` and ``out_proj`` are
+  row-parallel, ``dt_proj`` column-parallel, the scan and the caches the
+  rank's channels; ``in_proj``'s stored block is a block of the
+  concatenated ``[x | z]`` columns, so its product is all-gathered
+  (``ssm_in``).
 * ``mode="fsdp"``: every big leaf sharded along its largest divisible dim
   (``fsdp_param_specs``) and all-gathered at its use, the batch sharded
   over every axis.
 
 Parameters passed with a ``Parallel`` are the rank's local slices
 (``sharding.shard_tree``); a batch is the rank's own rows
-(``data.loader.device_placer``).  Activations are replicated over
-``model``.  Only the dense and moe families have a mesh forward; the
-others raise (ROADMAP §1).
+(``data.loader.device_placer``): the encoder's frames too.  Activations
+are replicated over ``model``.  Every family runs over a mesh.
 """
 
 from __future__ import annotations
@@ -36,29 +42,26 @@ from . import collectives as col
 from .sharding import (axis_names, batch_axes, coordinate, fsdp_param_specs,
                        mesh_shape, param_specs, stacked_shapes)
 
-MESH_FAMILIES = ("dense", "moe")
-
 
 class Parallel:
     """The layout and collectives of ``cfg``'s model on ``mesh`` for this
     rank (``mode`` "tp" or "fsdp")."""
 
     def __init__(self, mesh, cfg, mode: str = "tp"):
-        if cfg.is_encdec or cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): a forward over a mesh is ported "
-                f"for the {' and '.join(MESH_FAMILIES)} families only; the "
-                "others come later (ROADMAP §1)")
         if mode not in ("tp", "fsdp"):
             raise ValueError(f"unknown sharding mode {mode!r}")
-        from ..models import transformer
+        from ..models import encdec, transformer
         self.mesh, self.cfg, self.mode = mesh, cfg, mode
-        meta = transformer.init_params(0, cfg, "meta")
+        model = encdec if cfg.is_encdec else transformer
+        meta = model.init_params(0, cfg, "meta")
         self.names = tuple(n for n, _ in meta.named_parameters())
         self.shapes = stacked_shapes(meta)
+        # the stacked prefixes: a leaf there has the layer count in front
+        self.stacks = ("enc_layers", "dec_layers") if cfg.is_encdec \
+            else ("layers",)
         rules = param_specs if mode == "tp" else fsdp_param_specs
         self.specs = rules(self.shapes, mesh)
-        if any(p.startswith("layers/") and s and s[0] is not None
+        if any(p.split("/")[0] in self.stacks and s and s[0] is not None
                for p, s in self.specs.items()):
             raise NotImplementedError(
                 "a layout that shards the stacked layer axis of a parameter")
@@ -73,14 +76,29 @@ class Parallel:
         def split(path, dim):
             spec = self.specs.get(path, ())
             return mode == "tp" and dim < len(spec) and spec[dim] == "model"
-        self.q_split = split("layers/attn/wq", 2)
-        self.kv_split = split("layers/attn/wk", 2)
-        self.ff_split = split("layers/mlp/w_gate", 2)
+        body = self.stacks[-1]        # the decoder's stack
+        self.q_split = split(f"{body}/attn/wq", 2)
+        self.kv_split = split(f"{body}/attn/wk", 2)
+        self.xq_split = split("dec_layers/xattn/wq", 2)
+        self.xkv_split = split("dec_layers/xattn/wk", 2)
+        self.ff_split = split(f"{body}/mlp/w_gate", 2)
+        self.ssm_split = split("layers/ssm/out_proj", 1)
+        if split("layers/ssm/in_proj", 2) != self.ssm_split:
+            raise NotImplementedError(
+                f"in_proj's 2 x {cfg.d_inner} columns split over a model "
+                f"axis of {self.tp} while the {cfg.d_inner} SSM channels "
+                "do not")
         self.vocab_split = split("embed", 0)
         self.head_split = self.vocab_split if cfg.tie_embeddings \
             else split("lm_head", 1)
         self.ep = split("layers/moe/e_gate", 1)
         self.rank = coordinate(mesh).get("model", 0) if self.tp > 1 else 0
+        # the KV heads of a decode cache over this mesh (``cache_specs``
+        # splits them over ``model`` where they divide it), and those of
+        # a cache built with any other ``tp``
+        self.kve = transformer.kv_eff_heads(cfg, self.tp)
+        self.kves = {transformer.kv_eff_heads(cfg, t)
+                     for t in range(1, cfg.n_heads + 1)}
 
     # -- activations ------------------------------------------------------
     def enter(self, x):
@@ -112,7 +130,7 @@ class Parallel:
             parts = name.split(".")
             path = "/".join([prefix, *parts]) if prefix else "/".join(parts)
             spec = self.specs[path]
-            if prefix == "layers":
+            if prefix in self.stacks:
                 spec = spec[1:]
             node = out
             for part in parts[:-1]:
@@ -192,24 +210,74 @@ class Parallel:
         idx = torch.arange(h0, h1, device=k.device) // group
         return k.index_select(-2, idx)
 
+    def cache_split(self, kve: int) -> bool:
+        """Whether a cache of ``kve`` heads splits over ``model``
+        (``cache_specs``); where not, each rank holds every head."""
+        return self.tp > 1 and kve % self.tp == 0
+
     def cache_heads(self, k, kve: int):
         """K or V as the rank projected it, (..., heads, hd), its own KV
         heads where ``wk`` is split, else all -> its block of the cache's
         ``kve`` heads (each KV head replicated up to ``kve``, as
-        ``cache_specs`` shards them over ``model``)."""
-        if self.tp == 1:
-            return torch.repeat_interleave(k, kve // k.shape[-2], dim=-2)
-        if not self.q_split or kve % self.tp:
-            raise NotImplementedError(
-                f"a cache of {kve} KV heads over a model axis of {self.tp} "
-                "with query heads split "
-                f"{'so' if self.q_split else 'not'}: pass tp = the model "
-                "axis's size where the heads allow (ROADMAP §1)")
+        ``cache_specs`` shards them over ``model``), or all ``kve`` where
+        they do not split.  A cache that does not split has heads that do
+        not divide the axis, so ``wk`` was not split and ``k`` is whole."""
         n = kve // self.tp
-        if self.kv_split:
+        if self.kv_split and self.cache_split(kve):
             return torch.repeat_interleave(k, n // k.shape[-2], dim=-2)
         full = torch.repeat_interleave(k, kve // k.shape[-2], dim=-2)
+        if not self.cache_split(kve):
+            return full
         return full[..., self.rank * n:(self.rank + 1) * n, :]
+
+    def held(self, kve: int) -> int:
+        """The heads a rank holds of a cache of ``kve`` KV heads."""
+        return kve // self.tp if self.cache_split(kve) else kve
+
+    def check_cache(self, kve: int) -> None:
+        """A cache of ``kve`` = ``kv_eff_heads(cfg, tp)`` heads, built over
+        this mesh, must be one whose layout ``cache_kve`` reads back from
+        the heads a rank holds: any ``tp`` but one whose held count is
+        also that of another ``tp``'s cache (that of ``tp`` = the model
+        axis is taken)."""
+        if self.tp > 1 and self.cache_kve(self.held(kve)) != kve:
+            raise ValueError(
+                f"a cache of {kve} KV heads over a model axis of {self.tp} "
+                f"holds {self.held(kve)} a rank, as one of "
+                f"{self.cache_kve(self.held(kve))} does: pass tp={self.tp}")
+
+    def cache_kve(self, held: int) -> int:
+        """The global KV heads of a cache of which this rank holds ``held``
+        heads a layer (``prefill`` over this mesh built it): the one
+        ``kv_eff_heads(cfg, tp)`` over every ``tp`` whose rank holds
+        ``held``, or, where several do, that of ``tp`` = the model axis."""
+        if self.tp == 1:
+            return held
+        kves = {k for k in self.kves if self.held(k) == held}
+        if self.kve in kves:
+            return self.kve
+        if len(kves) != 1:
+            raise ValueError(
+                f"a cache of {held} KV heads a rank over a model axis of "
+                f"{self.tp} is one of {sorted(kves)} KV heads: its layout "
+                f"cannot be read back (prefill with tp={self.tp})")
+        return kves.pop()
+
+    # -- the SSM ----------------------------------------------------------
+    def ssm_in(self, x, w):
+        """``x @ in_proj`` -> (xs, z), each of this rank's ``d_inner / tp``
+        channels (``ssm_split``), where ``w`` is the rank's stored block of
+        in_proj's concatenated ``[x | z]`` columns (block r of 2 x d_inner,
+        not channel block r of each half: at tp = 2 rank 0 stores all of
+        x's columns, rank 1 all of z's).  The layout stays the reference's;
+        the rank's (rows, 2 d_inner / tp) products are all-gathered over
+        ``model`` and its channels of each half taken; their gradient is
+        reduce-scattered back."""
+        x = self.enter(x)
+        di = self.cfg.d_inner
+        lo, hi = self.rank * di // self.tp, (self.rank + 1) * di // self.tp
+        xz = col.gather_from(x @ w, self.mesh, "model", x.dim() - 1)
+        return xz[..., lo:hi], xz[..., di + lo:di + hi]
 
 
 def parallel_for(mesh, cfg, mode: str = "tp") -> Parallel | None:

@@ -4,7 +4,10 @@
 each a rank of one gloo process group over ``tcp://localhost:<free
 port>``; ``pool.run(fn, *args)`` calls ``fn(*args)`` on every rank at once
 and returns the ranks' results in rank order.  ``fn`` must be importable
-(a module-level function) and its arguments and result picklable.  Each
+(a module-level function) and its arguments and result picklable; a
+tensor among them is shared through torch's multiprocessing reductions
+(CUDA IPC on the card), not copied, and stays the caller's to keep alive
+until the call returns.  Each
 call has a hard timeout: a rank that does not answer in time (a hang in a
 collective, a crash) fails the call, and the pool is stopped, instead of
 waiting on.  The process group's own timeout is the same, so a collective
@@ -57,9 +60,13 @@ def _serve(rank: int, world: int, port: int, device: str, timeout: float,
                 break
             fn, args = task
             try:
-                conn.send(("ok", fn(*args)))
+                res = ("ok", fn(*args))
             except BaseException:
-                conn.send(("error", traceback.format_exc()))
+                res = ("error", traceback.format_exc())
+            # the call's arguments are dropped before its answer goes: a
+            # CUDA tensor the caller shared is released by then
+            task = fn = args = None
+            conn.send(res)
     finally:
         dist.destroy_process_group()
         conn.close()

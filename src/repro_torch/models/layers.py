@@ -257,12 +257,19 @@ def attention_block(p, x: Tensor, positions: Tensor, cfg, *,
                     kv_override: tuple[Tensor, Tensor] | None = None,
                     par=None) -> Tensor:
     """x: (B, S, D) -> (B, S, D).  ``kv_override`` supplies cross-attention
-    K/V (no rope, not causal).  With ``par`` (a ``distributed.parallel.
-    Parallel`` whose query heads are split), the rank's heads of ``p``'s
-    local slices, then ``wo``'s partial sums summed over ``model``."""
+    K/V (no rope, not causal; over a mesh, the heads ``project_kv(...,
+    par)`` gives).  With ``par`` (a ``distributed.parallel.Parallel``
+    whose query heads are split), the rank's heads of ``p``'s local
+    slices, then ``wo``'s partial sums summed over ``model``; query heads
+    that do not split run whole on every rank."""
     dtype = x.dtype
     w = cfg.sliding_window if window is None else window
-    if par is not None and par.q_split:
+    cross = kv_override is not None
+    split = par is not None and (par.xq_split if cross else par.q_split)
+    if cross:
+        q = _project(par.enter(x) if split else x, p["wq"].to(dtype))
+        k, v = kv_override
+    elif split:
         xq = par.enter(x)
         if par.kv_split:
             q, k, v = qkv_project(p, xq, cfg)
@@ -270,25 +277,32 @@ def attention_block(p, x: Tensor, positions: Tensor, cfg, *,
             q = _project(xq, p["wq"].to(dtype))
             k, v = (par.local_kv(par.enter(_project(x, p[n].to(dtype))))
                     for n in ("wk", "wv"))
-        k = apply_rope(k, positions, cfg.rope_theta)
-        q = apply_rope(q, positions, cfg.rope_theta)
-    elif kv_override is None:
-        q, k, v = qkv_project(p, x, cfg)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        q = apply_rope(q, positions, cfg.rope_theta)
     else:
-        q = _project(x, p["wq"].to(dtype))
-        k, v = kv_override
+        q, k, v = qkv_project(p, x, cfg)
+    if not cross:
+        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=w,
                             q_chunk=cfg.q_chunk)
     out = out.flatten(-2) @ p["wo"].to(dtype).flatten(0, 1)
-    return par.exit(out) if par is not None and par.q_split else out
+    return par.exit(out) if split else out
 
 
-def project_kv(p, x: Tensor, positions: Tensor, cfg) -> tuple[Tensor, Tensor]:
-    """K/V projections (cache building, cross-attention memory)."""
-    _, k, v = qkv_project(p, x, cfg)
-    return k, v
+def project_kv(p, x: Tensor, positions: Tensor, cfg, par=None
+               ) -> tuple[Tensor, Tensor]:
+    """K/V projections (cache building, cross-attention memory): as the
+    local slices give them.  With ``par`` whose cross-attention query
+    heads split (the memory ``attention_block`` reads), the KV heads the
+    rank's query heads read: its own where ``wk`` is split, else the
+    whole projection's, taken per query head."""
+    if par is None or not par.xq_split:
+        _, k, v = qkv_project(p, x, cfg)
+        return k, v
+    if par.xkv_split:
+        xe = par.enter(x)
+        return tuple(_project(xe, p[n].to(x.dtype)) for n in ("wk", "wv"))
+    return tuple(par.local_kv(par.enter(_project(x, p[n].to(x.dtype))))
+                 for n in ("wk", "wv"))
 
 
 # ---------------------------------------------------------------------------

@@ -12,14 +12,13 @@ that ``init`` returns (or ``convert.lm_params_from_jax``).
 Every function takes the reference's ``mesh=None``.  ``loss_fn``,
 ``forward``, ``prefill`` and ``decode_step`` run over a mesh (a
 ``launch.mesh`` ``DeviceMesh``, tensor parallel, or a
-``distributed.parallel.Parallel``) for the dense and moe families:
-``params`` are then the rank's local slices
-(``distributed.sharding.shard_tree``), the batch its rows
-(``data.loader.device_placer``); the loss is the whole batch's, the
-logits the rank's rows over the full vocab, a cache the rank's block
-(``cache_specs``).  Every other family's mesh forward raises (ROADMAP
-§1).  ``prefill(tp=k)`` and ``init_cache(tp=k)`` give the reference's
-caches with KV heads replicated up to ``k``.
+``distributed.parallel.Parallel``) for every family: ``params`` are then
+the rank's local slices (``distributed.sharding.shard_tree``), the batch
+its rows (``data.loader.device_placer``); the loss is the whole batch's,
+the logits the rank's rows over the full vocab, a cache the rank's block
+(``cache_specs``; ``prefill``'s ``tp`` the model axis).
+``prefill(tp=k)`` and ``init_cache(tp=k)`` give the reference's caches
+with KV heads replicated up to ``k``.
 
 Batch conventions (numpy arrays or tensors):
   decoder families : {"tokens": (B, S) int [, "patches": (B, P, D) (vlm)]}
@@ -55,13 +54,6 @@ class ModelBundle:
 
 def _on(dev: torch.device, batch: dict) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-
-
-def _no_mesh(mesh, cfg) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name} (encdec): a forward over a mesh is not ported yet "
-            "(ROADMAP §1)")
 
 
 def _decoder_bundle(cfg, dev: torch.device) -> ModelBundle:
@@ -122,36 +114,41 @@ def _encdec_bundle(cfg, dev: torch.device) -> ModelBundle:
         return encdec.init_params(seed, cfg, dev)
 
     def loss_fn(params, batch, mesh=None):
-        _no_mesh(mesh, cfg)
+        par = parallel_for(mesh, cfg)
         batch = _on(dev, batch)
         tokens = batch["tokens"]
-        logits, aux = encdec.forward(params, batch["frames"], tokens, cfg)
+        logits, aux = encdec.forward(params, batch["frames"], tokens, cfg,
+                                     par)
         mask = batch.get("mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev)
                 if mask is None else mask.float())
-        ce = transformer.lm_loss(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+        ce = transformer.lm_loss(logits[:, :-1], tokens[:, 1:], mask[:, 1:],
+                                 par)
         return ce, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def forward(params, batch, mesh=None):
-        _no_mesh(mesh, cfg)
+        par = parallel_for(mesh, cfg)
         batch = _on(dev, batch)
         logits, _ = encdec.forward(params, batch["frames"], batch["tokens"],
-                                   cfg)
-        return logits
+                                   cfg, par)
+        return logits if par is None else par.gather_vocab(logits)
 
     @torch.no_grad()
     def prefill(params, batch, mesh=None, tp=1, max_len=None):
-        _no_mesh(mesh, cfg)
+        par = parallel_for(mesh, cfg)
         batch = _on(dev, batch)
-        return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
-                              tp=tp, max_len=max_len)
+        logits, cache = encdec.prefill(params, batch["frames"],
+                                       batch["tokens"], cfg, tp=tp,
+                                       max_len=max_len, par=par)
+        return (logits if par is None else par.gather_vocab(logits)), cache
 
     @torch.no_grad()
     def decode_step(params, cache, token, mesh=None):
-        _no_mesh(mesh, cfg)
-        return encdec.decode_step(params, cache,
-                                  torch.as_tensor(token, device=dev), cfg)
+        par = parallel_for(mesh, cfg)
+        logits, cache = encdec.decode_step(
+            params, cache, torch.as_tensor(token, device=dev), cfg, par)
+        return (logits if par is None else par.gather_vocab(logits)), cache
 
     def init_cache(batch, max_len, tp=1):
         raise NotImplementedError(

@@ -8,6 +8,13 @@ doubling steps (Hillis-Steele); the state carried between chunks stays
 float32.  The reference combines the same pairs with
 ``jax.lax.associative_scan``, in another order, so the two round
 differently: the tests hold them within stated tolerances.
+
+Over a mesh (``par``, a ``distributed.parallel.Parallel`` whose SSM
+channels split) a rank runs its ``d_inner / tp`` channels: the conv, the
+scan, ``dt_proj`` (column-parallel) and the ``h``/``conv`` caches are its
+channels'; ``x_proj``'s partial sums are summed over ``model`` before
+``dt``, ``B`` and ``C`` are cut from them, and ``out_proj``'s after it
+(both row-parallel); ``in_proj`` goes through ``par.ssm_in``.
 """
 
 from __future__ import annotations
@@ -93,19 +100,43 @@ def _ssm_inner(dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor, xs: Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _split(par) -> bool:
+    return par is not None and par.ssm_split
+
+
+def _in_proj(p, x: Tensor, par) -> tuple[Tensor, Tensor]:
+    """(xs, z) of the rank's channels (all of them where they do not
+    split)."""
+    w = p["in_proj"].to(x.dtype)
+    return par.ssm_in(x, w) if _split(par) else (x @ w).chunk(2, dim=-1)
+
+
+def _x_proj(p, xc: Tensor, par) -> Tensor:
+    """xc @ x_proj: over split channels, the partial sums summed over
+    ``model`` and replicated into the rank's column-parallel uses."""
+    proj = xc @ p["x_proj"].to(xc.dtype)
+    return par.enter(par.exit(proj)) if _split(par) else proj
+
+
+def _out_proj(p, y: Tensor, par) -> Tensor:
+    out = y @ p["out_proj"].to(y.dtype)
+    return par.exit(out) if _split(par) else out
+
+
 def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
-              conv_init: Tensor | None = None
+              conv_init: Tensor | None = None, par=None
               ) -> tuple[Tensor, Tensor, Tensor]:
     """x: (B, S, D) -> (y: (B, S, D), h_final: (B, Di, N), conv_tail).
 
     ``h0``/``conv_init`` allow stateful chunked prefill; None means zeros.
+    Over split channels (``par``), ``h_final`` and ``conv_tail`` are the
+    rank's channels.
     """
     dtype = x.dtype
     bsz, s, _ = x.shape
-    di, n, r, cw = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    n, r, cw = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
 
-    xz = x @ p["in_proj"].to(dtype)
-    xs, z = xz.chunk(2, dim=-1)                      # (B, S, Di) each
+    xs, z = _in_proj(p, x, par)                      # (B, S, Di) each
     conv_w, conv_b = p["conv_w"].to(dtype), p["conv_b"].to(dtype)
     if conv_init is not None:
         xs_ext = torch.cat([conv_init.to(dtype), xs], dim=1)
@@ -116,37 +147,38 @@ def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
                  else F.pad(xs, (0, 0, cw - 1 - s, 0)))
     xs_conv = F.silu(xs_conv)
 
-    proj = xs_conv @ p["x_proj"].to(dtype)          # (B, S, r + 2N)
+    proj = _x_proj(p, xs_conv, par)                 # (B, S, r + 2N)
     dt_raw, bmat, cmat = proj.split([r, n, n], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"].to(dtype)).float()
                     + p["dt_bias"].float())          # (B, S, Di) float32
     a = -torch.exp(p["a_log"].float())               # (Di, N)
 
     if h0 is None:
-        h0 = torch.zeros(bsz, di, n, dtype=torch.float32, device=x.device)
+        h0 = torch.zeros(bsz, a.shape[0], n, dtype=torch.float32,
+                         device=x.device)
     y, h_final = _ssm_inner(dt, a, bmat, cmat, xs_conv, h0, cfg.ssm_chunk,
                             getattr(torch, cfg.ssm_scan_dtype))
     y = y + xs_conv.float() * p["d_skip"].float()
     y = y.to(dtype) * F.silu(z)
-    return y @ p["out_proj"].to(dtype), h_final, conv_tail
+    return _out_proj(p, y, par), h_final, conv_tail
 
 
-def ssm_decode_step(p, x: Tensor, h: Tensor, conv_state: Tensor, cfg
-                    ) -> tuple[Tensor, Tensor, Tensor]:
+def ssm_decode_step(p, x: Tensor, h: Tensor, conv_state: Tensor, cfg,
+                    par=None) -> tuple[Tensor, Tensor, Tensor]:
     """One token.  x: (B, D); h: (B, Di, N) float32; conv_state: (B, cw-1,
-    Di).  Returns (y: (B, D), h', conv_state')."""
+    Di) (the rank's channels over a mesh).  Returns (y: (B, D), h',
+    conv_state')."""
     dtype = x.dtype
     n, r = cfg.ssm_state, cfg.dt_rank
 
-    xz = x @ p["in_proj"].to(dtype)
-    xs, z = xz.chunk(2, dim=-1)                      # (B, Di)
+    xs, z = _in_proj(p, x, par)                      # (B, Di)
     window = torch.cat([conv_state.to(dtype), xs[:, None]], dim=1)
     xc = torch.einsum("bcd,cd->bd", window, p["conv_w"].to(dtype)) \
         + p["conv_b"].to(dtype)
     xc = F.silu(xc)
     conv_state_new = window[:, 1:].to(conv_state.dtype)
 
-    proj = xc @ p["x_proj"].to(dtype)
+    proj = _x_proj(p, xc, par)
     dt_raw, bvec, cvec = proj.split([r, n, n], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"].to(dtype)).float()
                     + p["dt_bias"].float())          # (B, Di)
@@ -157,4 +189,4 @@ def ssm_decode_step(p, x: Tensor, h: Tensor, conv_state: Tensor, cfg
     y = torch.einsum("bdn,bn->bd", h_new, cvec.float())
     y = y + xc.float() * p["d_skip"].float()
     y = y.to(dtype) * F.silu(z)
-    return y @ p["out_proj"].to(dtype), h_new, conv_state_new
+    return _out_proj(p, y, par), h_new, conv_state_new

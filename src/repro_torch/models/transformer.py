@@ -177,7 +177,7 @@ def block_forward(lp, x: Tensor, positions: Tensor, cfg, mesh=None
         delta = delta + attention_block(lp["attn"], xn, positions, cfg,
                                         par=par)
     if has_ssm(cfg):
-        y, _, _ = ssm_block(lp["ssm"], xn, cfg)
+        y, _, _ = ssm_block(lp["ssm"], xn, cfg, par=par)
         delta = delta + y
     x, aux = _ffn(lp, x + delta, cfg, par)
     if aux is None:
@@ -296,12 +296,16 @@ def prefill(params, tokens: Tensor, cfg, mesh=None, *, tp: int = 1,
             prefix_embeddings: Tensor | None = None) -> tuple[Tensor, dict]:
     """Returns (last-position logits (B, V), cache).  The cache holds
     ``kv_eff_heads(cfg, tp)`` KV heads (each replicated up to the TP
-    degree, as the reference's).  Over a mesh: the rank's rows, the
-    logits of its vocab columns where the head is split, and the rank's
-    block of the cache's KV heads (``cache_specs``)."""
+    degree, as the reference's).  Over a mesh (``tp`` the model axis):
+    the rank's rows, the logits of its vocab columns where the head is
+    split, the rank's block of the cache's KV heads where they split
+    over ``model`` and all of them where not, and its SSM channels
+    (``cache_specs``)."""
     from ..distributed.parallel import parallel_for
     par = parallel_for(mesh, cfg)
     kve = kv_eff_heads(cfg, tp)
+    if par is not None and has_attention(cfg):
+        par.check_cache(kve)
     dt = _dtype(cfg)
     s = tokens.shape[1]
     c = cache_len(cfg, max_len or s)
@@ -323,7 +327,7 @@ def prefill(params, tokens: Tensor, cfg, mesh=None, *, tp: int = 1,
             entries.setdefault("v", []).append(_ring(_cache_heads(v, kve, par),
                                                      c))
         if has_ssm(cfg):
-            y, h_fin, conv_tail = ssm_block(lp["ssm"], xn, cfg)
+            y, h_fin, conv_tail = ssm_block(lp["ssm"], xn, cfg, par=par)
             delta = delta + y
             entries.setdefault("h", []).append(h_fin)
             entries.setdefault("conv", []).append(conv_tail)
@@ -337,6 +341,13 @@ def prefill(params, tokens: Tensor, cfg, mesh=None, *, tp: int = 1,
     if has_attention(cfg):
         cache["entry_pos"] = _entry_pos(s, c, x.device)
     return logits, cache
+
+
+def _cache_kve(k_cache: Tensor, par) -> int:
+    """The global KV heads of a self-attention cache (L, B, C, heads, hd)
+    of which this rank holds ``k_cache`` (one device: all of them)."""
+    n = k_cache.shape[-2]
+    return n if par is None else par.cache_kve(n)
 
 
 def _cache_heads(k: Tensor, kve: int, par) -> Tensor:
@@ -368,8 +379,7 @@ def decode_step(params, cache: dict, token: Tensor, cfg, mesh=None
         entry_pos[slot] = t
         new_cache["entry_pos"] = entry_pos
         pos = torch.full((1,), t, device=x.device)
-        split = par is not None and par.q_split
-        kve = cache["k"].shape[-2] * (par.tp if split else 1)
+        kve = _cache_kve(cache["k"], par)
 
     for i, lp in enumerate(params["layers"]):
         if par is not None:
@@ -377,25 +387,12 @@ def decode_step(params, cache: dict, token: Tensor, cfg, mesh=None
         xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         delta = torch.zeros_like(x)
         if attn:
-            ap = lp["attn"]
-            if split and not par.kv_split:     # KV heads projected whole
-                q = _project(xn, ap["wq"].to(dt))
-                k_new, v_new = (_project(xn, ap[n].to(dt))
-                                for n in ("wk", "wv"))
-            else:
-                q, k_new, v_new = qkv_project(ap, xn, cfg)
-            q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
-            k_new = apply_rope(k_new[:, None], pos, cfg.rope_theta)[:, 0]
-            k_cache, v_cache = cache["k"][i], cache["v"][i]
-            k_cache[:, slot] = _cache_heads(k_new, kve, par)
-            v_cache[:, slot] = _cache_heads(v_new, kve, par)
-            out = decode_attention(q, k_cache, v_cache, entry_pos, t,
-                                   window=cfg.sliding_window)
-            out = out.flatten(-2) @ ap["wo"].to(dt).flatten(0, 1)
-            delta = delta + (par.exit(out) if split else out)
+            delta = delta + decode_self_attention(
+                lp["attn"], xn, cache["k"][i], cache["v"][i], entry_pos,
+                slot, t, pos, kve, cfg, par)
         if ssm:
             y, h_new, conv_new = ssm_decode_step(
-                lp["ssm"], xn, cache["h"][i], cache["conv"][i], cfg)
+                lp["ssm"], xn, cache["h"][i], cache["conv"][i], cfg, par)
             delta = delta + y
             cache["h"][i] = h_new
             cache["conv"][i] = conv_new
@@ -405,3 +402,34 @@ def decode_step(params, cache: dict, token: Tensor, cfg, mesh=None
     logits = _logits(params, x, cfg, par)
     new_cache["t"] = torch.tensor(t + 1, dtype=torch.int32)
     return logits, new_cache
+
+
+def decode_self_attention(ap, xn: Tensor, k_cache: Tensor, v_cache: Tensor,
+                          entry_pos: Tensor, slot: int, t: int, pos: Tensor,
+                          kve: int, cfg, par, window: int | None = None
+                          ) -> Tensor:
+    """One token's self-attention branch: writes its K/V into slot
+    ``slot`` of one layer's caches (B, C, heads, hd) in place and returns
+    the branch's output (B, D).  Over a mesh whose query heads split, the
+    rank's heads against its block of the cache, or, where the cache's
+    ``kve`` heads do not split, the heads its query heads read of the whole
+    cache; ``wo``'s partial sums summed over ``model``.  Query heads that
+    do not split run whole on every rank."""
+    dt = xn.dtype
+    split = par is not None and par.q_split
+    if split and not par.kv_split:     # KV heads projected whole
+        q = _project(xn, ap["wq"].to(dt))
+        k_new, v_new = (_project(xn, ap[n].to(dt)) for n in ("wk", "wv"))
+    else:
+        q, k_new, v_new = qkv_project(ap, xn, cfg)
+    q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+    k_new = apply_rope(k_new[:, None], pos, cfg.rope_theta)[:, 0]
+    k_cache[:, slot] = _cache_heads(k_new, kve, par)
+    v_cache[:, slot] = _cache_heads(v_new, kve, par)
+    if split and not par.cache_split(kve):
+        k_cache, v_cache = par.local_kv(k_cache), par.local_kv(v_cache)
+    out = decode_attention(q, k_cache, v_cache, entry_pos, t,
+                           window=cfg.sliding_window if window is None
+                           else window)
+    out = out.flatten(-2) @ ap["wo"].to(dt).flatten(0, 1)
+    return par.exit(out) if split else out

@@ -1542,3 +1542,71 @@ def test_mesh_prefill_and_decode_on_the_card(card_pool):
     for r in card_pool.run(_rank_decode, batch, feed, want):
         assert max(r["errs"]) < 1e-4
         assert r["heads"] == cache["k"].shape[-2] // 2
+
+
+def _family_batch(cfg, rows, seq, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (rows, seq))
+             .astype(np.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(rows, 16, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.normal(size=(rows, 4, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "hymba_1_5b",
+                                  "pixtral_12b", "seamless_m4t_medium"])
+def test_family_mesh_on_one_rank_of_the_card(cuda, arch):
+    """The ssm, hybrid (hymba with its 5 heads), vlm and encdec families
+    over a (1,1) mesh of the card (this process alone): the mesh step
+    equals the plain step (loss, grad norm, parameters within 1e-6), and
+    the mesh forward, prefill and 4 decode steps equal the plain ones
+    within 1e-5 (float32, TF32 off)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import (init_train_state,
+                                              jit_train_step,
+                                              make_train_step)
+    _no_tf32()
+    changes = {"n_heads": 5, "n_kv_heads": 5} if arch == "hymba_1_5b" \
+        else {}
+    cfg = _mesh_cfg(arch, **changes)
+    bundle = build(cfg, device="cuda")
+    batch = _family_batch(cfg, 4, 32, seed=3)
+    tc = TrainConfig(warmup_steps=0, learning_rate=1e-3)
+    params = bundle.init(0)
+    p1, _, m1 = make_train_step(bundle, tc)(
+        params.map(lambda _, p: p.clone()), init_opt_state(params), batch)
+    feed = np.random.default_rng(4).integers(
+        0, cfg.vocab_size_real, (4, 4)).astype(np.int32)
+
+    def serve(mesh):
+        out = [bundle.forward(params, batch, mesh=mesh)]
+        logits, cache = bundle.prefill(params, batch, mesh=mesh, max_len=36)
+        out.append(logits)
+        for tok in feed:
+            logits, cache = bundle.decode_step(params, cache, tok, mesh=mesh)
+            out.append(logits)
+        return out
+    want = serve(None)
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        pm, om = init_train_state(params, tc, mesh)
+        pm, _, mm = jit_train_step(bundle, tc, mesh)(pm, om, batch)
+        got = serve(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert float(mm["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-6)
+    assert float(mm["grad_norm"]) == pytest.approx(float(m1["grad_norm"]),
+                                                   rel=1e-6)
+    for a, b in zip(pm.parameters(), p1.parameters()):
+        assert a.device.type == "cuda"
+        assert float((a - b).abs().max()) <= 1e-6
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5

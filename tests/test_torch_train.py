@@ -353,21 +353,6 @@ def test_microbatch_equals_full_batch():
             params, init_opt_state(params), batch)
 
 
-def test_mesh_step_raises_and_names_the_roadmap():
-    """The dense and moe families step over a mesh (tests/test_torch_
-    sharding.py); the ssm, hybrid, vlm and encdec families do not yet, and
-    their mesh step names the roadmap."""
-    import types
-    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
-                                 axis_names=("data", "model"))
-    for arch in ("falcon_mamba_7b", "hymba_1_5b", "pixtral_12b",
-                 "seamless_m4t_medium"):
-        bundle = build(t_configs.reduced(t_configs.get_config(arch)),
-                       device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(bundle, TrainConfig(), mesh=mesh)
-
-
 def test_mesh_step_on_one_rank_is_the_plain_step():
     """A (1,1) mesh of this process alone: nothing shards, and the mesh step
     (``jit_train_step``, the host batch placed by its layout) gives the
