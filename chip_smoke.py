@@ -403,9 +403,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.analysis import roofline  # noqa: E402  (the card's constants)
+
+HBM_BYTES_PER_S = roofline.HBM_BW
 SPIN_CYCLES = 500_000         # ~0.25 ms at the H100's 1.98 GHz boost clock
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = roofline.INT32_OPS
 BATCH = 4096
 N_QUERY_INDEXED = 1024
 N_QUERY_FRESH = 64
@@ -556,9 +558,8 @@ def fmt_ms(ms: float | None) -> str:
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    seconds, by = roofline.kernel_bound(n_bytes, n_ops)
+    return seconds * 1e3, by
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1592,7 +1593,8 @@ STREAM_QPS = 2000.0
 
 def lane_stats(store) -> list[dict]:
     """STATS of every up lane of a replicated plane whose worker is alive,
-    with its (shard, replica): counters and launches parsed.  (A lane
+    with its (shard, replica): counters and launches parsed, and its
+    longest ADD (``add_max_s``).  (A lane
     whose worker was stopped stays up until a round or the supervisor
     notices; it is left out.)"""
     from repro_torch.transport.wire import Message, MsgType
@@ -1610,7 +1612,9 @@ def lane_stats(store) -> list[dict]:
                         "launches": json.loads(st["launches"]),
                         "handled": {leg: obs["hists"].get(
                             f"worker.handle.{leg}", {"count": 0})["count"]
-                            for leg in ("add", "query", "brute")}})
+                            for leg in ("add", "query", "brute")},
+                        "add_max_s": obs["hists"].get(
+                            "worker.handle.add", {}).get("max")})
     return out
 
 
@@ -1679,6 +1683,12 @@ def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
         coordinator = read_counts(ks)
         lanes = lane_stats(svc.store)
         # -------------------------------------------------------------------
+        # the supervisor's probes: this plane's is the run's first
+        # supervisor, so the histogram is this phase's alone
+        hb = reg.histogram("replica.heartbeat")
+        heartbeats = {"count": hb.count, "max_s": hb.vmax,
+                      "longest_add_s": max((ln["add_max_s"] or 0.0
+                                            for ln in lanes), default=0.0)}
         n_fallback = svc.store.last_timings["n_fallback"]
         journal = svc.store.journal
         n_records = journal.last_seq + 1
@@ -1697,6 +1707,7 @@ def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
             "journal_bytes": os.path.getsize(journal.path),
             "journal_bytes_counted": j1 - j0,
             "journal_payload_bytes_reckoned": reckoned,
+            "heartbeats": heartbeats,
             "lanes": lanes, "launches": plane_launches(coordinator, lanes),
             "launches_coordinator": coordinator}
         report["replica_path"] = rows
@@ -1715,6 +1726,10 @@ def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
               f"{statistics.median(lat[1:]) * 1e3:.3f} ms; fallback rows "
               f"{n_fallback}; answers equal phase 2's; wire a batch "
               f"{rows['wire_bytes_per_query_batch']['bytes_out']:.0f} B out")
+        print(f"[replica] supervisor heartbeats: {heartbeats['count']}, "
+              f"longest {(heartbeats['max_s'] or 0.0) * 1e3:.3f} ms; a "
+              f"worker's longest ADD {heartbeats['longest_add_s']:.3f} s "
+              f"(the probe answers beside it)")
         print(f"[replica] launches: coordinator {coordinator}; lanes "
               + "; ".join(f"({ln['shard']},{ln['replica']}) "
                           f"{ln['launches']} for {ln['handled']}"
@@ -1727,8 +1742,10 @@ def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
                 and coordinator["collision"] == 0,
                 f"the coordinator folds once a batch and launches no probe "
                 f"or collision kernel ({coordinator})")
+        down = [(ln.shard, ln.replica, ln.why_down)
+                for rs in svc.store.shards for ln in rs.lanes if not ln.up]
         require(len(lanes) == REPLICA_SHARDS * REPLICAS,
-                f"every lane up ({len(lanes)})")
+                f"every lane up ({len(lanes)}; down: {down})")
         check_lane_launches(lanes, "replica")
         require(journal.last_seq + 1 == -(-len(idx) // BATCH),
                 f"one journal record a batch ({n_records})")
@@ -4140,6 +4157,207 @@ def _check_serve(tag: str, ranks: list) -> None:
             f"device's ({ranks})")
 
 
+# -- phase 15: the autotuner and the dry run ---------------------------------
+
+TUNE_STREAM_ROWS = 8          # a stream batch: 7 queries padded to 8
+TUNE_STREAM_FALLBACK = 4      # the stream's fallback rows
+TUNE_REPS = 20                # device timings of the default and the winner
+DRYRUN_CELL = ("llama3_2_1b", "decode_32k", "single")
+
+
+def tune_shapes(report: dict) -> list[tuple]:
+    """(label, kind, B, D, K, nnz) of each sweep, as the autotuner keys
+    them: the main path's shapes (its 4096-document sparse batch, the
+    1088-row query batch's fold and probe, the fallback's rows against the
+    whole index), the stream's (8 documents, 8 queries, 4 fallback rows)
+    and the dense path's 4096 x 2^16 rows."""
+    from repro_torch.kernels.packfmt import pack_geometry
+    from repro_torch.serve.search import SearchConfig
+    cfg = SearchConfig()
+    main = report["main_path"]
+    nnz = next(r for r in report["kernels"]
+               if r["name"] == "cminhash_sparse")["shape"][1]
+    words = pack_geometry(cfg.k, cfg.b)[1]
+    per_band = words // cfg.n_bands
+    q_fb = 1 << (main["fallback_rows"] - 1).bit_length()
+    ns, w, docs = main["n_slots"], main["bucket_width"], main["docs"]
+    rows = main["query_rows"]
+    return [
+        ("main", "sparse", BATCH, cfg.d, cfg.k, nnz),
+        ("stream", "sparse", TUNE_STREAM_ROWS, cfg.d, cfg.k, nnz),
+        ("main", "fold", rows, cfg.n_bands, per_band, 0),
+        ("stream", "fold", TUNE_STREAM_ROWS, cfg.n_bands, per_band, 0),
+        ("main", "probe", rows * cfg.n_bands, ns, w, 0),
+        ("stream", "probe", TUNE_STREAM_ROWS * cfg.n_bands, ns, w, 0),
+        ("main", "collision", q_fb, docs, words, 0),
+        ("stream", "collision", TUNE_STREAM_FALLBACK, docs, words, 0),
+        ("dense", "dense_rows", BATCH, cfg.d, cfg.k, nnz),
+        ("dense", "dense_bits", BATCH, cfg.d, cfg.k, nnz),
+    ]
+
+
+_POPCOUNT = [bin(i).count("1") for i in range(256)]
+
+
+def tune_work(kind: str, runner, k: int) -> tuple[float, float]:
+    """(bytes, operations) of one launch of ``kind`` on the runner's
+    inputs, counted as phases 3 and 8 count them."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import lsh_probe as kp
+    x = runner.inputs
+    if kind == "sparse":
+        idx, pi = x["idx"], x["pi"]
+        n_valid = int((idx >= 0).sum().item())
+        return (idx.numel() * 4 + pi.numel() * 4 + idx.shape[0] * k * 4,
+                n_valid * k)
+    if kind in ("dense_rows", "dense_bits"):
+        if kind == "dense_rows":
+            v = x["v"]
+            b, d, set_bits = v.shape[0], v.shape[1], int((v > 0).sum().item())
+        else:
+            words = x["words"]
+            pop = torch.tensor(_POPCOUNT, device=words.device)
+            b, d = words.shape[0], x["pi"].numel()
+            set_bits = int(pop[words.view(torch.uint8).long()].sum().item())
+        r = roofline.cminhash_kernel_roofline(
+            b, d, k, nnz=set_bits / b, packed=kind == "dense_bits")
+        return r["bytes"], r["ops"]
+    if kind == "fold":
+        rows = x["rows"]
+        return (rows.numel() * 4 + rows.shape[0] * rows.shape[1] * 8,
+                rows.numel() * 5)
+    if kind == "probe":
+        records, hashes = x["records"], x["hashes"]
+        w, e = records.shape[1] - 2, hashes.numel()
+        ns = records.shape[0] // hashes.shape[1]
+        walk = probe_walk(records, kp.hash_operands(hashes, ns), ns,
+                          autotune.PROBE_DEPTH)
+        return (e * 8 + walk["probe_steps"] * 8 + walk["hits"] * w * 4
+                + e * w * 4, walk["probe_steps"] * 3)
+    wq, wn = x["words_q"], x["words_n"]
+    q, n, nw = wq.shape[0], wn.shape[0], wq.shape[1]
+    return (q + n) * nw * 4 + q * n * 4, collision_ops(q, n, nw, 32)
+
+
+def tune_path(report: dict) -> None:
+    """Phase 15: the autotuner on the card, then the dry run.
+
+    Phases 1-14 ran with no cache (``$REPRO_AUTOTUNE_CACHE`` unset, the
+    in-process cache cleared at the start): every resolution returned the
+    default, so they launched the geometry each kernel had before it took
+    a knob.  Here, with the cache at a temporary file: ``measure`` (default
+    sweeps, the default duelled) of each kind at ``tune_shapes``, counted
+    as this path's launches; each winner launched again and held against
+    its plain version on the same inputs (tolerance 0), timed on the
+    device beside the default and the bound; ``recommend`` in a fresh
+    process reads the winners back from the file; then the dry run of one
+    cell in a subprocess (a fake 256-rank group on the CPU)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.default()
+    hits = reg.counter("autotune.hit").value
+    resolved = reg.counter("autotune.heuristic").value
+    print(f"[tune] phases 1-14: {resolved} launch geometries resolved to "
+          f"the default, {hits} from a cache")
+    require(hits == 0 and resolved > 0,
+            "phases 1-14 launch the default geometry (no autotune cache)")
+    ks = kernels()
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    path = os.path.join(tmp, "autotune.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env[autotune.CACHE_ENV] = path
+    os.environ[autotune.CACHE_ENV] = path
+    rows = []
+    try:
+        shapes = tune_shapes(report)
+        zero_counts(ks)
+        # --- the tune path: default sweeps, the winners cached in the file
+        t0 = time.perf_counter()
+        winners = [autotune.measure(kind, b, d, k, backend="cuda", nnz=nnz)
+                   for _, kind, b, d, k, nnz in shapes]
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = read_counts(ks)
+        # --------------------------------------------------------------------
+        for (label, kind, b, d, k, nnz), best in zip(shapes, winners):
+            runner = autotune._make_runner(kind, b, d, k, nnz, 0, "cuda")
+            got = runner(best)()
+            want = runner.plain()
+            err = max_abs_err(got, want)
+            require(err == 0.0 and torch.equal(got, want),
+                    f"tuned {kind} {best} at {label}: kernel != plain "
+                    f"version (max abs err {err})")
+            dflt = autotune.default(kind, b, d, k)
+            win_ms = time_ms(runner(best), TUNE_REPS, spin=True)
+            def_ms = win_ms if best == dflt else time_ms(
+                runner(dflt), TUNE_REPS, spin=True)
+            b_ms, b_by = bound_ms(*tune_work(kind, runner, k))
+            rows.append({"label": label, "kind": kind, "shape": [b, d, k],
+                         "nnz": nnz, "winner": best, "default": dflt,
+                         "winner_device_ms": win_ms,
+                         "default_device_ms": def_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "max_abs_err": err})
+            print(f"[tune] {label} {kind} B={b} D={d} K={k}"
+                  + (f" nnz={nnz}" if nnz else "") + f": winner {best} "
+                  f"{fmt_ms(win_ms)} ms on the device, default {dflt} "
+                  f"{fmt_ms(def_ms)} ms, bound {b_ms:.4f} ms by {b_by}; "
+                  "equal to the plain version")
+            del runner, got, want
+            torch.cuda.empty_cache()
+        code = ("import json, sys\n"
+                "from repro_torch.kernels import autotune\n"
+                "print(json.dumps([autotune.recommend(kind, b, d, k, "
+                "backend='cuda', nnz=nnz) for _, kind, b, d, k, nnz in "
+                "json.loads(sys.argv[1])]))")
+        p = subprocess.run([sys.executable, "-c", code, json.dumps(shapes)],
+                           env=env, capture_output=True, text=True,
+                           timeout=120)
+        require(p.returncode == 0, f"recommend in a fresh process:\n"
+                f"{p.stdout}{p.stderr}")
+        read_back = json.loads(p.stdout.splitlines()[-1])
+        require(read_back == winners,
+                f"recommend() in a fresh process returns the winners from "
+                f"the cache file ({read_back} vs {winners})")
+        with open(path) as f:
+            n_entries = len(json.load(f))
+        print(f"[tune] {len(shapes)} sweeps in {sweep_s:.2f} s, launches "
+              f"{launches}; a fresh process's recommend() read the "
+              f"{n_entries} winners back from the cache file")
+        arch, shape, mesh = DRYRUN_CELL
+        out = os.path.join(tmp, "dryrun")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out],
+            env=env, capture_output=True, text=True, timeout=300)
+        dry_s = time.perf_counter() - t0
+        require(p.returncode == 0, f"dry run:\n{p.stdout}{p.stderr}")
+        with open(os.path.join(out, f"single_pod__{arch}__{shape}.json")) as f:
+            rec = json.load(f)
+        require(rec["status"] == "ok",
+                f"dry run cell: {rec.get('traceback', rec.get('error'))}")
+        hc = rec["hlo_cost"]
+        print(f"[dryrun] single_pod {arch} {shape}: {hc['flops']:.6e} flops, "
+              f"{hc['bytes']:.6e} bytes, {hc['collective_bytes']:.6e} "
+              f"collective bytes a rank of {rec['n_chips']}; argument "
+              f"bytes {rec['memory']['argument_bytes']}; status ok in "
+              f"{dry_s:.1f} s")
+    finally:
+        os.environ.pop(autotune.CACHE_ENV, None)
+        autotune.clear_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_all
+    report["tune_path"] = {"launches": launches, "rows": rows,
+                           "sweep_s": sweep_s, "seconds": secs,
+                           "dryrun": {"cell": list(DRYRUN_CELL),
+                                      "seconds": dry_s,
+                                      "n_chips": rec["n_chips"],
+                                      "hlo_cost": hc,
+                                      "memory": rec["memory"]}}
+    print(f"[tune] phase 15 {secs:.1f} s")
+
+
 PLACEMENTS = {0: "uint16 shared", 1: "int32 global", 2: "uint16 pairs"}
 SIGNING = ("cminhash_sparse", "cminhash_dense", "cminhash_packed")
 # The earlier collision interface: unpacked int32 codes, (a, b, out, Q, N, K)
@@ -4149,6 +4367,35 @@ UNPACKED_COLLISION_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 OPERAND_ROW_PROBE_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                           + [ctypes.c_int] * 3)
 QUERY_SOURCES = ("fold", "lsh_probe")
+# Each source's launch knobs (kernels/autotune.py), by the parameter that
+# names the first of them in its C entry, and their count: a baseline
+# source without it predates them.
+KNOBS = {"cminhash_sparse": ("int placement", 1),
+         "cminhash_dense": ("int placement", 1),
+         "cminhash_packed": ("int placement", 1),
+         "collision": ("int block_q", 1), "fold": ("int threads", 1),
+         "lsh_probe": ("int group", 2)}
+
+
+def has_knobs(baseline: str, name: str) -> bool:
+    with open(os.path.join(baseline, "src", "repro_torch", "csrc",
+                           f"{name}.cu")) as f:
+        return KNOBS[name][0] in f.read()
+
+
+class EarlierKernel:
+    """A baseline library whose C entry takes no launch knobs, behind the
+    current wrapper: bound with its own arguments, the wrapper's trailing
+    knob arguments dropped."""
+
+    def __init__(self, name: str, argtypes: list, library: str):
+        from repro_torch.kernels import _build
+        self.n = KNOBS[name][1]
+        self.kernel = _build.CudaKernel(name, argtypes[:-self.n],
+                                        library=library)
+
+    def launch(self, device, *args) -> None:
+        self.kernel.launch(device, *args[:-self.n])
 
 
 def build_baseline(baseline: str, names) -> dict[str, str]:
@@ -4185,7 +4432,7 @@ def collision_sass(report: dict) -> None:
     with open(os.path.join(ROOT, "chiprun_out", "collision.sass"), "w") as f:
         f.write(sass)
     body = next(f for f in re.split(r"\n\s+Function : ", sass)
-                if "CodeCountELi4E" in f.split("\n", 1)[0])
+                if "CodeCountELi4ELi16E" in f.split("\n", 1)[0])
     ops = [m.group(2) for m in (re.match(
         r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         for line in body.splitlines()) if m]
@@ -4248,9 +4495,15 @@ def compare(baseline: str | None, report: dict) -> None:
         libs = build_baseline(baseline, [*mods, *QUERY_SOURCES])
         query_libs = {n: libs.pop(n) for n in QUERY_SOURCES}
         for name, path in libs.items():
-            args = (UNPACKED_COLLISION_ARGS if name == "collision"
-                    and unpacked_abi else mods[name].KERNEL.argtypes)
-            base[name] = _build.CudaKernel(name, args, library=path)
+            if name == "collision" and unpacked_abi:
+                base[name] = _build.CudaKernel(
+                    name, UNPACKED_COLLISION_ARGS, library=path)
+            elif not has_knobs(baseline, name):
+                base[name] = EarlierKernel(name, mods[name].KERNEL.argtypes,
+                                           path)
+            else:
+                base[name] = _build.CudaKernel(
+                    name, mods[name].KERNEL.argtypes, library=path)
 
     @contextlib.contextmanager
     def variant(name, label):
@@ -4481,12 +4734,15 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
         with open(os.path.join(baseline, "src", "repro_torch", "csrc",
                                "lsh_probe.cu")) as f:
             meta_abi = "const int* meta" in f.read()
-        fold_k = _build.CudaKernel("fold", kq.KERNEL.argtypes,
-                                   library=libs["fold"])
+        fold_k = (_build.CudaKernel("fold", kq.KERNEL.argtypes,
+                                    library=libs["fold"])
+                  if has_knobs(baseline, "fold") else
+                  EarlierKernel("fold", kq.KERNEL.argtypes, libs["fold"]))
 
         def old_fold():
             out = torch.empty((q, nb), dtype=torch.int64, device=dev)
-            fold_k.launch(dev, _build.ptr(rows), _build.ptr(out), q, nb, r, 0)
+            fold_k.launch(dev, _build.ptr(rows), _build.ptr(out), q, nb, r, 0,
+                          256)
             return out
         if meta_abi:
             probe_k = _build.CudaKernel("lsh_probe", OPERAND_ROW_PROBE_ARGS,
@@ -4506,14 +4762,18 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
                    "store leg": lambda: old_probe(kq.meta_from_hashes(
                        old_fold(), n_slots=ns).contiguous())}
         else:
-            probe_k = _build.CudaKernel("lsh_probe", kp.KERNEL.argtypes,
-                                        library=libs["lsh_probe"])
+            probe_k = (_build.CudaKernel("lsh_probe", kp.KERNEL.argtypes,
+                                         library=libs["lsh_probe"])
+                       if has_knobs(baseline, "lsh_probe") else
+                       EarlierKernel("lsh_probe", kp.KERNEL.argtypes,
+                                     libs["lsh_probe"]))
 
             def old_probe(h):
                 out = torch.empty((h.numel(), w), dtype=torch.int32,
                                   device=dev)
                 probe_k.launch(dev, _build.ptr(records), _build.ptr(h),
-                               _build.ptr(out), h.numel(), nb, ns, mp, w)
+                               _build.ptr(out), h.numel(), nb, ns, mp, w,
+                               4, 4)
                 return out
             old = {"fold": old_fold, "probe": lambda: old_probe(hashes),
                    "service leg": lambda: old_probe(old_fold())}
@@ -4665,7 +4925,10 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA card")
     adopt_descendants()
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
+    # phases 1-14 launch the default geometry: no autotune cache (phase 15)
+    os.environ.pop(autotune.CACHE_ENV, None)
+    autotune.clear_cache()
     t_all = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda "
@@ -4746,11 +5009,13 @@ def main() -> None:
     train_path(args.seed, report)
     torch.cuda.empty_cache()
     mesh_path(args.seed, report)
+    torch.cuda.empty_cache()
+    tune_path(report)
 
     paths = ("main_path", "store_path", "raw_path", "snapshot_path",
              "tcp_path", "replica_path", "chaos_path", "stream_path",
              "dense_path", "paper_path", "dedup_path", "linear_path",
-             "lm_path", "train_path", "mesh_path")
+             "lm_path", "train_path", "mesh_path", "tune_path")
     for row in report["kernels"] + extra:
         row["launches"] = sum(report[p]["launches"][row["name"]]
                               for p in paths)
@@ -4768,7 +5033,7 @@ def main() -> None:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "equal", "ms", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report["kernels"]]}))
     print(card)

@@ -28,6 +28,8 @@ class SketchConfig:
     d: int                      # universe size (shingle space)
     k: int = 1024               # signature length
     use_sigma: bool = True      # C-MinHash-(sigma,pi) vs -(0,pi)
+    autotune_measure: bool = False  # sweep-and-cache the launch geometry
+                                    # on an autotune cache miss
     seed: int = 0               # torch.Generator seed when no params given
 
 
@@ -73,7 +75,7 @@ class SketchEngine:
         self._c_rows.inc(len(v))
         return dispatch.signatures_dense(
             self._on_device(v), self.pi, self.cfg.k, self.sigma,
-            pack_b=pack_b)
+            pack_b=pack_b, autotune_measure=self.cfg.autotune_measure)
 
     def signatures_sparse(self, idx, *,
                           pack_b: int | None = None) -> torch.Tensor:
@@ -83,7 +85,7 @@ class SketchEngine:
         self._c_rows.inc(len(idx))
         return dispatch.signatures_sparse(
             self._on_device(idx), self.pi, self.cfg.k, self.sigma,
-            pack_b=pack_b)
+            pack_b=pack_b, autotune_measure=self.cfg.autotune_measure)
 
     def sign_packed(self, data, b: int, *,
                     layout: str = "sparse") -> torch.Tensor:

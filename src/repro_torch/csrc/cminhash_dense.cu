@@ -118,7 +118,7 @@ cminhash_dense_kernel(const signed char* __restrict__ v,
 template <int H>
 cudaError_t launch(const signed char* v, const int* pi, int* out, int B,
                    int D, int K, int off, int pack_b, int n_words,
-                   cudaStream_t stream) {
+                   int placement, cudaStream_t stream) {
   const int ext = table_ext(K, off);
   const int vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   using Kernel = decltype(&cminhash_dense_kernel<H, kShared16>);
@@ -128,7 +128,7 @@ cudaError_t launch(const signed char* v, const int* pi, int* out, int B,
                                        cminhash_dense_kernel<H, kGlobal32>,
                                        pairs};
   Plan plan;
-  const cudaError_t e = plan_launch(kernels, D, ext, B, &plan);
+  const cudaError_t e = plan_launch(kernels, D, ext, B, placement, &plan);
   if (e != cudaSuccess) return e;
   kernels[plan.placement]<<<plan.grid, kThreads, plan.smem, stream>>>(
       v, pi, out, B, D, K, off, pack_b, n_words, ext, vec);
@@ -137,16 +137,24 @@ cudaError_t launch(const signed char* v, const int* pi, int* out, int B,
 
 }  // namespace
 
+// placement: where pi lives (kShared16 = 0, kGlobal32 = 1, kPairs = 2,
+// window_fold.cuh), or -1 for the launch's own pick; one that is not
+// offered at (D, K) or does not fit is refused.
 extern "C" int cminhash_dense_launch(const signed char* v, const int* pi,
                                      int* out, int B, int D, int K, int off,
-                                     int pack_b, int n_words, void* stream) {
+                                     int pack_b, int n_words, int placement,
+                                     void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lane_hashes(K)) {
-    case 2: return launch<2>(v, pi, out, B, D, K, off, pack_b, n_words, s);
-    case 8: return launch<8>(v, pi, out, B, D, K, off, pack_b, n_words, s);
-    case 16: return launch<16>(v, pi, out, B, D, K, off, pack_b, n_words, s);
-    default: return launch<32>(v, pi, out, B, D, K, off, pack_b, n_words, s);
+    case 2: return launch<2>(v, pi, out, B, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 8: return launch<8>(v, pi, out, B, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 16: return launch<16>(v, pi, out, B, D, K, off, pack_b, n_words,
+                               placement, s);
+    default: return launch<32>(v, pi, out, B, D, K, off, pack_b, n_words,
+                               placement, s);
   }
 }
 

@@ -154,7 +154,7 @@ cminhash_packed_kernel(const unsigned* __restrict__ words,
 template <int H>
 cudaError_t launch(const unsigned* words, const int* pi, int* out, int B,
                    int nw, int D, int K, int off, int pack_b, int n_words,
-                   cudaStream_t stream) {
+                   int placement, cudaStream_t stream) {
   const int ext = table_ext(K, off);
   const int vec =
       nw % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
@@ -165,7 +165,7 @@ cudaError_t launch(const unsigned* words, const int* pi, int* out, int B,
                                        cminhash_packed_kernel<H, kGlobal32>,
                                        pairs};
   Plan plan;
-  const cudaError_t e = plan_launch(kernels, D, ext, B, &plan);
+  const cudaError_t e = plan_launch(kernels, D, ext, B, placement, &plan);
   if (e != cudaSuccess) return e;
   kernels[plan.placement]<<<plan.grid, kThreads, plan.smem, stream>>>(
       words, pi, out, B, nw, D, K, off, pack_b, n_words, ext, vec);
@@ -174,17 +174,24 @@ cudaError_t launch(const unsigned* words, const int* pi, int* out, int B,
 
 }  // namespace
 
+// placement: where pi lives (kShared16 = 0, kGlobal32 = 1, kPairs = 2,
+// window_fold.cuh), or -1 for the launch's own pick; one that is not
+// offered at (D, K) or does not fit is refused.
 extern "C" int cminhash_packed_launch(const unsigned* words, const int* pi,
                                       int* out, int B, int nw, int D, int K,
                                       int off, int pack_b, int n_words,
-                                      void* stream) {
+                                      int placement, void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lane_hashes(K)) {
-    case 2: return launch<2>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
-    case 8: return launch<8>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
-    case 16: return launch<16>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
-    default: return launch<32>(words, pi, out, B, nw, D, K, off, pack_b, n_words, s);
+    case 2: return launch<2>(words, pi, out, B, nw, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 8: return launch<8>(words, pi, out, B, nw, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 16: return launch<16>(words, pi, out, B, nw, D, K, off, pack_b, n_words,
+                               placement, s);
+    default: return launch<32>(words, pi, out, B, nw, D, K, off, pack_b, n_words,
+                               placement, s);
   }
 }
 

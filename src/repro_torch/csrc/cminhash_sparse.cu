@@ -89,7 +89,7 @@ cminhash_sparse_kernel(const int* __restrict__ idx, const int* __restrict__ pi,
 template <int H>
 cudaError_t launch(const int* idx, const int* pi, int* out, int B, int nnz,
                    int D, int K, int off, int pack_b, int n_words,
-                   cudaStream_t stream) {
+                   int placement, cudaStream_t stream) {
   const int ext = table_ext(K, off);
   using Kernel = decltype(&cminhash_sparse_kernel<H, kShared16>);
   Kernel pairs = nullptr;
@@ -98,7 +98,7 @@ cudaError_t launch(const int* idx, const int* pi, int* out, int B, int nnz,
                                        cminhash_sparse_kernel<H, kGlobal32>,
                                        pairs};
   Plan plan;
-  const cudaError_t e = plan_launch(kernels, D, ext, B, &plan);
+  const cudaError_t e = plan_launch(kernels, D, ext, B, placement, &plan);
   if (e != cudaSuccess) return e;
   kernels[plan.placement]<<<plan.grid, kThreads, plan.smem, stream>>>(
       idx, pi, out, B, nnz, D, K, off, pack_b, n_words, ext);
@@ -107,16 +107,24 @@ cudaError_t launch(const int* idx, const int* pi, int* out, int B, int nnz,
 
 }  // namespace
 
+// placement: where pi lives (kShared16 = 0, kGlobal32 = 1, kPairs = 2,
+// window_fold.cuh), or -1 for the launch's own pick; one that is not
+// offered at (D, K) or does not fit is refused.
 extern "C" int cminhash_sparse_launch(const int* idx, const int* pi, int* out,
                                       int B, int nnz, int D, int K, int off,
-                                      int pack_b, int n_words, void* stream) {
+                                      int pack_b, int n_words, int placement,
+                                      void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lane_hashes(K)) {
-    case 2: return launch<2>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words, s);
-    case 8: return launch<8>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words, s);
-    case 16: return launch<16>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words, s);
-    default: return launch<32>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words, s);
+    case 2: return launch<2>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 8: return launch<8>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words,
+                             placement, s);
+    case 16: return launch<16>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words,
+                               placement, s);
+    default: return launch<32>(idx, pi, out, B, nnz, D, K, off, pack_b, n_words,
+                               placement, s);
   }
 }
 

@@ -32,10 +32,16 @@
 // ptxas chains most pairs through one predicate, so a warp completes a
 // pair every ~14 clocks and the pipes fill only with enough warps: an SM
 // needs about 28 (7 a scheduler) to keep the integer pipe busy.  A block of
-// 256 threads owns a 64 x 64 output tile, each thread a 4 x 4 register
-// tile (rows ty + 16 i, columns tx + 16 j), 64 registers a thread, so four
-// blocks (32 warps) fit an SM; an 8 x 8 tile, fewer loads a pair but 128
-// registers and 16 warps an SM, ran at half the rate.  The words stream
+// 16 x TY threads owns a 4 TY x 64 output tile, each thread a 4 x 4
+// register tile (rows ty + TY i, columns tx + 16 j), 64 registers a thread
+// (the launch bounds ask for 1024 threads an SM); at the default TY = 16,
+// a 64 x 64 tile of 256 threads, four blocks (32 warps) fit an SM; an 8 x 8
+// register tile, fewer loads a pair but 128 registers and 16 warps an SM,
+// ran at half the rate.  The query tile, block_q = 4 TY of 16, 32 or 64
+// rows, is a launch argument among the compiled instances
+// (kernels/autotune.py's "collision" kind picks one a call; 64 is the
+// default): a few query rows (a stream batch's 4) fill a 16-row tile, not
+// a quarter of the threads of a 64-row one.  The words stream
 // through shared memory 32 a row at a time in a double-buffered ring filled
 // by cp.async (16-byte copies where W % 4 == 0 and both operands are
 // 16-byte aligned, 4-byte copies otherwise; shifts and masks, no division,
@@ -57,15 +63,23 @@
 namespace {
 
 constexpr int kT = 4;                      // rows and columns a thread
-constexpr int kTX = 16, kTY = 16;          // threads along N and Q
-constexpr int kBQ = kT * kTY;              // query rows per block: 64
+constexpr int kTX = 16;                    // threads along N
 constexpr int kBN = kT * kTX;              // index rows per block: 64
 constexpr int kKC = 32;                    // words per staged chunk
 constexpr int kStride = kKC + 4;           // shared row stride, in words
-constexpr int kThreads = kTX * kTY;
-constexpr int kStageWords = (kBQ + kBN) * kStride;
-constexpr int kSmemBytes = 2 * kStageWords * 4;   // two stages: 36,864
 constexpr int kSegChunks = (1 << 24) / kKC;       // chunks a float count spans
+
+// The block's geometry for TY threads along Q (4, 8 or 16).
+template <int TY>
+struct Tile {
+  static constexpr int kTY = TY;
+  static constexpr int kBQ = kT * TY;      // query rows per block: 4 TY
+  static constexpr int kThreads = kTX * TY;
+  static constexpr int kStageWords = (kBQ + kBN) * kStride;
+  static constexpr int kSmemBytes = 2 * kStageWords * 4;  // 36,864 at 16
+  // 64 registers a thread: as many threads an SM as four 256-thread blocks
+  static constexpr int kMinBlocks = 1024 / kThreads;
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -95,15 +109,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The block's staging of one chunk, words [w0, w0 + kKC) of its 64 A rows
+// The block's staging of one chunk, words [w0, w0 + kKC) of its kBQ A rows
 // and 64 B rows: this thread copies VEC words at column c of rows r0 +
 // kRowStep u of each side.  Only a base pointer a side, the row step and
 // the rows left are kept, so the loop holds few registers.
-template <int VEC>
+template <int VEC, class TL>
 struct Stager {
   static constexpr int kPer = kKC / VEC;           // copies a row
-  static constexpr int kRowStep = kThreads / kPer; // rows between copies
-  static constexpr int kSide = kBQ / kRowStep;     // copies a side
+  static constexpr int kRowStep = TL::kThreads / kPer;  // rows between copies
+  static constexpr int kSideA = TL::kBQ / kRowStep;     // copies of A rows
+  static constexpr int kSideB = kBN / kRowStep;         // copies of B rows
+  static_assert(TL::kThreads % kPer == 0 && TL::kBQ % kRowStep == 0 &&
+                    kBN % kRowStep == 0,
+                "staging geometry");
   const unsigned* ga;                      // A row q0 + r0, column c
   const unsigned* gb;                      // B row n0 + r0, column c
   long long step;                          // kRowStep rows, in words
@@ -123,12 +141,15 @@ struct Stager {
   __device__ __forceinline__ void operator()(unsigned* s, int w0) const {
     const bool col = c + w0 < W;
 #pragma unroll
-    for (int u = 0; u < kSide; ++u) {
+    for (int u = 0; u < kSideA; ++u) {
       const bool ok_a = col && a_left > kRowStep * u;
-      const bool ok_b = col && b_left > kRowStep * u;
       cp_async<VEC>(s + (r0 + kRowStep * u) * kStride + c,
                     ok_a ? ga + step * u + w0 : ga, ok_a);
-      cp_async<VEC>(s + (kBQ + r0 + kRowStep * u) * kStride + c,
+    }
+#pragma unroll
+    for (int u = 0; u < kSideB; ++u) {
+      const bool ok_b = col && b_left > kRowStep * u;
+      cp_async<VEC>(s + (TL::kBQ + r0 + kRowStep * u) * kStride + c,
                     ok_b ? gb + step * u + w0 : gb, ok_b);
     }
   }
@@ -160,12 +181,13 @@ struct LaneCount {
   }
 };
 
-template <class Op>
+template <class TL, class Op>
 __device__ __forceinline__ void count_chunk(const unsigned* s, const Op& op,
                                             int tx, int ty,
                                             typename Op::Acc (&acc)[kT][kT]) {
+  constexpr int kTY = TL::kTY;
   const unsigned* as = s + ty * kStride;
-  const unsigned* bs = s + (kBQ + tx) * kStride;
+  const unsigned* bs = s + (TL::kBQ + tx) * kStride;
 #pragma unroll
   for (int c = 0; c < kKC; c += 4) {
     uint4 av[kT], bv[kT];
@@ -187,11 +209,13 @@ __device__ __forceinline__ void count_chunk(const unsigned* s, const Op& op,
   }
 }
 
-template <class Op, int VEC>
-__global__ void __launch_bounds__(kThreads, 4)   // <= 64 registers
+template <class Op, int VEC, int TY>
+__global__ void __launch_bounds__(Tile<TY>::kThreads, Tile<TY>::kMinBlocks)
 collision_kernel(const unsigned* __restrict__ a,
                  const unsigned* __restrict__ b, int* __restrict__ out,
                  int Q, int N, int W, int K, int bits, Op op) {
+  using TL = Tile<TY>;
+  constexpr int kTY = TY, kBQ = TL::kBQ, kStageWords = TL::kStageWords;
   extern __shared__ int4 smem_raw[];
   unsigned* smem = reinterpret_cast<unsigned*>(smem_raw);
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
@@ -205,7 +229,7 @@ collision_kernel(const unsigned* __restrict__ a,
     for (int j = 0; j < kT; ++j) acc[i][j] = 0;
 
   const int n_chunks = (W + kKC - 1) / kKC;
-  const Stager<VEC> stage(a, b, q0, n0, Q, N, W);
+  const Stager<VEC, TL> stage(a, b, q0, n0, Q, N, W);
   stage(smem, 0);
   cp_async_commit();
   for (int ch = 0; ch < n_chunks; ++ch) {
@@ -217,7 +241,7 @@ collision_kernel(const unsigned* __restrict__ a,
       cp_async_wait<0>();
     }
     __syncthreads();
-    count_chunk(smem + (ch & 1) * kStageWords, op, tx, ty, acc);
+    count_chunk<TL>(smem + (ch & 1) * kStageWords, op, tx, ty, acc);
     __syncthreads();                       // the stage is consumed
     if constexpr (Op::kFloat) {
       if (((ch + 1) & (kSegChunks - 1)) == 0 && ch + 1 < n_chunks) {
@@ -280,48 +304,65 @@ collision_kernel(const unsigned* __restrict__ a,
   }
 }
 
-// Ask once per device for the largest shared carveout, so that four
-// blocks (4 x 36,864 bytes) fit an SM whatever split of the SM's memory
-// between L1 and shared memory would otherwise be chosen.  slot: which of
-// the four instantiations.
-cudaError_t prepare(const void* kernel, int slot) {
+// Ask once per device and instantiation for the largest shared carveout,
+// so that the blocks the launch bounds ask for (four of 36,864 bytes at
+// the default tile) fit an SM whatever split of the SM's memory between L1
+// and shared memory would otherwise be chosen.
+template <class Op, int VEC, int TY>
+cudaError_t prepare() {
   static std::mutex mu;
-  static bool done[4][64] = {};
+  static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   std::lock_guard<std::mutex> lock(mu);
-  if (dev < 64 && done[slot][dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel,
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(collision_kernel<Op, VEC, TY>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            100);
   if (e != cudaSuccess) return e;
-  if (dev < 64) done[slot][dev] = true;
+  if (dev < 64) done[dev] = true;
   return cudaSuccess;
 }
 
-template <class Op, int VEC>
+template <class Op, int VEC, int TY>
 cudaError_t launch(const unsigned* a, const unsigned* b, int* out, int Q,
-                   int N, int W, int K, int bits, Op op, int slot,
+                   int N, int W, int K, int bits, Op op,
                    cudaStream_t stream) {
-  const cudaError_t e =
-      prepare(reinterpret_cast<const void*>(collision_kernel<Op, VEC>), slot);
+  using TL = Tile<TY>;
+  const cudaError_t e = prepare<Op, VEC, TY>();
   if (e != cudaSuccess) return e;
-  const long long gy = (Q + kBQ - 1) / kBQ;
+  const long long gy = (Q + TL::kBQ - 1) / TL::kBQ;
   if (gy > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((N + kBN - 1) / kBN, static_cast<unsigned>(gy));
-  collision_kernel<Op, VEC><<<grid, kThreads, kSmemBytes, stream>>>(
-      a, b, out, Q, N, W, K, bits, op);
+  collision_kernel<Op, VEC, TY>
+      <<<grid, TL::kThreads, TL::kSmemBytes, stream>>>(a, b, out, Q, N, W, K,
+                                                       bits, op);
   return cudaGetLastError();
+}
+
+// The compiled query tiles: block_q 16, 32 or 64 rows (TY 4, 8, 16).
+template <class Op, int VEC>
+cudaError_t launch_tile(const unsigned* a, const unsigned* b, int* out,
+                        int Q, int N, int W, int K, int bits, Op op,
+                        int block_q, cudaStream_t stream) {
+  switch (block_q) {
+    case 16: return launch<Op, VEC, 4>(a, b, out, Q, N, W, K, bits, op, stream);
+    case 32: return launch<Op, VEC, 8>(a, b, out, Q, N, W, K, bits, op, stream);
+    default: return launch<Op, VEC, 16>(a, b, out, Q, N, W, K, bits, op, stream);
+  }
 }
 
 }  // namespace
 
 // a (Q, W) and b (N, W) words of K b-bit codes (b in 1, 2, 4, 8, 16, 32;
-// W = ceil(K / (32/b))) -> out (Q, N) int32 counts of equal codes.
+// W = ceil(K / (32/b))) -> out (Q, N) int32 counts of equal codes, with a
+// query tile of block_q rows (16, 32 or 64; any other is refused).
 extern "C" int collision_launch(const unsigned* a, const unsigned* b,
                                 int* out, int Q, int N, int W, int K,
-                                int bits, void* stream) {
+                                int bits, int block_q, void* stream) {
+  if (block_q != 16 && block_q != 32 && block_q != 64)
+    return cudaErrorInvalidValue;
   if (Q == 0 || N == 0) return cudaSuccess;
   if (bits < 1 || bits > 32 || 32 % bits != 0 || W < 1)
     return cudaErrorInvalidValue;
@@ -330,8 +371,10 @@ extern "C" int collision_launch(const unsigned* a, const unsigned* b,
                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
   if (bits == 32) {
     const CodeCount op = {0u, 0u};
-    return vec ? launch<CodeCount, 4>(a, b, out, Q, N, W, K, bits, op, 0, s)
-               : launch<CodeCount, 1>(a, b, out, Q, N, W, K, bits, op, 1, s);
+    return vec ? launch_tile<CodeCount, 4>(a, b, out, Q, N, W, K, bits, op,
+                                           block_q, s)
+               : launch_tile<CodeCount, 1>(a, b, out, Q, N, W, K, bits, op,
+                                           block_q, s);
   }
   unsigned lane_low = 0u, lane_top = 0u;
   for (int s0 = 0; s0 < 32; s0 += bits) {
@@ -339,8 +382,10 @@ extern "C" int collision_launch(const unsigned* a, const unsigned* b,
     lane_top |= 1u << (s0 + bits - 1);
   }
   const LaneCount op = {lane_low, lane_top};
-  return vec ? launch<LaneCount, 4>(a, b, out, Q, N, W, K, bits, op, 2, s)
-             : launch<LaneCount, 1>(a, b, out, Q, N, W, K, bits, op, 3, s);
+  return vec ? launch_tile<LaneCount, 4>(a, b, out, Q, N, W, K, bits, op,
+                                         block_q, s)
+             : launch_tile<LaneCount, 1>(a, b, out, Q, N, W, K, bits, op,
+                                         block_q, s);
 }
 
 extern "C" const char* collision_error(int code) {

@@ -25,28 +25,43 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
+// The block sizes compiled (kernels/autotune.py's "fold" kind picks one a
+// call; 256 is the default).
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const int* __restrict__ x, long long* __restrict__ out,
             long long n_bands_total, int R, int sign_extend) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= n_bands_total) return;
   out[e] = static_cast<long long>(band_fold::fold(x + e * R, R,
                                                   sign_extend != 0));
 }
 
+template <int kThreads>
+int launch(const int* x, long long* out, long long total, int R,
+           int sign_extend, cudaStream_t stream) {
+  const long long grid = (total + kThreads - 1) / kThreads;
+  fold_kernel<kThreads><<<unsigned(grid), kThreads, 0, stream>>>(
+      x, out, total, R, sign_extend);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// threads: the block size, 128, 256 or 512; any other is refused.
 extern "C" int fold_launch(const int* x, long long* out, long long n_rows,
-                           int n_bands, int R, int sign_extend, void* stream) {
+                           int n_bands, int R, int sign_extend, int threads,
+                           void* stream) {
   const long long total = n_rows * n_bands;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (threads != 128 && threads != 256 && threads != 512)
+    return cudaErrorInvalidValue;
   if (total == 0) return cudaSuccess;
-  const long long grid = (total + kThreads - 1) / kThreads;
-  fold_kernel<<<unsigned(grid), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(x, out, total, R,
-                                                     sign_extend);
-  return cudaGetLastError();
+  switch (threads) {
+    case 128: return launch<128>(x, out, total, R, sign_extend, s);
+    case 256: return launch<256>(x, out, total, R, sign_extend, s);
+    default: return launch<512>(x, out, total, R, sign_extend, s);
+  }
 }
 
 extern "C" const char* fold_error(int code) {

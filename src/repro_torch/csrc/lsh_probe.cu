@@ -29,18 +29,20 @@
 // under a microsecond at 3.35 TB/s.  The earlier kernel ran a thread an entry
 // on host-built operand rows: the row, then one dependent read a step, then
 // the hit's ids.  This design cuts the dependent reads:
-//   * A group of kGroup = 4 lanes owns an entry (8 entries a warp), and
-//     reads the entry's hash where the fold wrote it: 8 bytes, no operand
-//     row.
-//   * The group walks kSteps = 4 probe steps a round trip: lane j loads
-//     the key halves of step t0 + j (the first four offsets, 0, 1, 3 and
-//     6, lie within 7 records), a ballot within the group finds the first
+//   * A group of G lanes owns an entry (32 / G entries a warp), and reads
+//     the entry's hash where the fold wrote it: 8 bytes, no operand row.
+//   * The group walks S <= G probe steps a round trip: lane j loads the
+//     key halves of step t0 + j (with S = 4, the first four offsets, 0, 1,
+//     3 and 6, lie within 7 records), a ballot within the group finds the first
 //     step whose key matches or whose slot is unused, and the lanes then
 //     read the hit's W ids and write them coalesced.  Nearly every walk at
 //     serving load ends in the first four steps (33,747 of 34,816 end at
 //     step 0), so a walk costs the hash, one DRAM round trip for the keys
 //     and a dependent read for the ids; longer chains take one round trip
-//     per four steps.  Each slot is reduced mod n_slots on its own, so a
+//     per S steps.
+//   * (G, S) is a launch argument among the compiled instances below
+//     (kernels/autotune.py's "probe" kind picks one a call); (4, 4), 8
+//     entries a warp and four steps a round trip, is the default.  Each slot is reduced mod n_slots on its own, so a
 //     chain that wraps at the table's end takes no other path.
 //   * Reading the ids of the four steps with their keys would save the
 //     ids' dependent read, but measured slower at serving size: most walks
@@ -58,20 +60,20 @@
 
 namespace {
 
-constexpr int kGroup = 4;      // lanes an entry (a power of two, <= 16)
 constexpr int kThreads = 256;  // kThreads / kGroup entries a block
-constexpr int kSteps = 4;      // probe steps a round trip (<= kGroup)
-static_assert(kGroup <= 16 && (kGroup & (kGroup - 1)) == 0 &&
-                  kSteps <= kGroup,
-              "probe geometry");
 
-template <bool kEven, bool kWords>
+// kGroup: lanes an entry (a power of two, <= 16); kSteps: probe steps a
+// round trip (<= kGroup).
+template <int kGroup, int kSteps, bool kEven, bool kWords>
 __global__ void __launch_bounds__(kThreads)
 lsh_probe_kernel(const int* __restrict__ records,
                  const long long* __restrict__ hashes,
                  const int* __restrict__ rows, int* __restrict__ out,
                  long long n_entries, int n_bands, int n_slots,
                  int max_probes, int W, int R) {
+  static_assert(kGroup <= 16 && (kGroup & (kGroup - 1)) == 0 &&
+                    kSteps <= kGroup,
+                "probe geometry");
   using Chunk = typename std::conditional<kEven, int2, int>::type;
   constexpr int kInts = kEven ? 2 : 1;
   const int lane = threadIdx.x & (kGroup - 1);
@@ -140,37 +142,62 @@ lsh_probe_kernel(const int* __restrict__ records,
   }
 }
 
-template <bool kWords>
+template <int kGroup, int kSteps, bool kWords>
 int launch(const int* records, const long long* hashes, const int* rows,
            int* out, long long n_entries, int n_bands, int n_slots,
            int max_probes, int W, int R, void* stream) {
-  if (n_entries == 0) return cudaSuccess;
   const long long grid = (n_entries * kGroup + kThreads - 1) / kThreads;
   const bool even = W % 2 == 0 &&
                     reinterpret_cast<uintptr_t>(records) % 8 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (even)
-    lsh_probe_kernel<true, kWords><<<unsigned(grid), kThreads, 0, s>>>(
+    lsh_probe_kernel<kGroup, kSteps, true, kWords><<<unsigned(grid), kThreads, 0, s>>>(
         records, hashes, rows, out, n_entries, n_bands, n_slots, max_probes,
         W, R);
   else
-    lsh_probe_kernel<false, kWords><<<unsigned(grid), kThreads, 0, s>>>(
+    lsh_probe_kernel<kGroup, kSteps, false, kWords><<<unsigned(grid), kThreads, 0, s>>>(
         records, hashes, rows, out, n_entries, n_bands, n_slots, max_probes,
         W, R);
   return cudaGetLastError();
 }
 
+// The compiled (group, steps) instances; any other pair is refused.
+template <bool kWords>
+int launch_geometry(const int* records, const long long* hashes,
+                    const int* rows, int* out, long long n_entries,
+                    int n_bands, int n_slots, int max_probes, int W, int R,
+                    int group, int steps, void* stream) {
+  using Launch = int (*)(const int*, const long long*, const int*, int*,
+                         long long, int, int, int, int, int, void*);
+  struct Instance {
+    int group, steps;
+    Launch fn;
+  };
+  static constexpr Instance kInstances[] = {
+      {2, 2, launch<2, 2, kWords>},   {4, 2, launch<4, 2, kWords>},
+      {4, 4, launch<4, 4, kWords>},   {8, 4, launch<8, 4, kWords>},
+      {8, 8, launch<8, 8, kWords>},   {16, 8, launch<16, 8, kWords>}};
+  for (const Instance& i : kInstances)
+    if (i.group == group && i.steps == steps)
+      return n_entries == 0 ? cudaSuccess
+                            : i.fn(records, hashes, rows, out, n_entries,
+                                   n_bands, n_slots, max_probes, W, R,
+                                   stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // (E,) int64 band hashes (uint64 bits, row-major by (query, band)) ->
-// (E, W) candidate ids.
+// (E, W) candidate ids, with (group, steps) among the compiled instances.
 extern "C" int lsh_probe_launch(const int* records, const long long* hashes,
                                 int* out, long long n_entries, int n_bands,
                                 int n_slots, int max_probes, int W,
-                                void* stream) {
-  return launch<false>(records, hashes, nullptr, out, n_entries, n_bands,
-                       n_slots, max_probes, W, 0, stream);
+                                int group, int steps, void* stream) {
+  return launch_geometry<false>(records, hashes, nullptr, out, n_entries,
+                                n_bands, n_slots, max_probes, W, 0, group,
+                                steps, stream);
 }
 
 // (E, R) int32 packed words, one band of one query a row (zero-extended,
@@ -178,9 +205,10 @@ extern "C" int lsh_probe_launch(const int* records, const long long* hashes,
 extern "C" int fold_probe_launch(const int* records, const int* rows,
                                  int* out, long long n_entries, int n_bands,
                                  int n_slots, int max_probes, int W, int R,
-                                 void* stream) {
-  return launch<true>(records, nullptr, rows, out, n_entries, n_bands,
-                      n_slots, max_probes, W, R, stream);
+                                 int group, int steps, void* stream) {
+  return launch_geometry<true>(records, nullptr, rows, out, n_entries,
+                               n_bands, n_slots, max_probes, W, R, group,
+                               steps, stream);
 }
 
 extern "C" const char* lsh_probe_error(int code) {

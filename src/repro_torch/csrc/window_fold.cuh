@@ -24,7 +24,8 @@
 // draws them; convert.permutations_from_jax and SketchEngine's params=
 // check them.
 //
-// Where pi lives (the kernels' launch functions pick one per call):
+// Where pi lives (the kernels' launch functions pick one per call, unless
+// the caller names one: kernels/autotune.py's signing kinds):
 //   kPairs     uint16 pairs in shared memory, when 4 bytes an entry fit
 //              beside the lists (D + ext <= 41,663) and K > 64: two
 //              copies of the uint16 table as 32-bit words, one shifted by
@@ -353,9 +354,9 @@ inline size_t shared_bytes(int placement, int D, int ext) {
   return kListBytes;
 }
 
-// A placement every launch takes instead of its own choice, -1 for none:
-// set only through the kernels' test entry points, to hold each placement
-// against the plain version and to time it.
+// A placement every launch takes instead of its own choice and the
+// caller's, -1 for none: set only through the kernels' test entry points,
+// to hold each placement against the plain version and to time it.
 inline std::atomic<int>& forced_placement() {
   static std::atomic<int> p{-1};
   return p;
@@ -420,17 +421,23 @@ struct Plan {
   int grid;                                  // resident blocks, at most
 };
 
-// Pick the placement for one call and size the persistent grid: the pair
+// Pick the placement for one call and size the persistent grid: the
+// caller's `requested` placement (0, 1, 2; -1 for none), else the pair
 // table where it is offered (K > 64) and keeps as many blocks per SM as
 // the uint16 table would; else the uint16 table where D <= 65,536 and it
-// fits; else global.
+// fits; else global.  A requested placement that is not offered or does
+// not fit is refused, never replaced.
 template <typename Kernel>
 inline cudaError_t plan_launch(const Kernel (&kernels)[kPlacements], int D,
-                               int ext, long long rows, Plan* plan) {
+                               int ext, long long rows, int requested,
+                               Plan* plan) {
+  if (requested < -1 || requested >= kPlacements)
+    return cudaErrorInvalidValue;
   Fit f;
   const cudaError_t e = fit(kernels, D, ext, &f);
   if (e != cudaSuccess) return e;
   int p = forced_placement().load(std::memory_order_relaxed);
+  if (p < 0) p = requested;
   if (p < 0)
     p = f.per[kPairs] > 0 && f.per[kPairs] >= f.per[kShared16] ? kPairs
         : f.per[kShared16] > 0                                 ? kShared16

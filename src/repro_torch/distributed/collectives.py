@@ -37,6 +37,8 @@ ranking bit for bit.  A numpy copy of ``repro.distributed.collectives``'s.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -97,10 +99,29 @@ def _groups(mesh, axes):
     return [mesh.get_group(a) for a in _axes(axes) if shape.get(a, 1) > 1]
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+# Callables that see every wrapper call as (kind, tensor handed to the
+# backend, group size): ``analysis.hlo.analyze`` adds one for the length of
+# a trace (``watch``).
+_WATCHERS: list = []
+
+
+def _count(kind: str, t: torch.Tensor, group) -> None:
     reg = obs.default()
     reg.counter(f"mesh.{kind}.calls").inc()
     reg.counter(f"mesh.{kind}.bytes").inc(t.numel() * t.element_size())
+    for watcher in _WATCHERS:
+        watcher(kind, t, dist.get_world_size(group))
+
+
+@contextlib.contextmanager
+def watch(fn):
+    """``with watch(fn):`` calls ``fn(kind, tensor, group_size)`` for each
+    collective a wrapper issues inside the block."""
+    _WATCHERS.append(fn)
+    try:
+        yield
+    finally:
+        _WATCHERS.remove(fn)
 
 
 def counters() -> dict[str, int]:
@@ -118,45 +139,43 @@ def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     groups = _groups(mesh, axes)
     buf = t if t.is_contiguous() else t.contiguous()
     for g in groups:
-        _count("all_reduce", buf)
+        _count("all_reduce", buf, g)
         dist.all_reduce(buf, op=_OPS[op], group=g)
     if buf is not t:
         t.copy_(buf)
     return t
 
 
-def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
     """The ranks' ``t`` of ``axis`` concatenated along ``dim``, in the
-    axis's rank order."""
-    groups = _groups(mesh, axis)
-    if not groups:
-        return t
-    (g,) = groups
-    n = dist.get_world_size(g)
-    t = t.contiguous()
-    outs = [torch.empty_like(t) for _ in range(n)]
-    _count("all_gather", t)
-    dist.all_gather(outs, t, group=g)
-    return torch.cat(outs, dim=dim)
+    axis's rank order.  A tuple of axes gathers over their product, the
+    first axis major (the block order of ``sharding.local_slices``): the
+    last axis first, then outward."""
+    for g in reversed(_groups(mesh, axis)):
+        n = dist.get_world_size(g)
+        t = t.contiguous()
+        outs = [torch.empty_like(t) for _ in range(n)]
+        _count("all_gather", t, g)
+        dist.all_gather(outs, t, group=g)
+        t = torch.cat(outs, dim=dim)
+    return t
 
 
-def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int
-                   ) -> torch.Tensor:
+def reduce_scatter(t: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
     """The sum over ``axis`` of ``t``, cut into equal blocks along ``dim``:
-    the block of this rank's index along the axis."""
-    groups = _groups(mesh, axis)
-    if not groups:
-        return t
-    (g,) = groups
-    n = dist.get_world_size(g)
-    if t.shape[dim] % n:
-        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                         f"{n} ways")
-    parts = [p.contiguous() for p in t.chunk(n, dim=dim)]
-    out = torch.empty_like(parts[0])
-    _count("reduce_scatter", t)
-    dist.reduce_scatter(out, parts, group=g)
-    return out
+    the block of this rank's index along the axis (over a tuple of axes,
+    their product, the first axis major: the first axis first)."""
+    for g in _groups(mesh, axis):
+        n = dist.get_world_size(g)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"{n} ways")
+        parts = [p.contiguous() for p in t.chunk(n, dim=dim)]
+        out = torch.empty_like(parts[0])
+        _count("reduce_scatter", t, g)
+        dist.reduce_scatter(out, parts, group=g)
+        t = out
+    return t
 
 
 def barrier(mesh) -> None:

@@ -31,9 +31,18 @@ Parameters passed with a ``Parallel`` are the rank's local slices
 (``sharding.shard_tree``); a batch is the rank's own rows
 (``data.loader.device_placer``): the encoder's frames too.  Activations
 are replicated over ``model``.  Every family runs over a mesh.
+
+``tensor_axes`` is what the rules' ``model`` slot maps to
+(``sharding.param_specs``): ``"model"``, or a tuple of axes whose product
+splits the tensor dims, the first axis major, as the reference's dry run
+lays out the batch-starved SSM decode over ``("data", "model")``; the
+data axes then hold no batch (it is replicated over them), and every
+``model`` collective above runs over the tuple.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -47,9 +56,11 @@ class Parallel:
     """The layout and collectives of ``cfg``'s model on ``mesh`` for this
     rank (``mode`` "tp" or "fsdp")."""
 
-    def __init__(self, mesh, cfg, mode: str = "tp"):
+    def __init__(self, mesh, cfg, mode: str = "tp", tensor_axes="model"):
         if mode not in ("tp", "fsdp"):
             raise ValueError(f"unknown sharding mode {mode!r}")
+        if mode == "fsdp" and tensor_axes != "model":
+            raise ValueError("fsdp takes no tensor_axes")
         from ..models import encdec, transformer
         self.mesh, self.cfg, self.mode = mesh, cfg, mode
         model = encdec if cfg.is_encdec else transformer
@@ -59,23 +70,31 @@ class Parallel:
         # the stacked prefixes: a leaf there has the layer count in front
         self.stacks = ("enc_layers", "dec_layers") if cfg.is_encdec \
             else ("layers",)
-        rules = param_specs if mode == "tp" else fsdp_param_specs
-        self.specs = rules(self.shapes, mesh)
+        self.specs = param_specs(self.shapes, mesh, tensor_axes=tensor_axes) \
+            if mode == "tp" else fsdp_param_specs(self.shapes, mesh)
         if any(p.split("/")[0] in self.stacks and s and s[0] is not None
                for p, s in self.specs.items()):
             raise NotImplementedError(
                 "a layout that shards the stacked layer axis of a parameter")
         sizes = mesh_shape(mesh)
-        self.batch_axes = batch_axes(mesh) if mode == "tp" \
-            else axis_names(mesh)
+        self.tensor_axes = tensor_axes
+        self.axes = (tensor_axes,) if isinstance(tensor_axes, str) \
+            else tuple(tensor_axes)
+        if mode == "fsdp":
+            self.batch_axes = axis_names(mesh)
+        else:   # tensor dims over the data axes consume them
+            self.batch_axes = tuple(a for a in batch_axes(mesh)
+                                    if a not in self.axes)
         self.n_batch = 1
         for a in self.batch_axes:
             self.n_batch *= sizes[a]
-        self.tp = sizes.get("model", 1) if mode == "tp" else 1
+        self.tp = math.prod(sizes.get(a, 1) for a in self.axes) \
+            if mode == "tp" else 1
 
         def split(path, dim):
             spec = self.specs.get(path, ())
-            return mode == "tp" and dim < len(spec) and spec[dim] == "model"
+            return mode == "tp" and dim < len(spec) and \
+                spec[dim] == tensor_axes
         body = self.stacks[-1]        # the decoder's stack
         self.q_split = split(f"{body}/attn/wq", 2)
         self.kv_split = split(f"{body}/attn/wk", 2)
@@ -92,7 +111,11 @@ class Parallel:
         self.head_split = self.vocab_split if cfg.tie_embeddings \
             else split("lm_head", 1)
         self.ep = split("layers/moe/e_gate", 1)
-        self.rank = coordinate(mesh).get("model", 0) if self.tp > 1 else 0
+        # the rank's block of the tensor axes' product, the first major
+        coord = coordinate(mesh) if self.tp > 1 else {}
+        self.rank = 0
+        for a in self.axes:
+            self.rank = self.rank * sizes.get(a, 1) + coord.get(a, 0)
         # the KV heads of a decode cache over this mesh (``cache_specs``
         # splits them over ``model`` where they divide it), and those of
         # a cache built with any other ``tp``
@@ -103,11 +126,12 @@ class Parallel:
     # -- activations ------------------------------------------------------
     def enter(self, x):
         """A replicated activation entering column-parallel products."""
-        return col.copy_to(x, self.mesh, "model") if self.tp > 1 else x
+        return col.copy_to(x, self.mesh, self.axes) if self.tp > 1 else x
 
     def exit(self, y):
         """Partial sums of a row-parallel product, summed over ``model``."""
-        return col.reduce_from(y, self.mesh, "model") if self.tp > 1 else y
+        return col.reduce_from(y, self.mesh, self.axes) if self.tp > 1 \
+            else y
 
     def batch_sum(self, x):
         """A sum over the rank's rows, summed over the batch shards."""
@@ -170,7 +194,7 @@ class Parallel:
         """The full vocab of vocab-sharded logits (serving; no gradient)."""
         if not self.head_split:
             return logits
-        return col.all_gather(logits, self.mesh, "model", -1)
+        return col.all_gather(logits, self.mesh, self.axes, -1)
 
     def lm_loss(self, logits, targets, mask):
         """Next-token cross-entropy over the whole batch, float32, the mean
@@ -181,8 +205,8 @@ class Parallel:
         targets = targets.long()
         if self.head_split:
             lo, hi = self.vocab_range(logits.shape[-1])
-            m = col.all_reduce(logits.detach().amax(-1), self.mesh, "model",
-                               "max")
+            m = col.all_reduce(logits.detach().amax(-1), self.mesh,
+                               self.axes, "max")
             sumexp = self.exit(torch.exp(logits - m[..., None]).sum(-1))
             valid = (targets >= lo) & (targets < hi)
             picked = logits.gather(-1, torch.where(
@@ -276,7 +300,7 @@ class Parallel:
         x = self.enter(x)
         di = self.cfg.d_inner
         lo, hi = self.rank * di // self.tp, (self.rank + 1) * di // self.tp
-        xz = col.gather_from(x @ w, self.mesh, "model", x.dim() - 1)
+        xz = col.gather_from(x @ w, self.mesh, self.axes, x.dim() - 1)
         return xz[..., lo:hi], xz[..., di + lo:di + hi]
 
 

@@ -20,13 +20,14 @@ import ctypes
 import torch
 
 from ..core.cminhash import _check, cminhash_dense
-from . import _build
+from . import _build, autotune
 from .packfmt import pack_codes, pack_geometry
 
 KERNEL = _build.CudaKernel("cminhash_dense", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # v, pi, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, D, K
-    ctypes.c_int, ctypes.c_int, ctypes.c_int])           # off, pack_b, n_words
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # off, pack_b, n_words
+    ctypes.c_int])                                       # placement
 
 
 def as_int8_mask(v: torch.Tensor) -> torch.Tensor:
@@ -49,8 +50,8 @@ def cminhash_dense_plain(v: torch.Tensor, pi: torch.Tensor, k: int, *,
 
 
 def cminhash_dense_kernel(v: torch.Tensor, pi: torch.Tensor, k: int, *,
-                          shift_offset: int = 1, pack_b: int | None = None
-                          ) -> torch.Tensor:
+                          shift_offset: int = 1, pack_b: int | None = None,
+                          placement: int | None = None) -> torch.Tensor:
     """(B, D) int8/bool/int rows, already sigma-permuted, and (D,) int32 pi
     -> (B, K) int32 signatures, or (B, ceil(K*b/32)) int32 words (uint32
     bits) when ``pack_b`` is set.  An entry is set when it is > 0.
@@ -59,7 +60,9 @@ def cminhash_dense_kernel(v: torch.Tensor, pi: torch.Tensor, k: int, *,
     (which reads int8 rows; bool rows are viewed, others copied as 0/1).
     pi must hold values in [0, D), as a permutation does: the kernel keeps
     it as uint16 on the SM, so on the card a value outside gives other
-    codes than on the CPU."""
+    codes than on the CPU.  ``placement`` is where the kernel keeps pi
+    (``autotune.PLACEMENTS``; -1 for its own pick), from the autotuner's
+    ``dense_rows`` kind when not given; the plain version ignores it."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]
@@ -73,6 +76,8 @@ def cminhash_dense_kernel(v: torch.Tensor, pi: torch.Tensor, k: int, *,
                                     pack_b=pack_b)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    placement = autotune.resolve("dense_rows", v.shape[0], d, k, dev.type,
+                                 placement=placement)["placement"]
     v8 = as_int8_mask(v)
     _build.check_cuda_operand(v8, "v", torch.int8, 2, dev)
     _build.check_cuda_operand(pi, "pi", torch.int32, 1, dev)
@@ -80,5 +85,5 @@ def cminhash_dense_kernel(v: torch.Tensor, pi: torch.Tensor, k: int, *,
     out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
     if b:
         KERNEL.launch(dev, _build.ptr(v8), _build.ptr(pi), _build.ptr(out),
-                      b, d, k, shift_offset, pack_b or 0, n_words)
+                      b, d, k, shift_offset, pack_b or 0, n_words, placement)
     return out

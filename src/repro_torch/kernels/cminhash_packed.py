@@ -25,13 +25,14 @@ import ctypes
 import torch
 
 from ..core.cminhash import _BUDGET, _check, cminhash_sparse
-from . import _build
+from . import _build, autotune
 from .packfmt import pack_codes, pack_geometry
 
 KERNEL = _build.CudaKernel("cminhash_packed", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # words, pi, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, nw, D, K
-    ctypes.c_int, ctypes.c_int, ctypes.c_int])           # off, pack_b, n_words
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # off, pack_b, n_words
+    ctypes.c_int])                                       # placement
 
 _BYTE_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -92,8 +93,8 @@ def cminhash_packed_plain(words: torch.Tensor, pi: torch.Tensor, k: int, *,
 
 
 def cminhash_packed_kernel(words: torch.Tensor, pi: torch.Tensor, k: int, *,
-                           shift_offset: int = 1, pack_b: int | None = None
-                           ) -> torch.Tensor:
+                           shift_offset: int = 1, pack_b: int | None = None,
+                           placement: int | None = None) -> torch.Tensor:
     """(B, ceil(D/32)) int32 words of already sigma-permuted rows and (D,)
     int32 pi -> (B, K) int32 signatures, or (B, ceil(K*b/32)) int32 words
     when ``pack_b`` is set.  Bits at positions >= D are ignored.
@@ -101,7 +102,9 @@ def cminhash_packed_kernel(words: torch.Tensor, pi: torch.Tensor, k: int, *,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
     pi must hold values in [0, D), as a permutation does: the kernel keeps
     it as uint16 on the SM, so on the card a value outside gives other
-    codes than on the CPU."""
+    codes than on the CPU.  ``placement`` is where the kernel keeps pi
+    (``autotune.PLACEMENTS``; -1 for its own pick), from the autotuner's
+    ``dense_bits`` kind when not given; the plain version ignores it."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]
@@ -117,6 +120,8 @@ def cminhash_packed_kernel(words: torch.Tensor, pi: torch.Tensor, k: int, *,
                                      pack_b=pack_b)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    placement = autotune.resolve("dense_bits", words.shape[0], d, k,
+                                 dev.type, placement=placement)["placement"]
     _build.check_cuda_operand(words, "words", torch.int32, 2, dev)
     _build.check_cuda_operand(pi, "pi", torch.int32, 1, dev)
     b = words.shape[0]
@@ -124,17 +129,18 @@ def cminhash_packed_kernel(words: torch.Tensor, pi: torch.Tensor, k: int, *,
     if b:
         KERNEL.launch(dev, _build.ptr(words), _build.ptr(pi),
                       _build.ptr(out), b, nw, d, k, shift_offset, pack_b or 0,
-                      n_words)
+                      n_words, placement)
     return out
 
 
 def cminhash_packed(v: torch.Tensor, pi: torch.Tensor, k: int, *,
-                    shift_offset: int = 1,
-                    pack_b: int | None = None) -> torch.Tensor:
+                    shift_offset: int = 1, pack_b: int | None = None,
+                    placement: int | None = None) -> torch.Tensor:
     """(B, D) rows, already sigma-permuted -> signatures (or packed codes)
     through ``pack_bits`` and the bit-packed kernel."""
     if v.dim() != 2 or v.shape[1] != pi.shape[0]:
         raise ValueError(f"v must be (B, {pi.shape[0]}) (got "
                          f"{tuple(v.shape)})")
     return cminhash_packed_kernel(pack_bits(v), pi, k,
-                                  shift_offset=shift_offset, pack_b=pack_b)
+                                  shift_offset=shift_offset, pack_b=pack_b,
+                                  placement=placement)

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from ..core.cminhash import _check
-from . import _build
+from . import _build, autotune
 from .packfmt import pack_codes, pack_geometry
 
 SENTINEL = 2 ** 31 - 1
@@ -34,7 +34,8 @@ SENTINEL = 2 ** 31 - 1
 KERNEL = _build.CudaKernel("cminhash_sparse", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # idx, pi, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, nnz, D, K
-    ctypes.c_int, ctypes.c_int, ctypes.c_int])           # off, pack_b, n_words
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # off, pack_b, n_words
+    ctypes.c_int])                                       # placement
 
 
 def window_table(pi: torch.Tensor, wl: int, dtype=torch.int32,
@@ -81,8 +82,8 @@ def cminhash_sparse_plain(idx: torch.Tensor, pi: torch.Tensor, k: int, *,
 
 
 def cminhash_sparse_kernel(idx: torch.Tensor, pi: torch.Tensor, k: int, *,
-                           shift_offset: int = 1, pack_b: int | None = None
-                           ) -> torch.Tensor:
+                           shift_offset: int = 1, pack_b: int | None = None,
+                           placement: int | None = None) -> torch.Tensor:
     """(B, NNZ) int32 index lists, already sigma-permuted (-1 = padding),
     and (D,) int32 pi -> (B, K) int32 signatures, or (B, ceil(K*b/32))
     int32 words (uint32 bits) when ``pack_b`` is set.
@@ -91,7 +92,9 @@ def cminhash_sparse_kernel(idx: torch.Tensor, pi: torch.Tensor, k: int, *,
     plain version; a CUDA tensor launches the kernel.  pi must hold values
     in [0, D), as a permutation does: the kernel keeps it as uint16 on the
     SM, so on the card a value outside gives other codes than on the
-    CPU."""
+    CPU.  ``placement`` is where the kernel keeps pi
+    (``autotune.PLACEMENTS``; -1 for its own pick), from the autotuner's
+    ``sparse`` kind when not given; the plain version ignores it."""
     if shift_offset not in (0, 1):
         raise ValueError("shift_offset must be 0 or 1")
     d = pi.shape[0]
@@ -103,11 +106,15 @@ def cminhash_sparse_kernel(idx: torch.Tensor, pi: torch.Tensor, k: int, *,
                                      pack_b=pack_b)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    placement = autotune.resolve("sparse", idx.shape[0], d, k, dev.type,
+                                 nnz=idx.shape[1],
+                                 placement=placement)["placement"]
     _build.check_cuda_operand(idx, "idx", torch.int32, 2, dev)
     _build.check_cuda_operand(pi, "pi", torch.int32, 1, dev)
     b, nnz = idx.shape
     out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
     if b:
         KERNEL.launch(dev, _build.ptr(idx), _build.ptr(pi), _build.ptr(out),
-                      b, nnz, d, k, shift_offset, pack_b or 0, n_words)
+                      b, nnz, d, k, shift_offset, pack_b or 0, n_words,
+                      placement)
     return out

@@ -18,7 +18,13 @@ Dense (B, D) rows go to one of two kernels:
 ``int8`` below, the reference's TPU policy, on either device: a CPU tensor
 runs the chosen route's plain version.  There is no ``ref`` route.
 
-Launch geometry is fixed inside each wrapper: the port has no autotuner.
+Launch geometry (the signing kernels' table placement, the fold's block
+size, the probe's lanes and steps, the collision kernel's query tile)
+comes from the autotuner (``autotune``): each wrapper asks
+``autotune.recommend`` once a launch, which returns the cached winner or
+the default (the plain version, on a CPU tensor, has no knobs and asks
+nothing); ``autotune_measure=True`` here sweeps and caches the signing
+placement on a miss, as the reference's ``autotune_measure`` does.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from ..core.permutations import apply_permutation_dense, \
     apply_permutation_sparse
 from ..obs import metrics as obs_metrics
+from . import autotune
 from . import lsh_probe as _lsh_probe
 from . import query_fused as _query_fused
 from .cminhash_kernel import as_int8_mask, cminhash_dense_kernel
@@ -68,7 +75,8 @@ def select_probe_impl(device_type: str) -> str:
 def signatures_dense(v: torch.Tensor, pi: torch.Tensor, k: int,
                      sigma: torch.Tensor | None = None, *,
                      shift_offset: int = 1, impl: str = "auto",
-                     pack_b: int | None = None) -> torch.Tensor:
+                     pack_b: int | None = None,
+                     autotune_measure: bool = False) -> torch.Tensor:
     """(B, D) binary rows (an entry is set when > 0) -> (B, K) int32
     signatures, or (B, W) int32 packed words when ``pack_b`` is set."""
     if impl not in DENSE_IMPLS:
@@ -80,21 +88,32 @@ def signatures_dense(v: torch.Tensor, pi: torch.Tensor, k: int,
     if sigma is not None:
         v = apply_permutation_dense(v, sigma)
     kernel = cminhash_dense_kernel if impl == "int8" else cminhash_packed
+    placement = None
+    if autotune_measure:
+        kind = "dense_rows" if impl == "int8" else "dense_bits"
+        placement = autotune.measure(kind, v.shape[0], v.shape[1], k,
+                                     backend=v.device.type)["placement"]
     return kernel(v.contiguous(), pi, k, shift_offset=shift_offset,
-                  pack_b=pack_b)
+                  pack_b=pack_b, placement=placement)
 
 
 def signatures_sparse(idx: torch.Tensor, pi: torch.Tensor, k: int,
                       sigma: torch.Tensor | None = None, *,
-                      shift_offset: int = 1,
-                      pack_b: int | None = None) -> torch.Tensor:
+                      shift_offset: int = 1, pack_b: int | None = None,
+                      autotune_measure: bool = False) -> torch.Tensor:
     """(B, NNZ) padded index lists -> (B, K) int32 signatures, or (B, W)
     int32 packed words when ``pack_b`` is set (fused sign -> pack)."""
     obs_metrics.default().counter(f"kernel.sparse.{_impl(idx)}").inc()
     if sigma is not None:
         idx = apply_permutation_sparse(idx, sigma)
+    placement = None
+    if autotune_measure:
+        placement = autotune.measure(
+            "sparse", idx.shape[0], pi.shape[0], k, backend=idx.device.type,
+            nnz=idx.shape[1])["placement"]
     return cminhash_sparse_kernel(idx.to(torch.int32).contiguous(), pi, k,
-                                  shift_offset=shift_offset, pack_b=pack_b)
+                                  shift_offset=shift_offset, pack_b=pack_b,
+                                  placement=placement)
 
 
 def lsh_probe(records_dev: torch.Tensor, hashes: np.ndarray, *,

@@ -35,7 +35,7 @@ import sys
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, autotune
 
 # the one definition of the probe geometry in the port: store/table.py
 # walks the same chain and uses the same empty-slot sentinel
@@ -47,7 +47,8 @@ _LITTLE_ENDIAN = sys.byteorder == "little"
 KERNEL = _build.CudaKernel("lsh_probe", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # records, hashes, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # E, n_bands, n_slots
-    ctypes.c_int, ctypes.c_int])                         # max_probes, W
+    ctypes.c_int, ctypes.c_int,                          # max_probes, W
+    ctypes.c_int, ctypes.c_int])                         # group, steps
 
 
 def probe_offset(t: int) -> int:
@@ -127,17 +128,24 @@ def lsh_probe_hashes_plain(flat_records: torch.Tensor, hashes: torch.Tensor,
 
 
 def lsh_probe_hashes_kernel(flat_records: torch.Tensor, hashes: torch.Tensor,
-                            *, n_slots: int,
-                            max_probes: int) -> torch.Tensor:
+                            *, n_slots: int, max_probes: int,
+                            group: int | None = None,
+                            steps: int | None = None) -> torch.Tensor:
     """(n_bands * n_slots, 2 + W) int32 records and (Q, n_bands) int64 band
     hashes -> (Q * n_bands, W) int32 candidate ids, -1 padded: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.  ``group``
+    (lanes an entry) and ``steps`` (probe steps a round trip) are the
+    kernel's geometry, from the autotuner's ``probe`` kind where not given;
+    the plain version ignores them."""
     dev = hashes.device
     if dev.type == "cpu":
         return lsh_probe_hashes_plain(flat_records, hashes, n_slots=n_slots,
                                       max_probes=max_probes)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    geo = autotune.resolve("probe", hashes.numel(), n_slots,
+                           flat_records.shape[1] - 2, dev.type, group=group,
+                           steps=steps)
     _build.check_cuda_operand(flat_records, "records", torch.int32, 2, dev)
     _build.check_cuda_operand(hashes, "hashes", torch.int64, 2, dev)
     q, nb = hashes.shape
@@ -146,5 +154,6 @@ def lsh_probe_hashes_kernel(flat_records: torch.Tensor, hashes: torch.Tensor,
     out = torch.empty((q * nb, w), dtype=torch.int32, device=dev)
     if q * nb:
         KERNEL.launch(dev, _build.ptr(flat_records), _build.ptr(hashes),
-                      _build.ptr(out), q * nb, nb, n_slots, max_probes, w)
+                      _build.ptr(out), q * nb, nb, n_slots, max_probes, w,
+                      geo["group"], geo["steps"])
     return out

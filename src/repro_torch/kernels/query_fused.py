@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..device import take_rows, u32_to_host
-from . import _build
+from . import _build, autotune
 from .lsh_probe import META_COLS, check_geometry, lsh_probe_hashes_plain
 from .packfmt import unpack_codes
 
@@ -45,11 +45,12 @@ _LITTLE_ENDIAN = sys.byteorder == "little"
 KERNEL = _build.CudaKernel("fold", [
     ctypes.c_void_p, ctypes.c_void_p,                    # rows, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # n_rows, nb, R
-    ctypes.c_int])                                       # sign_extend
+    ctypes.c_int, ctypes.c_int])                         # sign_extend, threads
 FOLD_PROBE_KERNEL = _build.CudaKernel("fold_probe", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # records, rows, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # E, n_bands, n_slots
-    ctypes.c_int, ctypes.c_int, ctypes.c_int],           # max_probes, W, R
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # max_probes, W, R
+    ctypes.c_int, ctypes.c_int],                         # group, steps
     source="lsh_probe")
 
 
@@ -83,21 +84,25 @@ def fold_rows_plain(rows: torch.Tensor, *,
     return h
 
 
-def fold_rows_kernel(rows: torch.Tensor, *,
-                     sign_extend: bool = False) -> torch.Tensor:
+def fold_rows_kernel(rows: torch.Tensor, *, sign_extend: bool = False,
+                     threads: int | None = None) -> torch.Tensor:
     """(B, nb, R) int32 codes -> (B, nb) int64 fold keys: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor.  ``threads`` is
+    the kernel's block size, from the autotuner's ``fold`` kind when not
+    given; the plain version ignores it."""
     dev = rows.device
     if dev.type == "cpu":
         return fold_rows_plain(rows, sign_extend=sign_extend)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    threads = autotune.resolve("fold", *rows.shape, dev.type,
+                               threads=threads)["threads"]
     _build.check_cuda_operand(rows, "rows", torch.int32, 3, dev)
     b, nb, r = rows.shape
     out = torch.empty((b, nb), dtype=torch.int64, device=dev)
     if b * nb:
         KERNEL.launch(dev, _build.ptr(rows), _build.ptr(out), b, nb, r,
-                      int(sign_extend))
+                      int(sign_extend), threads)
     return out
 
 
@@ -110,17 +115,22 @@ def fold_probe_plain(flat_records: torch.Tensor, rows: torch.Tensor, *,
 
 
 def fold_probe_kernel(flat_records: torch.Tensor, rows: torch.Tensor, *,
-                      n_slots: int, max_probes: int) -> torch.Tensor:
+                      n_slots: int, max_probes: int, group: int | None = None,
+                      steps: int | None = None) -> torch.Tensor:
     """(n_bands * n_slots, 2 + W) int32 records and (Q, nb, R) int32 packed
     words -> (Q * nb, W) int32 candidate ids: the probe kernel with the
     fold in its prologue (one launch) for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors.  ``group`` and ``steps`` are the probe's geometry
+    (``lsh_probe.lsh_probe_hashes_kernel``)."""
     dev = rows.device
     if dev.type == "cpu":
         return fold_probe_plain(flat_records, rows, n_slots=n_slots,
                                 max_probes=max_probes)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    geo = autotune.resolve("probe", rows.shape[0] * rows.shape[1], n_slots,
+                           flat_records.shape[1] - 2, dev.type, group=group,
+                           steps=steps)
     _build.check_cuda_operand(flat_records, "records", torch.int32, 2, dev)
     _build.check_cuda_operand(rows, "rows", torch.int32, 3, dev)
     q, nb, r = rows.shape
@@ -130,7 +140,8 @@ def fold_probe_kernel(flat_records: torch.Tensor, rows: torch.Tensor, *,
     if q * nb:
         FOLD_PROBE_KERNEL.launch(dev, _build.ptr(flat_records),
                                  _build.ptr(rows), _build.ptr(out), q * nb,
-                                 nb, n_slots, max_probes, w, r)
+                                 nb, n_slots, max_probes, w, r,
+                                 geo["group"], geo["steps"])
     return out
 
 

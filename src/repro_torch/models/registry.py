@@ -33,7 +33,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_or_meta
 from ..distributed.parallel import parallel_for
 from . import encdec, transformer
 
@@ -160,8 +160,8 @@ def _encdec_bundle(cfg, dev: torch.device) -> ModelBundle:
 
 def build(cfg, device: str | torch.device = DEFAULT_DEVICE) -> ModelBundle:
     """The bundle of ``cfg``'s family on ``device`` (raises for the card
-    without one)."""
-    dev = resolve_device(device)
+    without one; ``meta`` runs shapes only, as ``launch.dryrun`` traces)."""
+    dev = resolve_or_meta(device)
     if cfg.is_encdec:
         return _encdec_bundle(cfg, dev)
     return _decoder_bundle(cfg, dev)

@@ -11,8 +11,14 @@ The supervisor is the plane's self-healing loop.  Each tick it walks every
 ``ReplicaSet`` lane and checks three liveness signals: the lane's marked
 state (a write leg or read failover already downed it), the worker process
 itself (``WorkerHandle.alive``), and a STATS heartbeat over a private
-control connection (a process can be alive but wedged).  A lane that fails
-any check is recovered:
+control connection (a process can be alive but wedged).  The heartbeat is
+the worker's liveness probe (``wire.PING_FIELD``), answered beside the
+handler it is running rather than behind it, so a long ADD (a table
+rebuild takes seconds) never reads as a dead worker; the probe's reply
+says how long that handler has held the worker, and a handler held past
+``busy_timeout_s`` marks the lane down as wedged.  Each probe's round
+trip is observed in the ``replica.heartbeat`` histogram.  A lane that
+fails any check is recovered:
 
   1. **terminate** whatever is left of the old worker;
   2. **respawn** a fresh worker for the same (shard, replica) slot on
@@ -61,6 +67,7 @@ import numpy as np
 from ..device import DEFAULT_DEVICE
 from ..obs import metrics as obs_metrics
 from ..transport.client import ShardConnection, TransportError
+from ..transport import wire
 from ..transport.server import spawn_workers
 from ..transport.wire import Message, MsgType
 from .journal import JournalRecord
@@ -78,6 +85,7 @@ class Supervisor:
     def __init__(self, store: ReplicatedSketchStore, *,
                  device: str = DEFAULT_DEVICE,
                  interval_s: float = 0.5, heartbeat_timeout_s: float = 5.0,
+                 busy_timeout_s: float = 30.0,
                  snapshot_dir: str | None = None,
                  probe_impl: str = "auto", query_impl: str = "auto",
                  start_timeout: float = 120.0,
@@ -87,6 +95,7 @@ class Supervisor:
         self.device = str(device)
         self.interval_s = float(interval_s)
         self.heartbeat_timeout_s = float(heartbeat_timeout_s)
+        self.busy_timeout_s = float(busy_timeout_s)
         self.snapshot_dir = snapshot_dir
         self.probe_impl = probe_impl
         self.query_impl = query_impl
@@ -99,6 +108,7 @@ class Supervisor:
         self._m_failovers = reg.counter("replica.failovers")
         self._m_recover_fail = reg.counter("replica.recover_failures")
         self._m_heartbeats = reg.counter("replica.heartbeats")
+        self._h_heartbeat = reg.histogram("replica.heartbeat")
         self._m_crash_loops = reg.counter("replica.crash_loops")
         self._h_resync = reg.histogram("replica.resync")
         self._h_respawn = reg.histogram("replica.respawn")
@@ -152,13 +162,16 @@ class Supervisor:
                 if lane.up and lane.handle is not None \
                         and not lane.handle.alive:
                     rset._mark_down(lane, "worker process died")
-                if lane.up and not self._heartbeat(lane):
-                    rset._mark_down(lane, "heartbeat failed")
+                if lane.up:
+                    why = self._heartbeat(lane)
+                    if why is not None:
+                        rset._mark_down(lane, why)
                 if not lane.up:
                     healed += bool(self._recover(rset, lane))
         return healed
 
-    def _heartbeat(self, lane: ReplicaLane) -> bool:
+    def _heartbeat(self, lane: ReplicaLane) -> str | None:
+        """Probe the lane's worker: None when it is live, else why not."""
         key = (lane.shard, lane.replica)
         conn = self._ctrl.get(key)
         target = lane.handle.address if lane.handle is not None \
@@ -174,14 +187,21 @@ class Supervisor:
                                        replica=lane.replica)
             except TransportError:
                 self._ctrl.pop(key, None)
-                return False
+                return "heartbeat failed"
             self._ctrl[key] = conn
+        t0 = time.perf_counter()
         try:
-            conn.request(Message(MsgType.STATS, {}))
+            reply = conn.request(Message(MsgType.STATS,
+                                         {wire.PING_FIELD: 1}))
         except TransportError:
-            return False
+            return "heartbeat failed"
+        self._h_heartbeat.observe(time.perf_counter() - t0)
         self._m_heartbeats.inc()
-        return True
+        # a worker that answers every STATS behind its lock sends no busy_us
+        busy_s = int(reply.fields.get("busy_us", 0)) / 1e6
+        if busy_s > self.busy_timeout_s:
+            return f"wedged: a handler has held the worker {busy_s:.1f} s"
+        return None
 
     # -- crash-loop gate -----------------------------------------------------
     def _crash_gate(self, lane: ReplicaLane) -> bool:

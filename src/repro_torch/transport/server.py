@@ -31,7 +31,11 @@ port 0 and never race over port numbers.
 Connections are served one thread each, so a coordinator may hold more
 than one connection to a worker (hedged reads, ``client.HedgePolicy``);
 the store is not thread-safe, so handling is serialized behind one
-worker-wide lock.  A handler exception is answered with an ERROR frame
+worker-wide lock.  The one request answered beside that lock is the
+supervisor's liveness probe (a STATS with ``wire.PING_FIELD``): it reports
+how long the running handler has held the lock, so a heartbeat never waits
+behind a long ADD (a table rebuild takes seconds) and a wedged handler is
+still seen.  A handler exception is answered with an ERROR frame
 (the connection stays up); a decode failure also gets an ERROR frame and
 drops the connection.  EOF returns the worker to ``accept``; only SHUTDOWN
 (acked first) exits the process.
@@ -76,6 +80,29 @@ DEFAULT_GATE_LIMIT = 64
 # backpressure (the bounded ingest pipeline) and the gate protects the
 # latency-sensitive read path, where shedding is cheap and clean
 _GATED_TYPES = (MsgType.QUERY, MsgType.BRUTE)
+
+
+class ExecLock:
+    """The worker-wide lock that serializes handlers, and how long the
+    handler now holding it has held it (``held_s``, read without the
+    lock by the liveness probe)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._since: float | None = None
+
+    def __enter__(self) -> "ExecLock":
+        self._lock.acquire()
+        self._since = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._since = None
+        self._lock.release()
+
+    def held_s(self) -> float:
+        since = self._since
+        return 0.0 if since is None else time.monotonic() - since
 
 
 class AdmissionGate:
@@ -219,7 +246,7 @@ def _handle(store: SketchStore, msg: Message,
 
 def _serve_conn(store: SketchStore, conn: socket.socket,
                 shard: int = -1, *,
-                exec_lock: threading.Lock | None = None,
+                exec_lock: ExecLock | None = None,
                 slow: tuple[float, float] | None = None,
                 replica: int = 0,
                 gate: AdmissionGate | None = None,
@@ -240,7 +267,7 @@ def _serve_conn(store: SketchStore, conn: socket.socket,
     """
     conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     if exec_lock is None:
-        exec_lock = threading.Lock()
+        exec_lock = ExecLock()
     rng = random.Random()
     reg = obs_metrics.default()
     tracer = obs_trace.default()
@@ -287,6 +314,17 @@ def _serve_conn(store: SketchStore, conn: socket.socket,
                     # the fired-event log is already fsynced; die before
                     # handling so the store never half-mutates
                     os._exit(KILL_EXIT_CODE)
+        if msg.type == MsgType.STATS and msg.fields.get(wire.PING_FIELD):
+            # the liveness probe: answered beside the running handler
+            reply = Message(MsgType.OK, {"pid": os.getpid(),
+                                         "busy_us": int(
+                                             exec_lock.held_s() * 1e6)},
+                            seq=msg.seq)
+            try:
+                wire.send_message(conn, reply, meter=bytes_out.inc)
+            except OSError:
+                return True
+            continue
         # a request carrying trace fields joins the coordinator's trace
         ctx = None
         if wire.TRACE_ID_FIELD in msg.fields:
@@ -438,7 +476,7 @@ def run_worker(ready_conn, cfg: StoreConfig | None, snapshot: str | None,
         ready_conn.send(lsock.getsockname())
         ready_conn.close()
         stop = threading.Event()
-        exec_lock = threading.Lock()
+        exec_lock = ExecLock()
         gate = AdmissionGate(gate_limit)
 
         def _serve(conn: socket.socket) -> None:

@@ -79,6 +79,12 @@ TRACE_SPANS_FIELD = "_trs"      # reply: str, JSON list of worker span dicts
 # computing and answer ``OVERLOADED`` with ``reason="expired"``.
 DEADLINE_FIELD = "_dl"          # request: int, absolute deadline (us epoch)
 
+# Liveness probe (``replica.supervisor``'s heartbeat): a STATS request with
+# this field set is answered beside a running handler, never queued behind
+# it, with ``pid`` and ``busy_us``, the microseconds the handler now running
+# has held the worker's execution lock (0 when idle).
+PING_FIELD = "_ping"            # request: int, 1
+
 
 def deadline_us(abs_deadline_s: float) -> int:
     """Absolute deadline in seconds-since-epoch -> the wire's int64 us."""

@@ -246,15 +246,17 @@ PLACEMENT_DS = [_pair_limit(_K_PLACE, 1), _pair_limit(_K_PLACE, 1) + 1,
                 1 << 16, (1 << 16) + 1]
 
 
-def _signing_kernels(v, pi, k, cuda, **kw):
+def _signing_kernels(v, pi, k, cuda, placement=None, **kw):
     """The dense int8, bit-packed and sparse kernels on the same rows, each
-    against the dense plain version."""
+    against the dense plain version (``placement``: the kernels' launch
+    argument)."""
     want = kd.cminhash_dense_plain(v, pi, k, **kw)
-    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k, **kw)
+    got = kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k,
+                                   placement=placement, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     got = kpk.cminhash_packed_kernel(kpk.pack_bits(v).to(cuda), pi.to(cuda),
-                                     k, **kw)
+                                     k, placement=placement, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     nnz = max(int((v > 0).sum(1).max()), 1)
@@ -263,7 +265,8 @@ def _signing_kernels(v, pi, k, cuda, **kw):
         pos = torch.nonzero(v[r] > 0).flatten().to(torch.int32)
         idx[r, :len(pos)] = pos
     assert torch.equal(ks.cminhash_sparse_plain(idx, pi, k, **kw), want)
-    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k, **kw)
+    got = ks.cminhash_sparse_kernel(idx.to(cuda), pi.to(cuda), k,
+                                    placement=placement, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
@@ -1610,3 +1613,205 @@ def test_family_mesh_on_one_rank_of_the_card(cuda, arch):
         assert float((a - b).abs().max()) <= 1e-6
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+# -- every compiled launch geometry (kernels/autotune.py's knobs) ------------
+
+@pytest.mark.parametrize("block_q", [16, 32, 64])
+@pytest.mark.parametrize("b", PACK_BITS)
+@pytest.mark.parametrize("q,n,k", [(4, 300, 33), (37, 1001, 256),
+                                   (65, 129, 257)])
+def test_collision_every_block_q_matches_plain(cuda, block_q, b, q, n, k):
+    """Each compiled query tile at every pack width, Q and N ragged against
+    each tile (4 rows: a stream batch), W a multiple of 4 or not."""
+    gen = torch.Generator().manual_seed(block_q + b * 1000 + q)
+    wq, wn = _words(q, k, b, gen), _words(n, k, b, gen)
+    wn[3] = wq[1]
+    want = kc.packed_collision_counts_plain(wq, wn, k, b)
+    for a, c in ((wq, wn), (_set_bits_past_k(wq, k, b),
+                            _set_bits_past_k(wn, k, b))):
+        got = kc.packed_collision_counts_kernel(a.to(cuda), c.to(cuda), k, b,
+                                                block_q=block_q)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+# each compiled (group, steps) of the probe
+PROBE_GEOMETRIES = [(2, 2), (4, 2), (4, 4), (8, 4), (8, 8), (16, 8)]
+
+
+@pytest.mark.parametrize("group,steps", PROBE_GEOMETRIES)
+@pytest.mark.parametrize("ns,w,mp,load", [(3001, 8, 16, 0.95),
+                                          (2048, 3, 16, 0.6),
+                                          (1021, 7, 5, 0.95)])
+def test_probe_every_geometry_matches_plain(cuda, group, steps, ns, w, mp,
+                                            load):
+    """Each compiled geometry on nearly full tables (spilled keys, chains
+    past a round trip, wrapping) and a sparser one (walks that stop early
+    at an unused slot), from hashes and from words."""
+    table, qh = _full_range_table(ns, w, mp, load, device=cuda)
+    flat = torch.tensor(table.records.reshape(-1, 2 + w))
+    h = torch.from_numpy(qh.view(np.int64))
+    want = kp.lsh_probe_hashes_plain(flat, h, n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(flat.to(cuda), h.to(cuda), n_slots=ns,
+                                     max_probes=mp, group=group, steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(ns + group)
+    words = rng.integers(0, 2**32, (int(0.8 * ns), 3 * 4), dtype=np.uint32)
+    wtab = BandedLSHTable(3, n_slots=ns, bucket_width=w, max_probes=mp,
+                          device="cpu")
+    wtab.insert(band_hashes_packed(words, 3), np.arange(len(words)))
+    rows = torch.from_numpy(words[::2].view(np.int32)).reshape(-1, 3, 4)
+    wflat = torch.tensor(wtab.records.reshape(-1, 2 + w))
+    want = kq.fold_probe_plain(wflat, rows, n_slots=ns, max_probes=mp)
+    got = kq.fold_probe_kernel(wflat.to(cuda), rows.to(cuda), n_slots=ns,
+                               max_probes=mp, group=group, steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512])
+@pytest.mark.parametrize("q,nb,r", [(1, 1, 1), (1088, 32, 8), (7, 5, 13)])
+def test_fold_every_block_size_matches_plain(cuda, threads, q, nb, r):
+    gen = torch.Generator().manual_seed(q + r + threads)
+    rows = torch.randint(-2**31, 2**31 - 1, (q, nb, r), generator=gen,
+                         dtype=torch.int32)
+    for sign_extend in (False, True):
+        want = kq.fold_rows_plain(rows, sign_extend=sign_extend)
+        got = kq.fold_rows_kernel(rows.to(cuda), sign_extend=sign_extend,
+                                  threads=threads)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("placement", list(_PLACEMENTS))
+@pytest.mark.parametrize("d,k", [(2048, 64), (2048, 512), (1 << 16, 256),
+                                 ((1 << 16) + 1, 100)])
+def test_each_placement_argument_matches_plain(cuda, placement, d, k):
+    """Each table placement as the launch argument of the normal entry
+    (what the autotuner's signing kinds pass): equal to the plain version
+    where it is offered, a refused launch where it is not."""
+    from repro_torch.kernels import autotune
+    v, pi = _dense_case(5, d, 0.03, seed=d + k + 1)
+    p = _PLACEMENTS[placement]
+    assert autotune.placement_fits(p, d, k) == \
+        {0: d <= 1 << 16, 1: True, 2: k > 64 and d <= _pair_limit(k, 1)}[p]
+    if autotune.placement_fits(p, d, k):
+        _signing_kernels(v, pi, k, cuda, pack_b=8, placement=p)
+    else:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), k, placement=p)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kpk.cminhash_packed_kernel(kpk.pack_bits(v).to(cuda),
+                                       pi.to(cuda), k, placement=p)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ks.cminhash_sparse_kernel(
+                torch.zeros((5, 1), dtype=torch.int32, device=cuda),
+                pi.to(cuda), k, placement=p)
+
+
+def test_launch_knobs_outside_the_compiled_instances_are_refused(cuda):
+    """A knob value no source compiled raises; nothing falls back."""
+    v, pi = _dense_case(3, 256, 0.1, seed=5)
+    rows = torch.zeros((4, 2, 8), dtype=torch.int32, device=cuda)
+    rec = torch.full((2 * 64, 10), -1, dtype=torch.int32, device=cuda)
+    h = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
+    words = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    for call in (
+            lambda: kd.cminhash_dense_kernel(v.to(cuda), pi.to(cuda), 64,
+                                             placement=3),
+            lambda: ks.cminhash_sparse_kernel(
+                torch.zeros((3, 1), dtype=torch.int32, device=cuda),
+                pi.to(cuda), 64, placement=-2),
+            lambda: kq.fold_rows_kernel(rows, threads=64),
+            lambda: kp.lsh_probe_hashes_kernel(rec, h, n_slots=64,
+                                               max_probes=4, group=4,
+                                               steps=8),
+            lambda: kq.fold_probe_kernel(rec, rows, n_slots=64,
+                                         max_probes=4, group=3, steps=2),
+            lambda: kc.packed_collision_counts_kernel(words, words, 8, 32,
+                                                      block_q=48)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+            torch.cuda.synchronize()
+
+
+def test_dry_run_peak_temp_bytes_match_the_card(cuda):
+    """The dry run's ``temp_bytes`` (``analysis.hlo``'s most bytes live at
+    once, traced on ``meta`` tensors) against the card's caching
+    allocator on the same step: a one-device prefill of 4,096 tokens
+    through llama3_2_1b at full width and 2 layers.  The card's peak
+    beyond what was allocated before the call (the second call: cuBLAS's
+    workspace is allocated by then) is within 2% of the trace's; the
+    allocator rounds each block up to 512 bytes."""
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4096),
+                           generator=torch.Generator().manual_seed(0))
+    meta = build(cfg, device="meta")
+    want = hlo.analyze(lambda p, t: meta.prefill(p, {"tokens": t}),
+                       meta.init(0), tokens.to("meta")).peak_temp_bytes
+    bundle = build(cfg, device=cuda)
+    params = bundle.init(0)
+    tok = tokens.to(cuda)
+    out = bundle.prefill(params, {"tokens": tok})
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = bundle.prefill(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    got = torch.cuda.max_memory_allocated() - base
+    print(f"prefill peak beyond the arguments: {got} bytes on the card, "
+          f"{want:.0f} traced")
+    assert got == pytest.approx(want, rel=0.02)
+
+
+def test_every_wrapper_resolves_its_knobs_once_a_launch(cuda, monkeypatch):
+    """On the card each wrapper asks ``autotune.recommend`` once a launch
+    for the knobs it is not given, and not at all when they are given."""
+    from test_torch_autotune import _calls, spy_recommend
+    seen = spy_recommend(monkeypatch)
+    for key, call in _calls("cuda").items():
+        seen.clear()
+        call()
+        assert seen == [(*key[:4], "cuda")], key
+    torch.cuda.synchronize()
+    seen.clear()
+    kc.collision_counts_kernel(
+        torch.zeros((2, 3), dtype=torch.int32, device=cuda),
+        torch.zeros((4, 3), dtype=torch.int32, device=cuda), block_q=16)
+    kp.lsh_probe_hashes_kernel(
+        torch.full((64, 5), -1, dtype=torch.int32, device=cuda),
+        torch.zeros((2, 1), dtype=torch.int64, device=cuda), n_slots=64,
+        max_probes=2, group=8, steps=4)
+    torch.cuda.synchronize()
+    assert seen == []
+
+
+@pytest.mark.parametrize("kind,b,d,k,nnz", [
+    ("sparse", 64, 1 << 16, 256, 254), ("dense_rows", 16, 2048, 512, 0),
+    ("dense_bits", 16, 1 << 14, 256, 0), ("fold", 64, 32, 8, 0),
+    ("probe", 2048, 4096, 8, 0), ("collision", 4, 4096, 256, 0)])
+def test_autotune_measure_on_the_card(cuda, tmp_path, monkeypatch, kind, b,
+                                      d, k, nnz):
+    """A default sweep of each kind on the card caches a winner that a
+    fresh cache reads back from the file, and the wrapper launched with it
+    equals its plain version."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_cache()
+    try:
+        best = autotune.measure(kind, b, d, k, nnz=nnz, warmup=1, iters=2)
+        autotune.clear_cache()
+        assert autotune.recommend(kind, b, d, k, backend="cuda",
+                                  nnz=nnz) == best
+        runner = autotune._make_runner(kind, b, d, k, nnz, 0, "cuda")
+        got = runner(best)()
+        torch.cuda.synchronize()
+        assert torch.equal(got, runner.plain())
+    finally:
+        autotune.clear_cache()

@@ -20,7 +20,10 @@ equal exactly: integers, and count.float32 / k on both sides):
     snapshot plus journal tail written by one package's
     ``ReplicatedSketchStore`` boots in the other's with ``replay_tail``,
     with equal answers and per-shard digests; and port workers boot from
-    the reference plane's snapshot through ``connect_replicated``.
+    the reference plane's snapshot through ``connect_replicated``;
+  * the supervisor's heartbeat is answered beside a handler that holds
+    the worker, and sees a handler held past ``busy_timeout_s`` (the
+    port's own: the reference's heartbeat waits behind the handler).
 """
 
 import os
@@ -393,3 +396,86 @@ def test_port_workers_boot_from_reference_snapshot(tmp_path):
         _stop_plane(store, grid)
         if journal is not None:
             journal.close()
+
+
+def test_heartbeat_answers_beside_a_long_add_and_sees_a_wedge():
+    """The supervisor's heartbeat is answered beside a handler that holds
+    the worker (an ADD that outlasts the heartbeat's own timeout does not
+    read as a dead worker), and it reports how long that handler has held
+    it, so one held past ``busy_timeout_s`` is marked wedged.  A plain
+    STATS still waits for the handler."""
+    import socket
+    import threading
+    from types import SimpleNamespace
+
+    from repro_torch.transport import ShardConnection, TransportError
+    from repro_torch.transport import server as t_server
+    from repro_torch.transport import wire
+
+    release = threading.Event()
+
+    class _HeldStore:
+        """An ADD that holds the worker until released."""
+        size = 0
+        table = SimpleNamespace(n_items=0)
+
+        def add(self, rows):
+            release.wait(30)
+            return np.arange(len(rows))
+
+    lock = t_server.ExecLock()
+    lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    lsock.bind(("127.0.0.1", 0))
+    lsock.listen(4)
+    addr = lsock.getsockname()
+
+    def _accept():
+        while True:
+            try:
+                conn, _ = lsock.accept()
+            except OSError:
+                return
+            threading.Thread(target=t_server._serve_conn,
+                             args=(_HeldStore(), conn),
+                             kwargs={"exec_lock": lock}, daemon=True).start()
+
+    threading.Thread(target=_accept, daemon=True).start()
+    lane = SimpleNamespace(shard=0, replica=0, handle=None,
+                           conn=SimpleNamespace(address=addr))
+    patient = Supervisor(None, device="cpu", heartbeat_timeout_s=0.5,
+                         busy_timeout_s=60.0)
+    strict = Supervisor(None, device="cpu", heartbeat_timeout_s=0.5,
+                        busy_timeout_s=0.5)
+    adder = ShardConnection(addr, timeout=30)
+    plain = ShardConnection(addr, timeout=0.5)
+    prober = ShardConnection(addr, timeout=5)
+    add = threading.Thread(target=adder.request, args=(Message(
+        MsgType.ADD, {"rows": np.zeros((2, K), np.int32)}),))
+    try:
+        assert patient._heartbeat(lane) is None       # idle
+        add.start()
+        t0 = time.monotonic()
+        while lock.held_s() == 0.0:
+            assert time.monotonic() - t0 < 10, "the ADD never took the lock"
+            time.sleep(0.01)
+        time.sleep(0.8)                # past the heartbeat's 0.5 s timeout
+        t0 = time.monotonic()
+        assert patient._heartbeat(lane) is None
+        assert time.monotonic() - t0 < 0.5
+        why = strict._heartbeat(lane)
+        assert why is not None and why.startswith("wedged")
+        with pytest.raises(TransportError):
+            plain.request(Message(MsgType.STATS, {}))
+        ping = Message(MsgType.STATS, {wire.PING_FIELD: 1})
+        assert int(prober.request(ping)["busy_us"]) >= 800_000
+        release.set()
+        add.join(10)
+        assert strict._heartbeat(lane) is None         # idle again
+    finally:
+        release.set()
+        if add.is_alive():
+            add.join(10)
+        for c in (adder, plain, prober, *patient._ctrl.values(),
+                  *strict._ctrl.values()):
+            c.close()
+        lsock.close()

@@ -1517,3 +1517,74 @@ def test_hybrid_step_matches_reference_mesh_on_eight_devices(pool,
     for name, w in want.items():
         bound = min(2 * gap * np.abs(w).max(), 1e-4)
         assert np.abs(got[name] - w).max() <= bound, name
+
+
+# -- the batch-starved SSM decode over (data x model) --------------------------
+
+def _r_decode_2d(arch, cache, feed):
+    """Decode steps of ``feed``'s tokens over (2, 4) with the SSM's tensor
+    dims split over ("data", "model") (the dry run's batch-starved decode),
+    from the rank's block of one device's ``cache``."""
+    cfg = _family_cfg(arch)
+    bundle = build(cfg, device="cpu")
+    mesh = make_host_mesh(2, 4, device="cpu")
+    axes = ("data", "model")
+    par = Parallel(mesh, cfg, "tp", tensor_axes=axes)
+    params = bundle.init(0)
+    local = sh.shard_tree(params, sh.param_shardings(params, mesh,
+                                                     tensor_axes=axes))
+    specs = sh.cache_specs(cache, mesh, tensor_axes=axes)
+    c = {k: torch.from_numpy(v[sh.local_slices(specs[k], v.shape, mesh)]
+                             if specs[k] else v) for k, v in cache.items()}
+    before = col.counters()
+    out = []
+    for tok in feed:
+        logits, c = bundle.decode_step(local, c, tok, mesh=par)
+        out.append(logits.numpy())
+    after = col.counters()
+    return {"logits": out, "coord": sh.coordinate(mesh), "rank": par.rank,
+            "tp": par.tp, "batch_axes": par.batch_axes,
+            "cache": {k: v.numpy() for k, v in c.items()},
+            "counts": {k: v - before.get(k, 0) for k, v in after.items()}}
+
+
+def test_ssm_decode_over_data_and_model_axes(pool):
+    """``Parallel(tensor_axes=("data", "model"))``: one row decoded with
+    falcon's d_inner channels and vocab over all 8 ranks (block
+    ``data * 4 + model``), its logits gathered over both axes and every
+    rank's cache block within 1e-4 of one device's."""
+    arch = "falcon_mamba_7b"
+    cfg = _family_cfg(arch)
+    assert cfg.d_inner % WORLD == 0 and cfg.vocab_size % WORLD == 0
+    bundle = build(cfg, device="cpu")
+    params = bundle.init(0)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (1, 12))
+             .astype(np.int32)}
+    feed = rng.integers(0, cfg.vocab_size_real, (4, 1)).astype(np.int32)
+    _, cache = bundle.prefill(params, batch, max_len=16)
+    cache = {k: v.numpy() for k, v in cache.items()}
+    c = {k: torch.tensor(v) for k, v in cache.items()}   # decode writes it
+    want = []
+    for tok in feed:
+        logits, c = bundle.decode_step(params, c, tok)
+        want.append(logits.numpy())
+    res = pool.run(_r_decode_2d, arch, cache, feed)
+    mesh = _stand_in((2, 4), ("data", "model"))
+    specs = sh.cache_specs(c, mesh, tensor_axes=("data", "model"))
+    assert specs["h"][2] == ("data", "model")
+    assert sorted(r["rank"] for r in res) == list(range(WORLD))
+    for r in res:
+        assert r["tp"] == WORLD and r["batch_axes"] == ()
+        assert r["rank"] == r["coord"]["data"] * 4 + r["coord"]["model"]
+        for w, g in zip(want, r["logits"]):
+            assert g.shape == w.shape
+            assert np.abs(w - g).max() < 1e-4
+        for k, v in r["cache"].items():
+            full = c[k].numpy()
+            block = full[sh.local_slices(specs[k], full.shape, mesh,
+                                         r["coord"])] if specs[k] else full
+            assert np.abs(block - v).max() < 1e-4, k
+        # in_proj's products gathered over both axes, one call an axis
+        assert r["counts"]["mesh.all_gather.calls"] > 0
+        assert r["counts"]["mesh.all_reduce.calls"] > 0
