@@ -309,9 +309,12 @@ printed then:
     a second step timed.  Prints the collectives by kind (calls, bytes;
     gloo carries every kind on CUDA tensors, through the host inside the
     backend).  (b)
-    ``qwen3_moe_30b_a3b`` at its published widths, 2 layers, float32,
-    capacity 64: the expert-parallel forward of 8 x 32 tokens on ``(1,
-    2)`` within 1e-4 of one device's.  (c) llama3_2_1b's widths at 1
+    ``qwen3_moe_30b_a3b`` at its published widths, 2 layers, float32, at
+    its own capacity factor (1.25): the forward of 8 x 32 tokens on ``(1,
+    2)``, expert parallel (``tp``) and ``fsdp`` (each rank its 4 rows, the
+    token group the whole batch: its places offset by the other rank's
+    assignment counts), each within 1e-4 of one device's; assignments
+    are dropped (> 0), and the ranks drop as many as one device.  (c) llama3_2_1b's widths at 1
     layer on ``(2, 1)``: ZeRO-1 off and on, and ``sharding_mode="fsdp"``,
     each against one device's step as in (a).  (d) A ZeRO-1 state (llama
     reduced to d_model 512, vocab 8192, 2 layers) saved on ``(2, 1)``,
@@ -3425,25 +3428,57 @@ def _mesh_rank_step(cfg, tc, shape, batch, seed, want, timed):
     return out
 
 
-def _mesh_rank_moe(cfg, batch, seed, want_path):
-    """Phase 14 (b) on a rank: expert parallelism over (1, 2)."""
+class _CountDrops:
+    """``with _CountDrops() as drops:`` counts in ``drops.n`` the MoE
+    assignments that ``models.moe._places`` drops at capacity inside the
+    block (to an expert held here, not kept)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.n, self._places = 0, moe._places
+
+        def counted(idx, el, *args):
+            lid, pos, keep = self._places(idx, el, *args)
+            self.n += int(((lid < el) & ~keep).sum())
+            return lid, pos, keep
+        moe._places = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._places = self._places
+
+
+def _mesh_rank_moe(cfg, mode, batch, seed, want_path):
+    """Phase 14 (b) on a rank: the forward of its rows over (1, 2) in
+    ``mode`` (``tp``: expert parallel; ``fsdp``: its half of the rows,
+    the experts gathered), against one device's logits of those rows."""
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.distributed import collectives as col
-    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.distributed.parallel import Parallel
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.train.train_loop import (batch_layout, rank_rows,
+                                              train_state_shardings)
     _no_tf32()
     bundle = build(cfg, device="cuda")
     mesh = make_host_mesh(1, 2, device="cuda")
+    tc = TrainConfig(sharding_mode=mode)
     full = bundle.init(seed)
-    local = shard_tree(full, param_shardings(full, mesh))
+    local = shard_tree(full, train_state_shardings(full, tc, mesh)[0])
     del full
     torch.cuda.empty_cache()
+    rows = batch_layout(tc, mesh)(batch, mesh)["tokens"].slices(
+        batch["tokens"].shape)[0]
     before = col.counters()
-    logits = bundle.forward(local, batch, mesh=mesh)
-    torch.cuda.synchronize()
-    want = torch.from_numpy(np.load(want_path))
+    with _CountDrops() as drops:
+        logits = bundle.forward(local, rank_rows(tc, mesh)(batch),
+                                mesh=Parallel(mesh, cfg, mode))
+        torch.cuda.synchronize()
+    want = torch.from_numpy(np.load(want_path))[rows]
     return {"err": float((logits.cpu() - want).abs().max()),
-            "counts": _rank_counts(before),
+            "dropped": drops.n, "counts": _rank_counts(before),
             "held": sum(p.numel() for p in local.parameters())}
 
 
@@ -3642,8 +3677,9 @@ def mesh_path(seed: int, report: dict) -> None:
     """Phase 14: the mesh paths over two ranks sharing the card (gloo).
     (a) llama3_2_1b at full width, float32, TF32 off: one step on one
     device, then the same step tensor parallel on (1, 2); (b) qwen3_moe at
-    published widths, 2 layers: the expert-parallel forward on (1, 2)
-    against the one-device fallback; (c) llama widths at 1 layer, data
+    published widths, 2 layers, its own capacity factor: the expert-
+    parallel and the FSDP forward on (1, 2) against one device's, tokens
+    dropped; (c) llama widths at 1 layer, data
     parallel on (2, 1): ZeRO-1 off and on, and FSDP; (d) an elastic
     checkpoint at reduced widths (d_model 512, vocab 8192, 2 layers): a
     ZeRO-1 state saved on (2, 1), restored on (1, 2) and saved again, the
@@ -3741,34 +3777,8 @@ def mesh_path(seed: int, report: dict) -> None:
                      "boot_s": boot_s}
         part("a")
 
-        # (b) expert-parallel MoE forward
-        mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
-                                   n_layers=MESH_MOE_LAYERS, dtype="float32",
-                                   capacity_factor=64.0)
-        rng = np.random.default_rng(seed + 5)
-        mbatch = {"tokens": rng.integers(0, mcfg.vocab_size_real, (
-            MESH_MOE_ROWS, MESH_MOE_SEQ)).astype(np.int32)}
-        bundle = build(mcfg, device="cuda")
-        params = bundle.init(seed)
-        n_moe = sum(p.numel() for p in params.parameters())
-        np.save(os.path.join(tmp, "moe.npy"),
-                bundle.forward(params, mbatch).cpu().numpy())
-        del bundle, params
-        torch.cuda.empty_cache()
-        moe = run(_mesh_rank_moe, mcfg, mbatch, seed,
-                  os.path.join(tmp, "moe.npy"))
-        require(all(r["err"] < MESH_TOL for r in moe), f"the expert-parallel "
-                f"forward within {MESH_TOL} of the fallback "
-                f"({[r['err'] for r in moe]})")
-        print(f"[mesh] (b) {MESH_MOE_ARCH} (d_model {mcfg.d_model}, "
-              f"{mcfg.n_experts} experts top-{mcfg.top_k}, d_ff {mcfg.d_ff}, "
-              f"vocab {mcfg.vocab_size}, {MESH_MOE_LAYERS} layers, float32, "
-              f"capacity 64) forward of {MESH_MOE_ROWS} x {MESH_MOE_SEQ} on "
-              f"(1, 2): largest logit difference "
-              f"{max(r['err'] for r in moe):.2e} from one device; each rank "
-              f"holds {moe[0]['held']} of {n_moe} parameters; "
-              + _counts_line(moe[0]["counts"]))
-        out["moe"] = {"ranks": moe, "params": n_moe}
+        # (b) MoE forward at the config's own capacity factor: tokens drop
+        out["moe"] = _mesh_moe(run, tmp, seed)
         part("b")
 
         # (c) data parallel on (2, 1), TRAIN_CUT_LAYERS layers
@@ -3877,6 +3887,56 @@ def mesh_path(seed: int, report: dict) -> None:
     report["mesh_path"] = out
     print(f"[mesh] phase {out['wall_s']:.1f} s (" + _secs(parts)
           + f"); kernel launches {launches}")
+
+
+def _mesh_moe(run, tmp: str, seed: int) -> dict:
+    """Phase 14 (b): qwen3_moe at published widths, ``MESH_MOE_LAYERS``
+    layers, float32, at its own capacity factor: one device's forward
+    (its logits to ``tmp``, its dropped assignments counted), then the
+    (1, 2) forward in ``tp`` (expert parallel) and ``fsdp`` on the ranks
+    (``run``), each held against it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                               n_layers=MESH_MOE_LAYERS, dtype="float32")
+    rng = np.random.default_rng(seed + 5)
+    mbatch = {"tokens": rng.integers(0, mcfg.vocab_size_real, (
+        MESH_MOE_ROWS, MESH_MOE_SEQ)).astype(np.int32)}
+    bundle = build(mcfg, device="cuda")
+    params = bundle.init(seed)
+    n_moe = sum(p.numel() for p in params.parameters())
+    with _CountDrops() as drops:
+        np.save(os.path.join(tmp, "moe.npy"),
+                bundle.forward(params, mbatch).cpu().numpy())
+    del bundle, params
+    torch.cuda.empty_cache()
+    require(drops.n > 0, f"assignments dropped at capacity factor "
+            f"{mcfg.capacity_factor} ({drops.n})")
+    out = {"params": n_moe, "dropped": drops.n,
+           "capacity_factor": mcfg.capacity_factor}
+    n_assign = MESH_MOE_ROWS * MESH_MOE_SEQ * mcfg.top_k * MESH_MOE_LAYERS
+    for mode in ("tp", "fsdp"):
+        moe = run(_mesh_rank_moe, mcfg, mode, mbatch, seed,
+                  os.path.join(tmp, "moe.npy"))
+        errs = [r["err"] for r in moe]
+        dropped = sum(r["dropped"] for r in moe)
+        require(max(errs) < MESH_TOL, f"the (1, 2) {mode} MoE forward "
+                f"within {MESH_TOL} of one device's ({errs})")
+        require(dropped == drops.n, f"the (1, 2) {mode} ranks drop "
+                f"{dropped} assignments, one device {drops.n}")
+        print(f"[mesh] (b) {MESH_MOE_ARCH} (d_model {mcfg.d_model}, "
+              f"{mcfg.n_experts} experts top-{mcfg.top_k}, d_ff "
+              f"{mcfg.d_ff}, vocab {mcfg.vocab_size}, {MESH_MOE_LAYERS} "
+              f"layers, float32, capacity factor "
+              f"{mcfg.capacity_factor}) forward of {MESH_MOE_ROWS} x "
+              f"{MESH_MOE_SEQ} on (1, 2) {mode}: largest logit "
+              f"difference {max(errs):.2e} from one device; "
+              f"{dropped} of {n_assign} assignments dropped (one "
+              f"device {drops.n}); each rank holds {moe[0]['held']} of "
+              f"{n_moe} parameters; "
+              + _counts_line(moe[0]["counts"]))
+        out[mode] = {"ranks": moe, "dropped": dropped}
+    return out
 
 
 def _mesh_hybrid(run, tmp: str, tc, seed: int, card: str) -> dict:

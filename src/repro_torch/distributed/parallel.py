@@ -27,6 +27,11 @@ collectives out, following ``sharding._RULES``:
   (``fsdp_param_specs``) and all-gathered at its use, the batch sharded
   over every axis.
 
+In either mode an MoE keeps the reference's token groups (``moe_axes``):
+its capacity, queue places and aux loss are a data shard's where the
+experts split over ``model``, else the whole batch's, however the rows
+lie on the ranks.
+
 Parameters passed with a ``Parallel`` are the rank's local slices
 (``sharding.shard_tree``); a batch is the rank's own rows
 (``data.loader.device_placer``): the encoder's frames too.  Activations
@@ -85,9 +90,6 @@ class Parallel:
         else:   # tensor dims over the data axes consume them
             self.batch_axes = tuple(a for a in batch_axes(mesh)
                                     if a not in self.axes)
-        self.n_batch = 1
-        for a in self.batch_axes:
-            self.n_batch *= sizes[a]
         self.tp = math.prod(sizes.get(a, 1) for a in self.axes) \
             if mode == "tp" else 1
 
@@ -111,6 +113,8 @@ class Parallel:
         self.head_split = self.vocab_split if cfg.tie_embeddings \
             else split("lm_head", 1)
         self.ep = split("layers/moe/e_gate", 1)
+        self.moe_axes = self._moe_axes(sizes) if cfg.n_experts else ()
+        self.moe_ranks = math.prod(sizes[a] for a in self.moe_axes)
         # the rank's block of the tensor axes' product, the first major
         coord = coordinate(mesh) if self.tp > 1 else {}
         self.rank = 0
@@ -137,10 +141,53 @@ class Parallel:
         """A sum over the rank's rows, summed over the batch shards."""
         return col.reduce_from(x, self.mesh, self.batch_axes)
 
-    def batch_mean(self, x):
-        """A mean over the rank's rows -> the mean over the whole batch
-        (the shards hold equal row counts)."""
-        return self.batch_sum(x) / self.n_batch
+    # -- the MoE's token groups ------------------------------------------
+    def _moe_axes(self, sizes) -> tuple[str, ...]:
+        """The reference's MoE token groups (``repro.models.moe.moe_block``)
+        follow the mesh alone, whatever the layout: one a data shard (the
+        rows of the non-``model`` axes' block) where its experts split over
+        ``model`` (a model axis of tp > 1 dividing n_experts and d_model),
+        else the whole batch.  Returns the axes over which a group's rows
+        lie on ranks holding different rows (the rank's rows are a block of
+        its group's, the first axis major)."""
+        tp = sizes.get("model", 1)
+        e, d = self.cfg.n_experts, self.cfg.d_model
+        if not (tp > 1 and e % tp == 0 and d % tp == 0):
+            return self.batch_axes
+        shard_axes = [a for a in axis_names(self.mesh)
+                      if a != "model" and sizes[a] > 1]
+        if any(a not in self.batch_axes for a in shard_axes) or (
+                "model" in self.batch_axes
+                and self.batch_axes[-1] != "model"):
+            raise NotImplementedError(
+                f"MoE token groups of the data shards over rows laid out "
+                f"over {self.batch_axes}")
+        return tuple(a for a in self.batch_axes if a == "model")
+
+    def moe_group_mean(self, x):
+        """A mean over the rank's rows -> the mean over its token group's."""
+        return col.reduce_from(x, self.mesh, self.moe_axes) / self.moe_ranks
+
+    def moe_groups_mean(self, x):
+        """A value of the rank's token group -> the mean over the groups
+        (the batch axes the groups differ along)."""
+        axes = tuple(a for a in self.batch_axes if a not in self.moe_axes)
+        n = math.prod(mesh_shape(self.mesh)[a] for a in axes)
+        return col.reduce_from(x, self.mesh, axes) / n
+
+    def moe_before(self, counts):
+        """(E,) int32 assignments to each expert from the rank's rows ->
+        those from its token group's rows before the rank's, in the
+        batch's row order (an all-gather over each of ``moe_axes`` wider
+        than one rank; none where the rank's rows are its group's)."""
+        if self.moe_ranks == 1:
+            return torch.zeros_like(counts)
+        every = col.all_gather(counts[None], self.mesh, self.moe_axes, 0)
+        coord, sizes = coordinate(self.mesh), mesh_shape(self.mesh)
+        i = 0
+        for a in self.moe_axes:
+            i = i * sizes[a] + coord[a]
+        return every[:i].sum(0, dtype=counts.dtype)
 
     # -- weights ----------------------------------------------------------
     def weights(self, tree, prefix: str):

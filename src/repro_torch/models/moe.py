@@ -1,15 +1,21 @@
 """Top-k mixture of experts at a fixed capacity (GShard drops), with
 expert parallelism over a mesh.
 
-A PyTorch copy of ``repro.models.moe``.  Over a mesh
-(``distributed.parallel.Parallel`` with experts split over ``model``) the
-block runs the reference's ``shard_map`` body with its collectives written
-out.  The reference all-gathers the token features, which it shards over
-``model``; here every model rank holds them whole already.  The tokens are
-routed on the full features, sent through this rank's experts only (ids
-``[rank * E/tp, (rank + 1) * E/tp)``) at the capacity of the data shard's
-tokens, and the outputs summed over ``model``; the aux loss is the mean
-over the data shards.
+A PyTorch copy of ``repro.models.moe``.  The capacity, each assignment's
+place in its expert's queue and the aux loss belong to the reference's
+token group (``Parallel.moe_axes``): a data shard where its experts split
+over ``model``, else the whole batch.  Over a mesh a rank routes and runs
+its own rows only; the group's count of assignments to each expert from
+the rows before the rank's (``Parallel.moe_before``, an all-gather of E
+ints where the group's rows lie on several ranks) offsets its places, so
+it keeps and drops what the reference's group does.  With experts split
+over ``model`` (``Parallel.ep``) the block runs the reference's
+``shard_map`` body with its collectives written out.  The reference
+all-gathers the token features, which it shards over ``model``; here
+every model rank holds them whole already.  The tokens go through this
+rank's experts only (ids ``[rank * E/tp, (rank + 1) * E/tp)``), and the
+outputs are summed over ``model``.  The aux loss is the mean over the
+groups of each group's.
 """
 
 from __future__ import annotations
@@ -40,42 +46,57 @@ def _capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _places(idx: Tensor, el: int, capacity: int, e_offset: int = 0,
+            before: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """Each assignment's place in its expert's queue, counted over the
+    (T x k) assignments flattened token-major as the reference counts
+    them.  idx: (T, k) global expert ids; el experts held here from
+    ``e_offset``; before: None, or (el,) the assignments to each of them
+    from the token group's rows ahead of these, which queue first.
+    Returns (lid, pos, keep), each (T*k,): the local id (``el`` for an
+    expert held elsewhere), the place among these rows' assignments to
+    the expert, and whether the group's place ``before + pos`` is under
+    ``capacity``."""
+    lid = idx.reshape(-1) - e_offset
+    valid = (lid >= 0) & (lid < el)
+    lid = torch.where(valid, lid, el)                         # el: not here
+    pos = F.one_hot(lid, el + 1).cumsum(0).gather(1, lid[:, None])[:, 0] - 1
+    place = pos if before is None else pos + F.pad(before, (0, 1))[lid]
+    return lid, pos, valid & (place < capacity)
+
+
 def _expert_ffn(xf: Tensor, idx: Tensor, gates: Tensor, wg: Tensor,
                 wu: Tensor, wd: Tensor, *, capacity: int,
-                e_offset: int = 0) -> Tensor:
+                e_offset: int = 0, before: Tensor | None = None) -> Tensor:
     """Apply the local experts to their tokens at a fixed capacity.
 
     xf: (T, D); idx: (T, k) global expert ids; gates: (T, k); wg/wu:
-    (El, D, F); wd: (El, F, D); e_offset: the first global id held here.
-    Returns (T, D).  An assignment to a local expert is kept when its place
-    among that expert's assignments, counted over the (T x k) assignments
-    flattened token-major as the reference counts them, is under
-    ``capacity``; a dropped one (or one to an expert held elsewhere) goes to
-    one spare buffer row, cut off after.
+    (El, D, F); wd: (El, F, D); e_offset: the first global id held here;
+    before: None, or (El,) the token group's assignments to each local
+    expert from rows ahead of these (``_places``).  Returns (T, D).  A kept
+    assignment goes to row ``pos`` of its expert's buffer (under
+    min(capacity, T): an expert takes a token once); a dropped one (or one
+    to an expert held elsewhere) to one spare row, cut off after.
     """
     t, k = idx.shape
     el = wg.shape[0]
     d = xf.shape[-1]
     dtype = xf.dtype
 
-    lid = idx.reshape(-1) - e_offset                          # (T*k,)
-    valid = (lid >= 0) & (lid < el)
-    lid = torch.where(valid, lid, el)                         # el: not here
-    pos = F.one_hot(lid, el + 1).cumsum(0) - 1                # place in expert
-    pos = pos.gather(1, lid[:, None])[:, 0]
-    keep = valid & (pos < capacity)
-    slot = torch.where(keep, lid * capacity + pos, el * capacity)
+    lid, pos, keep = _places(idx, el, capacity, e_offset, before)
+    rows = min(capacity, t)
+    slot = torch.where(keep, lid * rows + pos, el * rows)
     token_of = torch.arange(t, device=xf.device).repeat_interleave(k)
 
-    buf = xf.new_zeros(el * capacity + 1, d)
+    buf = xf.new_zeros(el * rows + 1, d)
     buf.index_add_(0, slot, xf[token_of])
-    buf = buf[:-1].reshape(el, capacity, d)
+    buf = buf[:-1].reshape(el, rows, d)
 
     h = F.silu(torch.bmm(buf, wg.to(dtype))) * torch.bmm(buf, wu.to(dtype))
-    out = torch.bmm(h, wd.to(dtype)).reshape(el * capacity, d)
+    out = torch.bmm(h, wd.to(dtype)).reshape(el * rows, d)
 
     contrib = torch.where(keep, gates.reshape(-1), 0.0).to(dtype)
-    picked = (out[slot.clamp(max=el * capacity - 1)]
+    picked = (out[slot.clamp(max=el * rows - 1)]
               * contrib[:, None]).reshape(t, k, d)
     # a token's k contributions summed in assignment order, on every device
     # the same (an index_add_ on the card adds in no fixed order)
@@ -87,7 +108,8 @@ def _expert_ffn(xf: Tensor, idx: Tensor, gates: Tensor, wg: Tensor,
 
 def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None):
     """Top-k gates (renormalised) and the load-balance aux loss; with
-    ``par``, the aux loss's means are over the whole batch."""
+    ``par``, the aux loss's means are over the rank's token group, and the
+    aux loss the mean over the groups."""
     logits = (xf @ router_w.to(xf.dtype)).float()             # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: larger first, the lower expert first on a tie; a
@@ -99,35 +121,41 @@ def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None):
     assign = F.one_hot(idx[:, 0], e).float().mean(0)
     mean_probs = probs.mean(0)
     if par is not None:
-        assign, mean_probs = par.batch_mean(assign), par.batch_mean(mean_probs)
+        assign = par.moe_group_mean(assign)
+        mean_probs = par.moe_group_mean(mean_probs)
     aux = e * torch.mean(assign * mean_probs)
+    if par is not None:
+        aux = par.moe_groups_mean(aux)
     return gates, idx, aux
 
 
 def moe_block(p, x: Tensor, cfg, mesh=None) -> tuple[Tensor, Tensor]:
     """x: (B, S, D) (or (B, D): one token a row) -> (y like x, aux_loss
-    scalar).  The capacity counts the B * S tokens of the call (a data
-    shard's tokens over a mesh, as the reference's ``b * s // n_data``).
-    ``mesh``: None, or the ``Parallel`` the model runs under."""
+    scalar).  One device: the B * S tokens of the call are one group.
+    ``mesh``: None, or the ``Parallel`` the model runs under; x is the
+    rank's rows."""
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(-1, x.shape[-1])
     par = mesh
-    if par is not None and par.ep:
-        el = e // par.tp
-        # the features are replicated over ``model``, so the routing is too;
-        # the local experts' outputs are partial sums, so their replicated
-        # inputs' gradients sum over ``model``
-        gates, idx, aux = _route(xf, p["router"], e, k)
-        cap = _capacity(len(xf), e, k, cfg.capacity_factor)
-        y = _expert_ffn(par.enter(xf), idx, par.enter(gates.to(x.dtype)),
-                        p["e_gate"], p["e_up"], p["e_down"], capacity=cap,
-                        e_offset=par.rank * el)
-        # the reference sums aux over every mesh axis and divides by the
-        # mesh size; the model axis's copies are equal, so that is the mean
-        # over the data shards
-        return par.exit(y).reshape(x.shape), par.batch_mean(aux)
     gates, idx, aux = _route(xf, p["router"], e, k, par)
-    cap = _capacity(len(xf), e, k, cfg.capacity_factor)
-    y = _expert_ffn(xf, idx, gates.to(x.dtype), p["e_gate"], p["e_up"],
-                    p["e_down"], capacity=cap)
-    return y.reshape(x.shape), aux
+    gates = gates.to(x.dtype)
+    w = p["e_gate"], p["e_up"], p["e_down"]
+    if par is None:
+        cap = _capacity(len(xf), e, k, cfg.capacity_factor)
+        return _expert_ffn(xf, idx, gates, *w, capacity=cap).reshape(
+            x.shape), aux
+    cap = _capacity(len(xf) * par.moe_ranks, e, k, cfg.capacity_factor)
+    flat = idx.reshape(-1)
+    before = par.moe_before(flat.new_zeros(e, dtype=torch.int32).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32)))
+    if not par.ep:
+        y = _expert_ffn(xf, idx, gates, *w, capacity=cap, before=before)
+        return y.reshape(x.shape), aux
+    # the features are replicated over ``model``, so the routing is too;
+    # the local experts' outputs are partial sums, so their replicated
+    # inputs' gradients sum over ``model``
+    el = e // par.tp
+    lo = par.rank * el
+    y = _expert_ffn(par.enter(xf), idx, par.enter(gates), *w, capacity=cap,
+                    e_offset=lo, before=before[lo:lo + el])
+    return par.exit(y).reshape(x.shape), aux

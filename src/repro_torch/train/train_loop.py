@@ -21,7 +21,9 @@ itself, as the reference's GSPMD step issues them:
 
 ``train_state_shardings`` gives the layouts, and ``jit_train_step`` the
 step with its layouts fixed (torch has nothing to jit): it cuts the rank's
-rows from a host batch.  ``mesh_gradients`` gives what a rank's step hands
+rows from a host batch (``rank_rows``: where ``microbatches`` > 1, a
+rank's microbatch is its shard of the reference's, a block of the whole
+batch).  ``mesh_gradients`` gives what a rank's step hands
 its update, to hold against one device's gradients.
 """
 
@@ -32,6 +34,7 @@ import signal
 import time
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 
 from ..data.loader import device_placer
@@ -128,7 +131,7 @@ def mesh_gradients(bundle, tc, mesh, params, batch
     leaf that the rank updates.  ``batch``: the host batch."""
     par = Parallel(mesh, bundle.cfg, tc.sharding_mode)
     update = _MeshUpdate(par, tc)
-    rows = device_placer(mesh, batch_layout(tc, mesh))(batch)
+    rows = rank_rows(tc, mesh)(batch)
     _, _, grads = _gradients(bundle, tc, par, update, params, rows)
     return [(name, sl, g) for (name, sl), g
             in zip(update.regions(params), grads, strict=True)]
@@ -181,15 +184,42 @@ def batch_layout(tc, mesh) -> Callable:
     return shardings
 
 
+def rank_rows(tc, mesh) -> Callable:
+    """A host batch -> the rank's rows (``batch_layout``).  With
+    ``tc.microbatches`` = n > 1 the rows are put microbatch-major first,
+    so the rank's i-th n-th of its rows is its shard of the reference's
+    microbatch i (the host batch's i-th n-th): each microbatch's MoE token
+    groups and loss means are then the reference's."""
+    layout = batch_layout(tc, mesh)
+    place = device_placer(mesh, layout)
+    n = tc.microbatches
+    if n == 1:
+        return place
+
+    def major(x):
+        rows = x.shape[0]
+        held = layout({"x": x}, mesh)["x"].slices(x.shape)[0]
+        shards = rows // (held.stop - held.start)
+        if rows % (n * shards):
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"{n} microbatches over {shards} shards")
+        order = torch.arange(rows).reshape(n, shards, -1).transpose(0, 1)
+        order = order.reshape(-1)
+        return x[order] if isinstance(x, torch.Tensor) \
+            else np.asarray(x)[order.numpy()]
+
+    return lambda batch: place({k: major(v) for k, v in batch.items()})
+
+
 def jit_train_step(bundle, tc, mesh) -> Callable:
     """The mesh step with its layouts fixed: (the rank's params, the rank's
     ``OptState``, a host batch) -> (params, opt_state, metrics); the rank's
-    rows are cut from the host batch by ``batch_layout``.  The layouts
+    rows are cut from the host batch by ``rank_rows``.  The layouts
     follow from ``bundle.cfg``, ``tc`` and the mesh, so the reference's
     ``params_shape`` and ``batch_shape`` (which its ``jax.jit`` needs) are
     not taken."""
     step = make_train_step(bundle, tc, mesh)
-    place = device_placer(mesh, batch_layout(tc, mesh))
+    place = rank_rows(tc, mesh)
     return lambda params, opt_state, batch: step(params, opt_state,
                                                  place(batch))
 

@@ -330,6 +330,52 @@ def test_capacity_matches_reference(n_tokens, factor):
             ref_moe._capacity(n_tokens, e, k, factor)
 
 
+@pytest.mark.parametrize("el,e_offset", [(8, 0), (4, 4), (2, 4)])
+@pytest.mark.parametrize("n_ranks", range(1, 9))
+def test_places_split_over_ranks_equal_the_group(n_ranks, el, e_offset):
+    """A token group's rows split over ``n_ranks`` ranks, in row order,
+    each rank fed the group's assignments to each expert from the rows
+    before its own: every rank's places (its ``pos`` + ``before``) and
+    ``keep`` equal, bit for bit, the group's token-major cumsum (all E
+    experts, or ``el`` of them from ``e_offset`` as a rank of expert
+    parallelism holds them).  Experts 6 and 7 are never picked and expert
+    5 only by the last 3 tokens, so from 2 ranks on a rank holds no
+    assignment to it."""
+    e, k, t, cap = 8, 2, 37, 5
+    rng = np.random.default_rng(4)
+    first = rng.choice(5, t, p=[0.4, 0.3, 0.1, 0.1, 0.1])
+    second = (first + 1 + rng.integers(0, 4, t)) % 5
+    second[-3:] = 5
+    idx = np.stack([first, second], 1)
+    # the group's places: a numpy token-major count a local expert
+    flat = idx.reshape(-1) - e_offset
+    want_place = np.full(t * k, -1)
+    seen = np.zeros(e, np.int64)
+    for j, x in enumerate(flat):
+        if 0 <= x < el:
+            want_place[j] = seen[x]
+            seen[x] += 1
+    want_keep = (want_place >= 0) & (want_place < cap)
+    assert want_keep.sum() < (want_place >= 0).sum()     # drops happen
+    bounds = np.linspace(0, t, n_ranks + 1).astype(int)
+    missing = 0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        ahead = np.bincount(idx[:lo].reshape(-1), minlength=e)[
+            e_offset:e_offset + el]
+        lid, pos, keep = t_moe._places(
+            torch.from_numpy(idx[lo:hi]), el, cap, e_offset,
+            None if n_ranks == 1 else torch.from_numpy(ahead).int())
+        held = lid.numpy() < el
+        sl = slice(lo * k, hi * k)
+        assert np.array_equal(lid.numpy()[held], flat[sl][held])
+        assert np.array_equal(held, want_place[sl] >= 0)
+        assert np.array_equal(pos.numpy()[held] + ahead[lid.numpy()[held]],
+                              want_place[sl][held])
+        assert np.array_equal(keep.numpy(), want_keep[sl])
+        missing += 5 - e_offset not in lid.numpy()
+    assert missing == n_ranks - 1
+
+
 def test_expert_ffn_matches_reference_with_drops():
     rng = np.random.default_rng(9)
     t, k, e, d, f = 24, 2, 4, 16, 32
@@ -393,10 +439,12 @@ def test_moe_mesh_branch_raises():
 class _OneRankOf:
     """A ``distributed.parallel.Parallel`` stand-in: rank ``rank`` of
     ``tp`` over ``model``, its collectives the identity, so a rank's
-    partial sums are summed by the caller."""
+    partial sums are summed by the caller; every rank holds the one token
+    group's rows."""
 
     def __init__(self, tp, rank):
         self.ep, self.tp, self.rank = True, tp, rank
+        self.moe_ranks = 1
 
     def enter(self, x):
         return x
@@ -404,8 +452,14 @@ class _OneRankOf:
     def exit(self, y):
         return y
 
-    def batch_mean(self, x):
+    def moe_group_mean(self, x):
         return x
+
+    def moe_groups_mean(self, x):
+        return x
+
+    def moe_before(self, counts):
+        return torch.zeros_like(counts)
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])

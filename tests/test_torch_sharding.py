@@ -27,6 +27,7 @@ batches and gradients.  Tolerances:
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -236,9 +237,10 @@ def _llama_cfg(**changes):
 
 
 def _moe_cfg(**changes):
+    changes = {"capacity_factor": 64.0, **changes}
     return dataclasses.replace(reduced(get_config("qwen3_moe_30b_a3b")),
                                dtype="float32", param_dtype="float32",
-                               capacity_factor=64.0, **changes)
+                               **changes)
 
 
 def _family_cfg(arch):
@@ -670,6 +672,218 @@ def test_moe_expert_parallel_step_matches_single_device(pool):
                                                rel=1e-5)
 
 
+# -- MoE drops over a mesh: the reference's token groups ----------------------
+
+_REF_MOE_MESH = """
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, "src")
+import jax, jax.numpy as jnp, numpy as np
+if not hasattr(jax.sharding, "AxisType"):
+    class _AxisType:
+        Auto = None
+    jax.sharding.AxisType = _AxisType
+    _real_make_mesh = jax.make_mesh
+    def _make_mesh(shape, axes, axis_types=None, **kw):
+        return _real_make_mesh(shape, axes, **kw)
+    jax.make_mesh = _make_mesh
+if not hasattr(jax, "shard_map"):
+    from jax.experimental.shard_map import shard_map as _shard_map
+    jax.shard_map = _shard_map
+from repro.configs import get_config, reduced
+from repro.models import build
+batch = {k: jnp.asarray(v) for k, v in np.load(sys.argv[1]).items()}
+for i, (shape, changes, seed, micro) in enumerate(json.loads(sys.argv[3])):
+    cfg = dataclasses.replace(reduced(get_config("qwen3_moe_30b_a3b")),
+                              dtype="float32", param_dtype="float32",
+                              **changes)
+    bundle = build(cfg)
+    params = bundle.init(jax.random.PRNGKey(seed))
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+    def run(p, b):
+        # the train step's microbatches: blocks of the whole batch, their
+        # losses and gradients averaged
+        rows = b["tokens"].shape[0] // micro
+        outs = [jax.value_and_grad(
+            lambda q, mb: bundle.loss_fn(q, mb, mesh=mesh), has_aux=True)(
+                p, jax.tree.map(lambda x: x[j * rows:(j + 1) * rows], b))
+            for j in range(micro)]
+        mean = lambda *xs: sum(xs) / micro
+        return bundle.forward(p, b, mesh=mesh), jax.tree.map(mean, *outs)
+
+    logits, ((loss, m), grads) = jax.jit(run)(params, batch)   # one compile
+    np.savez(os.path.join(sys.argv[2], f"{i}.npz"),
+             logits=np.asarray(logits), loss=np.asarray(loss),
+             aux=np.asarray(m["aux"]),
+             **{f"g{j}": np.asarray(g)
+                for j, g in enumerate(jax.tree.leaves(grads))})
+"""
+
+# (mesh, config changes, weight seed, microbatches) of the reference's
+# runs, at the configs' own capacity factor (one at 1.0): (2,4) groups the
+# data shards (experts split over ``model``); (1,8) one group over 8
+# ranks; (8,1) and d_model 98 (not dividing 4) one group, the reference's
+# plain path; the last, the train step's 2 microbatches on (2,4)
+MOE_GROUP_RUNS = [((2, 4), {"capacity_factor": 1.25}, 0, 1),
+                  ((1, 8), {"capacity_factor": 1.25}, 0, 1),
+                  ((8, 1), {"capacity_factor": 1.25}, 0, 1),
+                  ((2, 4), {"capacity_factor": 1.25, "d_model": 98}, 2, 1),
+                  ((2, 4), {"capacity_factor": 1.0}, 0, 1),
+                  ((2, 4), {"capacity_factor": 1.25}, 0, 2)]
+MOE_GROUP_CASES = [(0, "tp"), (0, "fsdp"), (1, "fsdp"), (2, "tp"),
+                   (2, "fsdp"), (3, "tp"), (3, "fsdp"), (4, "tp"),
+                   (4, "fsdp"), (5, "tp"), (5, "fsdp")]
+
+
+@pytest.fixture(scope="module")
+def ref_moe_groups(tmp_path_factory):
+    """The reference's own mesh runs of ``MOE_GROUP_RUNS`` on 8 fake XLA
+    devices, in one subprocess: (batch, [(weights, forward logits, loss,
+    aux, ``jax.grad`` by the port's leaf names)])."""
+    out = tmp_path_factory.mktemp("moe_groups")
+    batch = next(token_batches(512, 16, 16, seed=21))
+    np.savez(out / "batch.npz", **batch)
+    runs = [(list(shape), *rest) for shape, *rest in MOE_GROUP_RUNS]
+    p = subprocess.run([sys.executable, "-c", textwrap.dedent(
+        _REF_MOE_MESH), str(out / "batch.npz"), str(out), json.dumps(runs)],
+        capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"), timeout=300)
+    assert p.returncode == 0, p.stderr
+    res = []
+    for i, (_, changes, seed, _) in enumerate(MOE_GROUP_RUNS):
+        rcfg = dataclasses.replace(ref_reduced(ref_get_config(
+            "qwen3_moe_30b_a3b")), dtype="float32", param_dtype="float32",
+            **changes)
+        tree = _ref_tree(rcfg, seed)
+        got = np.load(out / f"{i}.npz")
+        leaves, treedef = jax.tree.flatten(tree)
+        grads = jax.tree.unflatten(treedef, [got[f"g{j}"]
+                                             for j in range(len(leaves))])
+        res.append((tree, got["logits"], float(got["loss"]),
+                    float(got["aux"]), _per_layer(grads, _moe_cfg(**changes))))
+    return batch, res
+
+
+@pytest.mark.parametrize("arch,changes,shape,tp_axes,fsdp_axes", [
+    ("qwen3_moe_30b_a3b", {}, (2, 4), (), ("model",)),
+    ("qwen3_moe_30b_a3b", {}, (4, 2), (), ("model",)),
+    ("qwen3_moe_30b_a3b", {}, (1, 8), (), ("model",)),
+    ("qwen3_moe_30b_a3b", {}, (8, 1), ("data",), ("data", "model")),
+    ("qwen3_moe_30b_a3b", {"d_model": 98}, (2, 4), ("data",),
+     ("data", "model")),
+    ("qwen3_moe_30b_a3b", {}, (2, 3), ("data",), ("data", "model")),
+    ("qwen3_moe_30b_a3b", {}, (2, 16, 16), (), ("model",)),
+    ("kimi_k2_1t_a32b", {}, (16, 16), (), ("model",))])
+def test_moe_token_groups_follow_the_mesh(arch, changes, shape, tp_axes,
+                                          fsdp_axes):
+    """The reference's rule, on the mesh alone: a data shard is a token
+    group where the model axis is tp > 1 and divides n_experts and
+    d_model, else the whole batch, in either layout.  ``moe_axes`` are
+    the axes over which a group's rows lie on ranks holding other rows:
+    none under ``tp`` where the experts split (each model rank holds its
+    data shard whole), ``model`` under ``fsdp``."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes) \
+        if len(shape) == 2 and arch != "kimi_k2_1t_a32b" \
+        else get_config(arch)
+    axes = ("pod", "data", "model")[-len(shape):]
+    mesh = types.SimpleNamespace(shape=dict(zip(axes, shape)),
+                                 axis_names=axes,
+                                 get_coordinate=lambda: (0,) * len(shape))
+    tp, fsdp = Parallel(mesh, cfg, "tp"), Parallel(mesh, cfg, "fsdp")
+    assert (tp.moe_axes, fsdp.moe_axes) == (tp_axes, fsdp_axes)
+    for par in (tp, fsdp):
+        assert par.moe_ranks == int(np.prod([mesh.shape[a]
+                                             for a in par.moe_axes]))
+    if len(shape) == 2 and tp_axes == () and shape[0] > 1:
+        with pytest.raises(NotImplementedError, match="token groups"):
+            Parallel(mesh, cfg, "tp", tensor_axes=("data", "model"))
+    dense = Parallel(mesh, reduced(get_config("llama3_2_1b")), "fsdp")
+    assert dense.moe_axes == () and dense.moe_ranks == 1
+
+
+def _r_moe_groups(tree, changes, shape, mode, micro, batch):
+    """The forward of the rank's rows over ``shape`` in ``mode`` (with
+    what each collective it issued carried), the loss and aux loss (of
+    the step, over ``micro`` microbatches, where more than one), and the
+    gradients the step hands its update."""
+    from repro_torch.data.loader import device_placer
+    from repro_torch.train.train_loop import batch_layout, mesh_gradients
+    cfg = _moe_cfg(**changes)
+    bundle = build(cfg, device="cpu")
+    mesh = make_host_mesh(*shape, device="cpu")
+    tc = TrainConfig(sharding_mode=mode, microbatches=micro)
+    params, opt = init_train_state(
+        convert.lm_params_from_jax(tree, cfg, "cpu"), tc, mesh)
+    par = Parallel(mesh, cfg, mode)
+    layout = batch_layout(tc, mesh)
+    rows = device_placer(mesh, layout)(batch)
+    seen = []
+    with col.watch(lambda kind, t, n: seen.append(
+            (kind, t.dtype, tuple(t.shape), n))):
+        logits = bundle.forward(params, rows, mesh=par)
+    with torch.no_grad():
+        loss, metrics = bundle.loss_fn(params, rows, mesh=par)
+    grads = [(name, sl, g.numpy()) for name, sl, g in mesh_gradients(
+        bundle, tc, mesh, params, batch)]
+    if micro > 1:       # the step's loss: the microbatches' mean
+        loss = jit_train_step(bundle, tc, mesh)(params, opt, batch)[2][
+            "loss"]
+    return {"rows": layout(batch, mesh)["tokens"].slices(
+        batch["tokens"].shape)[0], "logits": logits.numpy(),
+        "loss": float(loss), "aux": float(metrics["aux"]),
+        "moe_axes": par.moe_axes, "seen": seen, "grads": grads}
+
+
+@pytest.mark.parametrize("run,mode", MOE_GROUP_CASES)
+def test_moe_drops_match_reference_mesh(pool, ref_moe_groups, run, mode):
+    """At the configs' capacity factor 1.25 (and 1.0) tokens are dropped,
+    and over a mesh the port drops those the reference's own mesh run
+    drops: its capacity and queue places are the reference's token
+    group's (a data shard where the experts split over ``model``, else
+    the whole batch), in ``tp`` and ``fsdp``, and the train step's
+    microbatches are the reference's (blocks of the whole batch).  Logits,
+    loss and aux (not of microbatches: the reference's step reports
+    none) within 1e-4; the gradients a step hands its update within 1e-5
+    of each leaf's largest.  Drops happen: with room for every assignment the
+    logits move by > 1e-2.  A group whose rows lie on several ranks costs
+    each an all-gather of E int32 a layer over each mesh axis it spans;
+    one held whole by each of its ranks (``tp`` on (2,4)) costs none."""
+    shape, changes, _, micro = MOE_GROUP_RUNS[run]
+    batch, refs = ref_moe_groups
+    tree, logits, loss, aux, grads = refs[run]
+    cfg = _moe_cfg(**changes)
+    roomy = build(_moe_cfg(**{**changes, "capacity_factor": 64.0}),
+                  device="cpu").forward(
+        convert.lm_params_from_jax(tree, cfg, "cpu"), batch).numpy()
+    assert np.abs(roomy - logits).max() > 1e-2
+    res = pool.run(_r_moe_groups, tree, changes, shape, mode, micro, batch)
+    got = np.zeros_like(logits)
+    for r in res:
+        got[r["rows"]] = r["logits"]
+        assert abs(r["loss"] - loss) < 1e-4
+        assert micro > 1 or abs(r["aux"] - aux) < 1e-4
+    assert np.abs(got - logits).max() < 1e-4
+    seen = set()
+    for r in res:
+        for name, sl, g in r["grads"]:
+            w = grads[name][sl]
+            scale = max(float(np.abs(grads[name]).max()), 1e-30)
+            assert float(np.abs(g - w).max()) <= 1e-5 * scale, name
+            seen.add(name)
+    assert seen == set(grads)
+    sizes = dict(zip(("data", "model"), shape))
+    spans = [a for a in res[0]["moe_axes"] if sizes[a] > 1]
+    assert (mode, shape, "d_model" in changes) != ("tp", (2, 4), False) \
+        or not spans
+    for r in res:
+        counts = [(t_shape, n) for kind, dtype, t_shape, n in r["seen"]
+                  if kind == "all_gather" and dtype == torch.int32]
+        assert len(counts) == cfg.n_layers * len(spans)
+        assert all(t_shape[-1] == cfg.n_experts for t_shape, _ in counts)
+
+
 def test_elastic_checkpoint_reshard(pool, ref_step, tmp_path):
     """Save a ZeRO-1 state on (4,2), restore it onto (2,4): the same
     arrays, and the files written on either mesh byte-equal to the ones a
@@ -994,8 +1208,8 @@ def _r_decode(tree, arch, shape, batch, feed, changes=None, tp=None):
 def _decode_cfg(arch, **changes):
     return dataclasses.replace(reduced(get_config(arch), d_model=64),
                                dtype="float32", param_dtype="float32",
-                               capacity_factor=64.0,
-                               **{**FAMILIES.get(arch, {}), **changes})
+                               **{"capacity_factor": 64.0,
+                                  **FAMILIES.get(arch, {}), **changes})
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
@@ -1036,6 +1250,50 @@ def test_mesh_prefill_and_decode_match_one_device(pool, arch, shape):
     assert specs["k"][3] == "model"            # the heads are split
     for k, v in cache.items():
         assert np.abs(full[k] - v.numpy()).max() < 1e-4, k
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2), (8, 1)])
+def test_mesh_prefill_and_decode_drop_as_the_reference_groups(pool, shape):
+    """qwen3_moe at the configs' capacity factor 1.25: the forward,
+    prefill and 4 teacher-forced decode steps over a mesh equal one
+    device's run on each of the reference's token groups (the reference's
+    ``moe_block`` under a mesh runs each data shard as one group where the
+    experts split over ``model``, (2,4) and (4,2), else the whole batch,
+    (8,1)), within 1e-4; the prefill drops tokens (its logits move by >
+    1e-2 with room for every assignment)."""
+    arch, changes = "qwen3_moe_30b_a3b", {"capacity_factor": 1.25}
+    rcfg = dataclasses.replace(ref_reduced(ref_get_config(arch),
+                                           d_model=64), dtype="float32",
+                               param_dtype="float32")
+    tree = _ref_tree(rcfg)
+    cfg = _decode_cfg(arch, **changes)
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size_real, (8, 12))
+             .astype(np.int32)}
+    feed = rng.integers(0, cfg.vocab_size_real, (4, 8)).astype(np.int32)
+    params = convert.lm_params_from_jax(tree, cfg, "cpu")
+    groups = shape[0] if shape[1] > 1 else 1
+    want = [np.zeros((8, 12, cfg.vocab_size))] + [
+        np.zeros((8, cfg.vocab_size)) for _ in range(len(feed) + 1)]
+    for lo in range(0, 8, 8 // groups):
+        rows = slice(lo, lo + 8 // groups)
+        part = {"tokens": batch["tokens"][rows]}
+        bundle = build(cfg, device="cpu")
+        want[0][rows] = bundle.forward(params, part).numpy()
+        logits, cache = bundle.prefill(params, part, tp=shape[1],
+                                       max_len=16)
+        want[1][rows] = logits.numpy()
+        for i, tok in enumerate(feed):
+            logits, cache = bundle.decode_step(params, cache, tok[rows])
+            want[i + 2][rows] = logits.numpy()
+    roomy = build(_decode_cfg(arch), device="cpu")
+    assert np.abs(roomy.prefill(params, batch, tp=shape[1], max_len=16)[0]
+                  .numpy() - want[1]).max() > 1e-2
+    res = pool.run(_r_decode, tree, arch, shape, batch, feed, changes)
+    for r in res:
+        got = [r["forward"], *r["logits"]]
+        for w, g in zip(want, got):
+            assert np.abs(w[r["rows"]] - g).max() < 1e-4
 
 
 def test_one_rank_mesh_step_equals_the_plain_step():
