@@ -294,7 +294,8 @@ printed then:
 
 14. The mesh paths over two ranks sharing the card (``mesh_path``,
     ``[mesh]`` lines), its counts set to 0 just before and read just
-    after: no kernel launches (the LM stack reaches none).  Two processes
+    after: (a)-(g) launch no kernel (the LM stack reaches none); (h)
+    launches the signing and query kernels on each rank.  Two processes
     (``launch.ranks.RankPool``, the spawn context) join one gloo process
     group on ``cuda:0`` (NCCL takes one rank a card); the script is their
     subreaper and closes the pool in a ``finally``.  TF32 off throughout.
@@ -339,7 +340,25 @@ printed then:
     ``seamless_m4t_medium`` (a ``tp`` step; 64 encoder frames a row) at
     their published widths, 1 layer (seamless: 1 a side; cut from 2 to
     keep the phase in its time), each with prefill and 4 decode steps on
-    ``(1, 2)``, held as in (f) (gradients to 1e-5).
+    ``(1, 2)``, held as in (f) (gradients to 1e-5).  (h) The entry
+    points over a mesh, each call collective (both ranks pass the same
+    host batch and get the whole answer back), against one device of the
+    card: on ``(2, 1)``, ``SketchEngine(cfg, mesh)`` signs the main sparse
+    batch (4096 x 254 at ``SearchConfig``'s D and K, b = 32 words), 4096 x
+    2^16 int8 dense rows (b = 32, the bit-packed kernel) and 4096 x 2048
+    int8 rows (raw, the int8 kernel), each rank its half of the rows and
+    one all-gather of the words a call: every rank's words equal one
+    device's, and each rank's ``kernel.sparse.cuda`` and
+    ``kernel.dense.*.cuda`` counters are above 0;
+    ``SimilaritySearchService(cfg, mesh)`` ingests the first 65,536
+    documents of the main corpus and answers the 1,088-row query batch
+    with one device's ids and scores (each rank launches kernels 2-4);
+    ``dedup_corpus(docs, cfg, mesh)`` of its first 32,768 documents keeps
+    one device's ``keep``.  On ``(1, 2)``, ``generate(..., mesh=)`` of
+    llama3_2_1b at full width, float32, 8 x 32 prompts from ``--seed``, 8
+    greedy tokens: every row whose one-device top-2 logit gap exceeds
+    1e-3 at every step has one device's tokens on each rank (the rows
+    under the gap are counted and printed).  Prints the part's seconds.
 
 ``launches`` in the kernels line is the sum over the fifteen counted paths
 (phase 2's service and store paths, phase 5b's raw and snapshot paths,
@@ -386,6 +405,7 @@ against its first, index form at phase 11's shape, in turns
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import dataclasses
 import itertools
@@ -3329,6 +3349,14 @@ MESH_FAMILY_LAYERS = 1        # (g): published widths, depth cut (encdec:
 MESH_FAMILY_DECODE = 4        # each side) to keep phase 14 in its time
 MESH_FRAMES = 64              # (g): seamless's encoder frames a row
 MESH_PATCHES = 16             # (g): pixtral's patch prefix a row
+MESH_SERVE_DOCS = 65_536      # (h): documents the mesh service ingests
+MESH_DEDUP_DOCS = 32_768      # (h): documents the mesh dedup reads
+MESH_GEN_NEW = 8              # (h): greedy tokens of the mesh generate
+MESH_GEN_GAP = 1e-3           # (h): rows held token for token: the one
+                              # device's top-2 logit gap above this at
+                              # every step
+MESH_ENTRY_KERNELS = ("cminhash_sparse", "cminhash_dense", "cminhash_packed",
+                      "fold", "lsh_probe", "collision")
 
 
 def _no_tf32() -> None:
@@ -3539,6 +3567,113 @@ def _mesh_rank_serve(cfg, shape, batch, feed, seed, want_path):
     return out
 
 
+def _entry_int8_rows(seed: int) -> np.ndarray:
+    """(h): BATCH x PAPER_D int8 0/1 rows from ``seed``, below
+    ``PACKED_MIN_D``, for the int8 dense kernel."""
+    return (np.random.default_rng(seed).random((BATCH, PAPER_D)) < 0.05
+            ).astype(np.int8)
+
+
+def _entry_sign(engines: dict, idx, int8_rows) -> dict:
+    """(h): the main sparse batch and BATCH dense rows of D = 2^16, packed
+    at b = 32, and the int8 rows' raw signatures, on the host."""
+    from repro_torch.device import u32_to_host
+    return {"sparse": u32_to_host(engines["wide"].sign(
+                idx[:BATCH], layout="sparse", pack_b=32)),
+            "dense": u32_to_host(engines["wide"].sign(
+                dense_rows(idx[:BATCH]), layout="dense", pack_b=32)),
+            "int8": engines["narrow"].sign(int8_rows, layout="dense")
+            .cpu().numpy()}
+
+
+def _entry_engines(mesh) -> dict:
+    """(h): the service's engine (``SearchConfig``'s D and K) and one at
+    D = PAPER_D, on the card, over ``mesh`` or on one device."""
+    from repro_torch.core.engine import SketchConfig, SketchEngine
+    from repro_torch.serve.search import SearchConfig
+    scfg = SearchConfig()
+    return {"wide": SketchEngine(SketchConfig(d=scfg.d, k=scfg.k), mesh,
+                                 device="cuda"),
+            "narrow": SketchEngine(SketchConfig(d=PAPER_D, k=scfg.k), mesh,
+                                   device="cuda")}
+
+
+def _entry_serve(mesh, idx, qidx) -> tuple:
+    """(h): the in-process service over ``mesh`` (or one device) ingesting
+    ``idx`` in batches of BATCH, then ``qidx`` queried once."""
+    from repro_torch.serve.search import SearchConfig, SimilaritySearchService
+    svc = SimilaritySearchService(SearchConfig(device="cuda"), mesh)
+    ingest(svc, idx, BATCH)
+    ids, scores = svc.query_sparse(qidx, top_k=TOP_K)
+    svc.close()
+    return ids, scores
+
+
+def _mesh_rank_entry(shape, idx, qidx, docs, int8_rows):
+    """Phase 14 (h) on a rank of ``shape``: signing, the in-process service
+    and ``dedup_corpus`` over the mesh, each a collective call with the
+    parent's inputs (host tensors in shared memory: ``docs`` one row a
+    document); the answers, the registry's ``kernel.*`` counters, the
+    collectives and the seconds of each."""
+    from repro_torch.data.dedup import DedupConfig, dedup_corpus
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs import metrics as obs_metrics
+    t_rank = time.perf_counter()
+    idx, int8_rows = idx.numpy(), int8_rows.numpy()
+    docs = list(docs.numpy())
+    mesh = make_host_mesh(*shape, device="cuda")
+    reg = obs_metrics.default()
+    k0 = {k: v for k, v in reg.snapshot()["counters"].items()
+          if k.startswith("kernel.")}
+    before = col.counters()
+    secs: dict = {}
+    engines = _entry_engines(mesh)
+    secs["setup"] = time.perf_counter() - t_rank
+    t0 = time.perf_counter()
+    out = _entry_sign(engines, idx, int8_rows)
+    secs["sign"] = time.perf_counter() - t0
+    sign_counts = _rank_counts(before)
+    t0 = time.perf_counter()
+    out["ids"], out["scores"] = _entry_serve(mesh, idx, qidx)
+    secs["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["keep"] = dedup_corpus(docs, DedupConfig(), mesh,
+                               device="cuda").keep
+    secs["dedup"] = time.perf_counter() - t0
+    secs["rank"] = time.perf_counter() - t_rank
+    out.update(secs=secs, sign_counts=sign_counts,
+               counts=_rank_counts(before),
+               kernel_counters={k: v - k0.get(k, 0) for k, v in
+                                reg.snapshot()["counters"].items()
+                                if k.startswith("kernel.")
+                                and v - k0.get(k, 0)})
+    return out
+
+
+def _mesh_rank_generate(cfg, shape, prompts, seed, n_new):
+    """Phase 14 (h) on a rank of ``shape``: greedy ``generate`` over the
+    mesh from the rank's slices of ``seed``'s weights."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.serve.decode import generate
+    _no_tf32()
+    bundle = build(cfg, device="cuda")
+    mesh = make_host_mesh(*shape, device="cuda")
+    full = bundle.init(seed)
+    local = shard_tree(full, param_shardings(full, mesh))
+    del full
+    torch.cuda.empty_cache()
+    before = col.counters()
+    t0 = time.perf_counter()
+    toks = generate(bundle, local, {"tokens": prompts},
+                    max_new_tokens=n_new, mesh=mesh)
+    return {"tokens": toks, "seconds": time.perf_counter() - t0,
+            "counts": _rank_counts(before)}
+
+
 def _mesh_rank_save(cfg, tc, shape, batch, seed, d):
     """Phase 14 (d): a ZeRO-1 step on ``shape``, then a sharded save."""
     from repro_torch.launch.mesh import make_host_mesh
@@ -3673,7 +3808,21 @@ def _counts_line(counts: dict) -> str:
                      f"{counts.get(f'mesh.{k}.bytes', 0)} B" for k in kinds)
 
 
-def mesh_path(seed: int, report: dict) -> None:
+def entry_inputs(entry: dict | None) -> dict:
+    """Phase 14 (h)'s inputs: the main path's index lists ``idx`` (at least
+    MESH_SERVE_DOCS rows), its query batch ``qidx`` and the first
+    MESH_DEDUP_DOCS of its documents; made anew from ``documents`` where
+    the caller has none."""
+    if entry is None:
+        docs, _ = documents(MESH_SERVE_DOCS)
+        idx, fresh_idx = corpus(MESH_SERVE_DOCS, docs)
+        entry = {"idx": idx, "docs": docs,
+                 "qidx": np.concatenate([idx[:N_QUERY_INDEXED], fresh_idx])}
+    return {"idx": entry["idx"][:MESH_SERVE_DOCS], "qidx": entry["qidx"],
+            "docs": entry["docs"][:MESH_DEDUP_DOCS]}
+
+
+def mesh_path(seed: int, report: dict, entry: dict | None = None) -> None:
     """Phase 14: the mesh paths over two ranks sharing the card (gloo).
     (a) llama3_2_1b at full width, float32, TF32 off: one step on one
     device, then the same step tensor parallel on (1, 2); (b) qwen3_moe at
@@ -3689,11 +3838,15 @@ def mesh_path(seed: int, report: dict) -> None:
     with the replicated attention cache; (g) falcon_mamba_7b,
     pixtral_12b and seamless_m4t_medium at published widths, 1 layer:
     steps (not pixtral's: 30 GB of state) and prefill + decode on (1, 2).
+    (h) the entry points over the mesh (``_mesh_entry``): signing, the
+    service and dedup on (2, 1), ``generate`` on (1, 2), each against one
+    device, from ``entry``'s inputs (``entry_inputs``).
     In (a), (c), (f) and (g) each rank's gradients are held against one
     device's, and its parameters after the step; the grad norm must be
-    the same on every rank.  Reaches no
-    kernel of the port: the parent's counts and each rank's, each set to 0
-    just before its part, summed."""
+    the same on every rank.  (a)-(g) reach no kernel of the port; (h)
+    launches the signing and query kernels on each rank.  The parent's
+    counts (to the end of (g)) and each rank's, each set to 0 just before
+    its part, summed."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import token_batches
@@ -3870,17 +4023,27 @@ def mesh_path(seed: int, report: dict) -> None:
         part("f")
         out["families"] = _mesh_families(run, tmp, tc, seed)
         part("g")
+        # (a)-(g) reach no kernel; the parent's counts stop here, so that
+        # (h)'s one-device references do not count as the mesh's launches
+        parent = read_counts(ks_all)
+        quiet = {n: parent[n] + sum(r[n] for r in rank_launches)
+                 for n in ks_all}
+        require(sum(quiet.values()) == 0, "(a)-(g) launch no kernel of the "
+                f"port, the parent's and both ranks' counts summed "
+                f"({quiet})")
+        # (h) signing, the service, dedup and generate over the mesh
+        out["entry"] = _mesh_entry(run, seed, entry_inputs(entry))
+        part("h")
         # ---------------------------------------------------------------------
     finally:
         if pool is not None:
             pool.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    parent = read_counts(ks_all)
     launches = {n: parent[n] + sum(r[n] for r in rank_launches)
                 for n in ks_all}
-    require(sum(launches.values()) == 0, "the mesh paths launch no kernel "
-            f"of the port, the parent's and both ranks' counts summed "
-            f"({launches})")
+    require(all(launches[n] > 0 for n in MESH_ENTRY_KERNELS),
+            f"(h) launches every kernel of the signing and query paths on "
+            f"the ranks ({launches})")
     out.update(launches=launches, launches_parent=parent,
                launches_ranks=rank_launches, parts_s=parts,
                wall_s=time.perf_counter() - t_phase)
@@ -4064,6 +4227,131 @@ def _mesh_families(run, tmp: str, tc, seed: int) -> dict:
                    seconds=time.perf_counter() - t0)
         out[arch] = fam
     return out
+
+
+def _one_device_generate(cfg, prompts, seed, n_new) -> dict:
+    """Phase 14 (h): greedy decoding of ``prompts`` on one device of the
+    card from ``seed``'s weights, as ``generate`` decodes them, with each
+    row's smallest top-2 logit gap over the steps; frees the card."""
+    from repro_torch.models import build
+    from repro_torch.serve.decode import sample_token
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(seed)
+    toks, gaps = [], []
+    with torch.no_grad():
+        logits, cache = bundle.prefill(
+            params, {"tokens": prompts}, max_len=prompts.shape[1] + n_new)
+        for step in range(n_new):
+            top2 = logits.float().topk(2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            toks.append(sample_token(logits, None, 0.0))
+            if step < n_new - 1:
+                logits, cache = bundle.decode_step(params, cache, toks[-1])
+    out = {"tokens": torch.stack(toks, 1).cpu().numpy(),
+           "gap": torch.stack(gaps, 1).min(1).values.cpu().numpy()}
+    del bundle, params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_entry(run, seed: int, entry: dict) -> dict:
+    """Phase 14 (h): the entry points over a mesh, against one device on
+    the card.  On (2, 1): signing of the main sparse batch, BATCH dense
+    rows of D = 2^16 and BATCH int8 rows of D = PAPER_D; the in-process
+    service over MESH_SERVE_DOCS documents and the query batch;
+    ``dedup_corpus`` of MESH_DEDUP_DOCS documents.  On (1, 2): greedy
+    ``generate`` of llama3_2_1b at full width, float32.  ``run`` calls a
+    function on both ranks (their kernel counts kept); each rank's kernel
+    counts of the part are returned as ``launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.dedup import DedupConfig, dedup_corpus
+    idx, qidx, docs = entry["idx"], entry["qidx"], entry["docs"]
+    int8_rows = _entry_int8_rows(seed + 12)
+
+    def one_device() -> tuple[dict, float]:
+        t0 = time.perf_counter()
+        want = _entry_sign(_entry_engines(None), idx, int8_rows)
+        want["ids"], want["scores"] = _entry_serve(None, idx, qidx)
+        want["keep"] = dedup_corpus(docs, DedupConfig(), device="cuda").keep
+        return want, time.perf_counter() - t0
+
+    # the one device's answers are computed in a thread while the ranks
+    # compute theirs: the two share the card and the host's cores
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(one_device)
+        ranks = run(_mesh_rank_entry, (2, 1), torch.from_numpy(idx), qidx,
+                    torch.from_numpy(np.stack(docs)),
+                    torch.from_numpy(int8_rows))
+        want, one_s = fut.result()
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for i, r in enumerate(ranks):
+        for key in ("sparse", "dense", "int8", "ids", "scores", "keep"):
+            require(np.array_equal(r[key], want[key]),
+                    f"(h) rank {i}'s {key} equal one device's")
+        kc = r["kernel_counters"]
+        require(kc.get("kernel.sparse.cuda", 0) > 0
+                and kc.get("kernel.dense.int8.cuda", 0) > 0
+                and kc.get("kernel.dense.packed.cuda", 0) > 0,
+                f"(h) rank {i} signs through the kernels on the card ({kc})")
+        require(all(r["launches"][n] > 0 for n in MESH_ENTRY_KERNELS),
+                f"(h) rank {i} launches every kernel of its path "
+                f"({r['launches']})")
+        require(r["sign_counts"] == {
+            "mesh.all_gather.calls": 3,
+            "mesh.all_gather.bytes": sum(want[k].nbytes for k in
+                                         ("sparse", "dense", "int8")) // 2},
+            f"(h) one all-gather of the rank's words a signing call "
+            f"({r['sign_counts']})")
+    print(f"[mesh] (h) signing over (2, 1): the main sparse batch "
+          f"{idx[:BATCH].shape} and {BATCH} x {1 << 16} int8 dense rows "
+          f"(b = 32 words), {BATCH} x {PAPER_D} int8 rows (raw): each "
+          f"rank's words equal one device's; the service over "
+          f"{len(idx)} documents, {len(qidx)} queries: "
+          f"ids and scores equal; dedup of {len(docs)} documents: keep "
+          f"({len(want['keep'])}) equal; rank 0 "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in ranks[0]["secs"].items())
+          + f" (one device {one_s:.1f} s in all, beside the ranks' "
+          f"{ranks_s:.1f} s); rank 0's launches "
+          f"{ranks[0]['launches']}; registry "
+          f"{ranks[0]['kernel_counters']}; "
+          + _counts_line(ranks[0]["counts"]))
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    prompts = np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab_size_real, (TRAIN_BATCH, MESH_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    one = _one_device_generate(cfg, prompts, seed, MESH_GEN_NEW)
+    gen = run(_mesh_rank_generate, cfg, (1, 2), prompts, seed, MESH_GEN_NEW)
+    gen_s = time.perf_counter() - t0
+    held = one["gap"] > MESH_GEN_GAP
+    for i, r in enumerate(gen):
+        require(r["tokens"].shape == one["tokens"].shape
+                and np.array_equal(r["tokens"][held], one["tokens"][held]),
+                f"(h) rank {i}'s generated tokens equal one device's on "
+                f"the {int(held.sum())} rows whose top-2 gap exceeds "
+                f"{MESH_GEN_GAP}")
+        require("mesh.all_gather.calls" in r["counts"],
+                "(h) generate gathers the vocab-split logits")
+    same = [int((r["tokens"] == one["tokens"]).all(1).sum()) for r in gen]
+    print(f"[mesh] (h) generate {TRAIN_ARCH} at full width, float32, "
+          f"{TRAIN_BATCH} x {MESH_PROMPT} prompts, {MESH_GEN_NEW} greedy "
+          f"tokens on (1, 2): {int(held.sum())} of {TRAIN_BATCH} rows with "
+          f"every step's one-device top-2 gap above {MESH_GEN_GAP} (smallest "
+          f"gap {float(one['gap'].min()):.3e}; {int((~held).sum())} rows "
+          f"under it), held token for token; rows equal to one device's "
+          f"on each rank: {same}; generate {gen[0]['seconds']:.2f} s on "
+          f"rank 0 (host wall); " + _counts_line(gen[0]["counts"]))
+    keep = ("secs", "sign_counts", "counts", "kernel_counters", "launches")
+    return {"ranks": [{k: r[k] for k in keep} for r in ranks],
+            "generate": [{k: g[k] for k in ("seconds", "counts", "launches")}
+                         for g in gen],
+            "rows_equal": same, "one_device_s": one_s,
+            "ranks_s": ranks_s, "generate_s": gen_s,
+            "held_rows": int(held.sum()), "min_gap": float(one["gap"].min()),
+            "launches": [{n: r["launches"][n] + g["launches"][n]
+                          for n in r["launches"]}
+                         for r, g in zip(ranks, gen)]}
 
 
 def _release_shared() -> None:
@@ -5024,6 +5312,7 @@ def main() -> None:
           f"{len(fresh_idx)} fresh in {report['corpus_s']:.1f} s")
 
     svc, qidx = main_path(idx, fresh_idx, report)
+    mesh_entry = entry_inputs({"idx": idx, "qidx": qidx, "docs": docs})
     report["kernels"] = kernel_checks(svc, idx, qidx, report)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace_query(svc, qidx, report)
@@ -5068,7 +5357,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_path(args.seed, report)
     torch.cuda.empty_cache()
-    mesh_path(args.seed, report)
+    mesh_path(args.seed, report, mesh_entry)
+    del mesh_entry
     torch.cuda.empty_cache()
     tune_path(report)
 

@@ -14,6 +14,12 @@ Stages, in the reference's order:
        -> union-find clusters (host) -> keep one representative per cluster.
 
 Each stage's seconds go to the registry's ``dedup.<stage>`` histogram.
+
+Over a mesh the signing stage signs each rank's block of the documents
+and all-gathers the words (``SketchEngine`` with ``mesh``), so the call is
+collective: every rank passes the same documents and gets the whole
+result back.  Every stage after signing runs on each rank as it does on
+one device.
 """
 
 from __future__ import annotations
@@ -72,13 +78,15 @@ def verify_pairs(sigs: torch.Tensor, pairs: np.ndarray,
     return torch.cat(ok).cpu().numpy()
 
 
-def dedup_corpus(docs: list[np.ndarray], cfg: DedupConfig, *,
+def dedup_corpus(docs: list[np.ndarray], cfg: DedupConfig, mesh=None, *,
                  device: str | torch.device = DEFAULT_DEVICE,
                  params: tuple[torch.Tensor, torch.Tensor] | None = None
                  ) -> DedupResult:
-    """Dedup ``docs`` on ``device``.  ``params=(sigma, pi)`` signs with
-    given permutations (``convert.permutations_from_jax`` for the
-    reference's); otherwise they are drawn from ``cfg.seed``."""
+    """Dedup ``docs`` on ``device``, signing over ``mesh`` where given (a
+    collective call; a corpus the batch axes do not divide raises
+    ``ValueError``).  ``params=(sigma, pi)`` signs with given permutations
+    (``convert.permutations_from_jax`` for the reference's); otherwise
+    they are drawn from ``cfg.seed``."""
     if cfg.n_bands * cfg.rows_per_band != cfg.k:
         raise ValueError("n_bands * rows_per_band must equal k")
     reg = obs_metrics.default()
@@ -93,7 +101,7 @@ def dedup_corpus(docs: list[np.ndarray], cfg: DedupConfig, *,
     idx = batch_shingles(docs, n=cfg.shingle_n, d=cfg.d)
     stage("shingle")
     engine = SketchEngine(SketchConfig(d=cfg.d, k=cfg.k, seed=cfg.seed),
-                          device=device, params=params)
+                          mesh, device=device, params=params)
     sigs_dev = engine.signatures_sparse(idx)
     if sigs_dev.is_cuda:            # the copy below would wait here anyway
         torch.cuda.synchronize(sigs_dev.device)

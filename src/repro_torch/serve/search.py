@@ -36,6 +36,14 @@ digest against a live peer and brings it back.  ``stream()`` opens the
 streaming front end (``serve.stream``): single queries in, coalesced
 batches through the same query path.
 
+``mesh`` reaches only the engine, as in the reference: signing splits each
+batch's rows over the mesh's batch axes and all-gathers the words
+(``SketchEngine``), so ingest and query calls are collective (every rank
+calls them with the same batch).  Every rank builds the same plane and
+indexes the same words, so every rank answers as one device does.  A
+stream's batches depend on each rank's timing, so it signs them on the
+rank alone (``SketchEngine.local``: the same words, no collective).
+
 Ported: the in-process, tcp and replicated planes and the streaming front
 end, for sparse index lists and dense (B, D) rows.
 """
@@ -87,14 +95,15 @@ class SearchConfig:
 
 
 class SimilaritySearchService:
-    def __init__(self, cfg: SearchConfig, *,
+    def __init__(self, cfg: SearchConfig, mesh=None, *,
                  params: tuple[torch.Tensor, torch.Tensor] | None = None,
                  store: ShardedSketchStore | None = None,
                  workers=None):
-        """``params=(sigma, pi)`` signs with given permutations (e.g. the
-        reference's, via ``convert.permutations_from_jax``); ``store``
-        serves a pre-built plane (e.g. ``ShardedSketchStore.load`` of a
-        snapshot, or ``connect_sharded`` over spawned workers, whose
+        """``mesh`` signs over a mesh (collective calls; see the module
+        docstring); ``params=(sigma, pi)`` signs with given permutations
+        (e.g. the reference's, via ``convert.permutations_from_jax``);
+        ``store`` serves a pre-built plane (e.g. ``ShardedSketchStore.load``
+        of a snapshot, or ``connect_sharded`` over spawned workers, whose
         handles ``workers`` hands over for ``close()``) instead of
         building one per ``cfg.transport``."""
         if cfg.n_bands * cfg.rows_per_band != cfg.k:
@@ -104,7 +113,7 @@ class SimilaritySearchService:
                              f"(got {cfg.transport!r})")
         self.cfg = cfg
         self.engine = SketchEngine(SketchConfig(d=cfg.d, k=cfg.k,
-                                                seed=cfg.seed),
+                                                seed=cfg.seed), mesh,
                                    device=cfg.device, params=params)
         store_cfg = StoreConfig(k=cfg.k, n_bands=cfg.n_bands,
                                 rows_per_band=cfg.rows_per_band, b=cfg.b,
@@ -202,11 +211,14 @@ class SimilaritySearchService:
         boundaries fall on word boundaries; always true at b = 32)."""
         return self.cfg.rows_per_band % (32 // self.cfg.b) == 0
 
-    def _sign(self, data, layout: str) -> torch.Tensor:
+    def _sign(self, data, layout: str, *, local: bool = False
+              ) -> torch.Tensor:
         """Launch signing for one batch (asynchronous): packed words on the
-        device on the fused path, raw signatures otherwise."""
+        device on the fused path, raw signatures otherwise.  ``local``
+        signs on this rank alone, with no collective over a mesh."""
         pack_b = self.cfg.b if self.packed_ingest else None
-        return self.engine.sign(data, layout=layout, pack_b=pack_b)
+        engine = self.engine.local if local else self.engine
+        return engine.sign(data, layout=layout, pack_b=pack_b)
 
     def _scatter(self, signed: np.ndarray) -> None:
         """Index one signed batch, as the host copy holds it (uint32 bits

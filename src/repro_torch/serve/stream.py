@@ -29,6 +29,11 @@ row, as the reference does (there, to bound JAX's recompiles; here, for
 the same knob and the same batches); rows are independent, so the padding
 never changes an answer.
 
+Over a mesh service, a coalesced batch's shape depends on each rank's
+timing, so a collective issued inside the coalescer could wait forever:
+the stream signs on the rank alone (``SketchEngine.local``, the same pi and
+sigma), row for row the same words, and issues no collective.
+
 Overload: ``max_queue`` bounds the admission queue, and a full queue sheds
 the NEWEST arrival (its ticket comes back already rejected with
 :class:`~repro_torch.transport.client.Overloaded` carrying a retry-after
@@ -45,6 +50,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import threading
 import time
 
@@ -159,6 +165,11 @@ class StreamingQueryService:
     def __init__(self, service, cfg: StreamConfig | None = None):
         self.service = service
         self.cfg = cfg or StreamConfig()
+        # over a mesh the ranks coalesce different batches: sign on the
+        # rank alone, with no collective
+        engine = getattr(service, "engine", None)
+        self._sign = service._sign if getattr(engine, "mesh", None) is None \
+            else functools.partial(service._sign, local=True)
         self._q: collections.deque[QueryTicket] = collections.deque()
         self._cond = threading.Condition()
         self._closed = False
@@ -309,7 +320,7 @@ class StreamingQueryService:
                 [rows, np.broadcast_to(rows[:1],
                                        (n_pad,) + rows.shape[1:])])
         try:
-            signed = self.service._sign(rows, tickets[0].layout)  # launched
+            signed = self._sign(rows, tickets[0].layout)  # launched
         except Exception as e:
             for t in tickets:
                 t._reject(e)

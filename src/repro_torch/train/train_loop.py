@@ -211,13 +211,15 @@ def rank_rows(tc, mesh) -> Callable:
     return lambda batch: place({k: major(v) for k, v in batch.items()})
 
 
-def jit_train_step(bundle, tc, mesh) -> Callable:
+def jit_train_step(bundle, tc, mesh, params_shape=None,
+                   batch_shape=None) -> Callable:
     """The mesh step with its layouts fixed: (the rank's params, the rank's
     ``OptState``, a host batch) -> (params, opt_state, metrics); the rank's
     rows are cut from the host batch by ``rank_rows``.  The layouts
-    follow from ``bundle.cfg``, ``tc`` and the mesh, so the reference's
-    ``params_shape`` and ``batch_shape`` (which its ``jax.jit`` needs) are
-    not taken."""
+    follow from ``bundle.cfg``, ``tc`` and the mesh: ``params_shape`` and
+    ``batch_shape``, which the reference's ``jax.jit`` needs for its
+    shardings, are taken so that the reference's five-argument call runs,
+    and are ignored."""
     step = make_train_step(bundle, tc, mesh)
     place = rank_rows(tc, mesh)
     return lambda params, opt_state, batch: step(params, opt_state,
