@@ -33,6 +33,7 @@ from ..distributed import collectives as col
 from ..distributed import sharding
 from ..kernels import dispatch
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .permutations import make_two_permutations
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,7 @@ class SketchEngine:
         self._c_dense = reg.counter("engine.sign.dense")
         self._c_sparse = reg.counter("engine.sign.sparse")
         self._c_rows = reg.counter("engine.sign.rows")
+        self._tracer = obs_trace.default()
 
     @functools.cached_property
     def local(self) -> "SketchEngine":
@@ -91,15 +93,21 @@ class SketchEngine:
 
     def _on_device(self, data) -> torch.Tensor:
         """The rows this rank signs (all of them without a mesh), on the
-        device."""
+        device.  Under a traced span the copy is its ``.upload`` leg (tagged
+        with its bytes): ``query.sign.upload`` where a query signs."""
         if self.mesh is not None:
             rows = sharding.local_slices(
                 (sharding.batch_axes(self.mesh),), (len(data),),
                 self.mesh)[0]
             data = data[rows]
-        if isinstance(data, torch.Tensor):
-            return data.to(self.device)
-        return torch.tensor(np.asarray(data), device=self.device)
+        with self._tracer.child(".upload") as span:
+            if isinstance(data, torch.Tensor):
+                out = data.to(self.device)
+            else:
+                out = torch.tensor(np.asarray(data), device=self.device)
+            if span.sampled:
+                span.tag("bytes", out.nbytes)
+        return out
 
     def _gathered(self, out: torch.Tensor) -> torch.Tensor:
         """The ranks' rows of ``out`` in batch order (a mesh), or ``out``."""

@@ -35,6 +35,7 @@ import torch
 from ..core.permutations import apply_permutation_dense, \
     apply_permutation_sparse
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import autotune
 from . import lsh_probe as _lsh_probe
 from . import query_fused as _query_fused
@@ -161,33 +162,49 @@ def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
       hashes (once a batch, ``BandHashes.host``); without ``hashes`` the
       fold kernel runs once more for it.
 
+    Under a traced query each leg is a span of the process's tracer:
+    ``query.probe`` (the launch), ``query.spill`` (tagged ``hits``, the
+    spilled ids returned) with ``query.spill.copy_out`` (the hashes' copy
+    to the host, which waits for the card), ``query.score`` (the scorer's
+    launches) and ``query.copy_out`` (the three copies to the host, which
+    wait for the scorer).
+
     Returns ids (Q, top_k) int64 (-1 pad), scores (Q, top_k) float32
     (-inf pad), has_candidates (Q,) bool."""
     obs_metrics.default().counter(
         f"kernel.query_fused.{_impl(records_dev)}").inc()
+    tracer = obs_trace.default()
     dev = records_dev.device
     qwords = qwords.to(dev).contiguous()
     q = qwords.shape[0]
     w = records_dev.shape[1] - 2
-    if hashes is None:
-        rows = _query_fused.words_to_rows(qwords, n_bands)
-        cand = _query_fused.fold_probe_kernel(records_dev, rows,
-                                              n_slots=n_slots,
-                                              max_probes=max_probes)
-    else:
-        cand = _lsh_probe.lsh_probe_hashes_kernel(records_dev, hashes.dev,
+    with tracer.child("query.probe"):
+        if hashes is None:
+            rows = _query_fused.words_to_rows(qwords, n_bands)
+            cand = _query_fused.fold_probe_kernel(records_dev, rows,
                                                   n_slots=n_slots,
                                                   max_probes=max_probes)
-    cand = cand.reshape(q, n_bands * w)
+        else:
+            cand = _lsh_probe.lsh_probe_hashes_kernel(
+                records_dev, hashes.dev, n_slots=n_slots,
+                max_probes=max_probes)
+        cand = cand.reshape(q, n_bands * w)
     if spill_lookup is not None:
-        if hashes is None:
-            hashes = _query_fused.BandHashes(fold_hashes(qwords,
-                                                         n_bands=n_bands))
-        spill = np.asarray(spill_lookup(hashes.host()))
-        if spill.size:
-            cand = torch.cat([cand, torch.tensor(spill.astype(np.int32),
-                                                 device=dev)], dim=1)
-    ids, scores, has = _query_fused.score_topk(cand, words_dev, qwords,
-                                               k=k, b=b, top_k=top_k)
-    return (ids.cpu().numpy().astype(np.int64), scores.cpu().numpy(),
-            has.cpu().numpy())
+        with tracer.child("query.spill") as span:
+            if hashes is None:
+                hashes = _query_fused.BandHashes(fold_hashes(
+                    qwords, n_bands=n_bands))
+            with tracer.child(".copy_out"):
+                host = hashes.host()
+            spill = np.asarray(spill_lookup(host))
+            if span.sampled:
+                span.tag("hits", int((spill >= 0).sum()))
+            if spill.size:
+                cand = torch.cat([cand, torch.tensor(spill.astype(np.int32),
+                                                     device=dev)], dim=1)
+    with tracer.child("query.score"):
+        ids, scores, has = _query_fused.score_topk(cand, words_dev, qwords,
+                                                   k=k, b=b, top_k=top_k)
+    with tracer.child("query.copy_out"):
+        return (ids.cpu().numpy().astype(np.int64), scores.cpu().numpy(),
+                has.cpu().numpy())

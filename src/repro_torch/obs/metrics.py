@@ -111,9 +111,9 @@ class Gauge:
 class Histogram:
     """Fixed-log-bucket latency/value histogram with exact merge.
 
-    ``last`` is a live-object convenience (the most recent observation —
-    what ``ShardedSketchStore.last_timings`` renders); it is NOT part of
-    snapshots, which carry only the exactly-mergeable state.
+    ``last`` is a live-object convenience (the most recent observation:
+    a query leg's last seconds); it is NOT part of snapshots, which carry
+    only the exactly-mergeable state.
     """
 
     def __init__(self, name: str):

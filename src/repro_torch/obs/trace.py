@@ -7,7 +7,11 @@ A trace is a 63-bit id shared by every span of one logical operation (one
 query batch, one ingest scatter).  Spans carry (trace_id, span_id,
 parent_id, proc, start, duration, tags) and are recorded into a bounded
 ring on the process-local ``Tracer``; finished spans are plain dicts, so
-they serialize to JSON and travel the wire unchanged.
+they serialize to JSON and travel the wire unchanged.  The ring keeps each
+as a flat tuple, which the garbage collector stops tracking: a traced run
+keeps every span, and tracked records would grow the collector's oldest
+generation by one object a span and bring its full collections, each a
+stall of the host, the sooner the more spans a request opens.
 
 Sampling happens once, at the root: ``Tracer.span(name)`` with no ambient
 parent rolls ``sample_rate``; an unsampled root returns the shared no-op
@@ -21,6 +25,14 @@ fields on the request frame, the worker opens its spans under that parent,
 and the reply carries the worker's finished spans back as a JSON field;
 ``Tracer.absorb`` folds them into the coordinator's ring, so ``for_trace``
 returns one stitched trace.
+
+``Tracer.child(name)`` opens a span only under an open one: a leg that is
+never a trace of its own (an upload, a copy to the host) records nothing
+when it runs outside a traced operation, and ``child(".leg")`` takes its
+name from the span it runs under.  While a ``torch.profiler``
+session records the process, a sampled span also opens a
+``record_function`` range of its name, so the profiler's chrome trace
+holds every span as a ``user_annotation`` on the device trace's clock.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from __future__ import annotations
 import collections
 import json
 import random
+import sys
 import threading
 import time
 from typing import NamedTuple
@@ -44,12 +57,38 @@ def _new_id() -> int:
     return random.getrandbits(63) or 1
 
 
+_KEYS = ("name", "trace", "span", "parent", "proc", "t0", "dur_s")
+
+
+def _packed(span: dict) -> tuple:
+    """A span dict as the ring keeps it: its fields, then its tags' keys
+    and values in turn (no nested tuple, which one collection might leave
+    tracked)."""
+    return tuple(span[k] for k in _KEYS) + tuple(
+        x for item in span["tags"].items() for x in item)
+
+
+def _unpacked(rec: tuple) -> dict:
+    n = len(_KEYS)
+    out = dict(zip(_KEYS, rec))
+    out["tags"] = dict(zip(rec[n::2], rec[n + 1::2]))
+    return out
+
+
+def _profiling() -> bool:
+    """True while a ``torch.profiler`` session records this process.  No
+    torch import here: a process that has not loaded torch profiles
+    nothing."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
 class Span:
     """One timed leg.  Use as a context manager; on exit it records itself
     into its tracer's finished ring."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "proc",
-                 "t_start", "_t0", "dur_s", "tags", "_tracer")
+                 "t_start", "_t0", "dur_s", "tags", "_tracer", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: int,
                  parent_id: int | None):
@@ -63,6 +102,7 @@ class Span:
         self.t_start = time.time()
         self._t0 = time.perf_counter()
         self.dur_s = 0.0
+        self._range = None
 
     sampled = True
 
@@ -81,10 +121,15 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._tracer._push(self)
+        if _profiling():
+            from torch.profiler import record_function
+            self._range = record_function(self.name).__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
         self.dur_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         self._tracer._pop(self)
 
 
@@ -148,7 +193,7 @@ class Tracer:
             except ValueError:
                 pass
         with self._lock:
-            self.finished.append(span.to_dict())
+            self.finished.append(_packed(span.to_dict()))
 
     def current(self) -> TraceCtx | None:
         """The ambient trace context (what remote submits put on the wire)."""
@@ -169,11 +214,24 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, _new_id(), None)
 
+    def child(self, name: str):
+        """Open a span under the ambient one, or return the no-op span when
+        none is open: never a root.  A ``name`` that starts with ``.`` is a
+        leg of the ambient span: ``.upload`` under ``query.sign`` opens
+        ``query.sign.upload``."""
+        stack = self._stack()
+        if not stack:
+            return NULL_SPAN
+        ambient = stack[-1]
+        if name.startswith("."):
+            name = ambient.name + name
+        return Span(self, name, ambient.trace_id, ambient.span_id)
+
     # -- finished spans ------------------------------------------------------
     def absorb(self, spans) -> None:
         """Fold remote span dicts (a worker reply's echo) into the ring."""
         with self._lock:
-            self.finished.extend(spans)
+            self.finished.extend(map(_packed, spans))
 
     def absorb_json(self, blob: str | None) -> None:
         if blob:
@@ -184,19 +242,19 @@ class Tracer:
         with self._lock:
             out = list(self.finished)
             self.finished.clear()
-        return out
+        return [_unpacked(r) for r in out]
 
     def for_trace(self, trace_id: int) -> list[dict]:
         """All finished spans of one trace (non-destructive)."""
         with self._lock:
-            return [s for s in self.finished if s.get("trace") == trace_id]
+            return [_unpacked(r) for r in self.finished if r[1] == trace_id]
 
     def last_trace_id(self) -> int | None:
         with self._lock:
-            for s in reversed(self.finished):
-                if s.get("parent") is None:
-                    return s.get("trace")
-            return self.finished[-1].get("trace") if self.finished else None
+            for r in reversed(self.finished):
+                if r[3] is None:
+                    return r[1]
+            return self.finished[-1][1] if self.finished else None
 
 
 _default = Tracer()

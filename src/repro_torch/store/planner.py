@@ -22,6 +22,7 @@ import torch
 
 from ..device import as_device_words, u32_to_device
 from ..kernels import ops
+from ..obs import trace as obs_trace
 from .packed import PackedSignatureBuffer, pack_host
 
 NEG_INF = np.float32(-np.inf)
@@ -123,41 +124,63 @@ class QueryPlanner:
         there, with no host copy.  ``has_candidates`` is False throughout.
         Query rows are padded to the next power of two (repeating row 0),
         as in the reference, so the scoring shapes take few distinct
-        values; the pad rows' results are sliced off."""
+        values; the pad rows' results are sliced off.
+
+        Under a traced query its legs are spans of the process's tracer:
+        ``query.fallback.pad`` (tagged ``rows`` and ``padded``, the rows
+        kernel 4 scores), then ``_rank``'s ``query.fallback.count``,
+        ``.sort`` and ``.copy_out``."""
         q = qwords.shape[0]
         ids = np.full((q, top_k), -1, np.int64)
         scores = np.full((q, top_k), NEG_INF, np.float32)
         if self.buffer.size and q:
             union_ids = np.arange(self.buffer.size, dtype=np.int64)
             n_pad = (1 << (q - 1).bit_length()) - q
-            qp = as_device_words(qwords, self.buffer.device)
-            if n_pad:
-                qp = torch.cat([qp, qp[:1].expand(n_pad, -1)])
+            with obs_trace.default().child("query.fallback.pad") as span:
+                if span.sampled:
+                    span.tag("rows", q).tag("padded", q + n_pad)
+                qp = as_device_words(qwords, self.buffer.device)
+                if n_pad:
+                    qp = torch.cat([qp, qp[:1].expand(n_pad, -1)])
             ids_p, scores_p = self._rank(qp, union_ids,
                                          self.buffer.device_words(), None,
-                                         top_k)
+                                         top_k, legs="query.fallback")
             ids, scores = ids_p[:q], scores_p[:q]
         return TopKPartial(ids, scores, np.zeros(q, bool))
 
     def _rank(self, qwords, union_ids: np.ndarray,
               words_n: torch.Tensor, mask: np.ndarray | None,
-              top_k: int) -> tuple[np.ndarray, np.ndarray]:
+              top_k: int, *, legs: str | None = None,
+              ) -> tuple[np.ndarray, np.ndarray]:
         """Score (Q', U) on the device and select top-k per row from the
         masked columns (mask=None: all columns).  A stable sort on -count
         over ascending ``union_ids`` breaks ties by the smaller id, the
         reference's stable argsort on -score: score = count / k is
-        monotone in count.  Returns partial-layout rows."""
+        monotone in count.  Returns partial-layout rows.  ``legs`` names
+        the spans of the count, the sort and the copies to the host
+        (``<legs>.count``, ``.sort``, ``.copy_out``); None opens none."""
         cfg = self.buffer.cfg
         dev = words_n.device
         q = qwords.shape[0]
-        counts = ops.packed_collision_counts(
-            as_device_words(qwords, dev).contiguous(), words_n, cfg.k, cfg.b)
+        tracer = obs_trace.default()
+
+        def leg(name: str):
+            return obs_trace.NULL_SPAN if legs is None \
+                else tracer.child(f"{legs}.{name}")
+
+        with leg("count"):
+            counts = ops.packed_collision_counts(
+                as_device_words(qwords, dev).contiguous(), words_n, cfg.k,
+                cfg.b)
         if mask is not None:
             counts = torch.where(torch.tensor(mask, device=dev), counts, -1)
         kk = min(top_k, counts.shape[1])
-        order = torch.sort(-counts, dim=1, stable=True).indices[:, :kk]
-        top = torch.gather(counts, 1, order).cpu().numpy()
-        order = order.cpu().numpy()
+        with leg("sort"):
+            order = torch.sort(-counts, dim=1, stable=True).indices[:, :kk]
+            top = torch.gather(counts, 1, order)
+        with leg("copy_out"):
+            top = top.cpu().numpy()
+            order = order.cpu().numpy()
         hit = top >= 0
         ids = np.full((q, top_k), -1, np.int64)
         scores = np.full((q, top_k), NEG_INF, np.float32)

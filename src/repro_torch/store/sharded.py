@@ -244,7 +244,7 @@ class ShardedSketchStore:
         self._gid_buf = [np.zeros(8, np.int64) for _ in range(n_shards)]
         self._gid_len = [0] * n_shards
         self.n_items = 0
-        self.last_timings: dict[str, float] = {}
+        self.last_timings: dict[str, int] = {}
         self._failed: str | None = None
         reg = obs_metrics.default()
         self._h_fold = reg.histogram("query.fold")
@@ -392,13 +392,12 @@ class ShardedSketchStore:
         ids = np.where(hit, gid[np.where(hit, part.ids, 0)], np.int64(-1))
         return TopKPartial(ids, part.scores, part.has_candidates)
 
-    def _fanout(self, start, tally: dict) -> list[TopKPartial]:
-        """One submit/gather round over all shards, timed into ``tally``.
-        Each shard's reply latency lands in ``query.shard{i}.partial``:
-        for a remote shard the offset from fan-out start to its reply
-        landing, for an in-process shard its leg's runtime.  The broadcast
-        span is ambient while legs are submitted, so remote workers' spans
-        nest under it."""
+    def _fanout(self, start) -> list[TopKPartial]:
+        """One submit/gather round over all shards.  Each shard's reply
+        latency lands in ``query.shard{i}.partial``: for a remote shard the
+        offset from fan-out start to its reply landing, for an in-process
+        shard its leg's runtime.  The broadcast span is ambient while legs
+        are submitted, so remote workers' spans nest under it."""
         t0 = time.perf_counter()
         with self._tracer.span("query.broadcast"):
             pend = [start(sh) for sh in self.shards]
@@ -406,11 +405,8 @@ class ShardedSketchStore:
         with self._tracer.span("query.partial"):
             parts = [self._to_global(s, p.result())
                      for s, p in enumerate(pend)]
-        t2 = time.perf_counter()
-        tally["broadcast_s"] += t1 - t0
-        tally["partial_s"] += t2 - t1
         self._h_broadcast.observe(t1 - t0)
-        self._h_partial.observe(t2 - t1)
+        self._h_partial.observe(time.perf_counter() - t1)
         for s, p in enumerate(pend):
             lat = getattr(p, "latency_s", None)
             if lat is not None:
@@ -425,44 +421,48 @@ class ShardedSketchStore:
         where they lie: on the device unless ``query_impl="host"``).
         ``qwords`` is wrapped once (``QueryWords``), so remote shards share
         one host copy of the batch's words, and the fallback leg slices
-        its rows from that copy.
+        its rows from that copy.  ``last_timings["n_fallback"]`` is the
+        batch's count of brute-force rows.
 
-        Spans: ``query.broadcast`` submits the shards' legs (lazy in
-        process; for remote shards the host copies and the frames' encoding),
-        ``query.partial`` gathers them (in process the probe, the scorer and
-        the copy of each partial to the host; remote, the wait for the
-        replies), ``query.merge`` reduces the partials on the host."""
+        Spans: ``query.candidates`` is the candidate round and
+        ``query.fallback`` the brute round (its rows' slice, the round,
+        and the scatter of its answers), each a ``query.broadcast`` that
+        submits the shards' legs (lazy in process; for remote shards the
+        host copies and the frames' encoding), a ``query.partial`` that
+        gathers them (in process the probe, the scorer and the copy of each
+        partial to the host, split by ``kernels.dispatch.query_fused`` and
+        the planner; remote, the wait for the replies) and a
+        ``query.merge`` that reduces the partials on the host."""
         wall_t0 = time.perf_counter()
-        tally = {"fold_s": fold_s, "broadcast_s": 0.0, "partial_s": 0.0,
-                 "merge_s": 0.0}
         self._h_fold.observe(fold_s)
         qwords = QueryWords(qwords)
-        parts = self._fanout(
-            lambda sh: sh.start_query(hashes, qwords, top_k, mode), tally)
-        has_any = np.zeros(len(qwords), bool)
-        for p in parts:
-            has_any |= p.has_candidates
-        t0 = time.perf_counter()
-        with self._tracer.span("query.merge"):
-            scores, ids = merge_topk([p.scores for p in parts],
-                                     [p.ids for p in parts], top_k)
-        tally["merge_s"] += time.perf_counter() - t0
-        em = np.flatnonzero(~has_any)
-        if len(em) and self.n_items:
-            qrows = qwords.rows(em)
-            brute = self._fanout(
-                lambda sh: sh.start_brute(qrows, top_k),
-                tally)
+        with self._tracer.span("query.candidates"):
+            parts = self._fanout(
+                lambda sh: sh.start_query(hashes, qwords, top_k, mode))
+            has_any = np.zeros(len(qwords), bool)
+            for p in parts:
+                has_any |= p.has_candidates
             t0 = time.perf_counter()
             with self._tracer.span("query.merge"):
-                b_scores, b_ids = merge_topk([p.scores for p in brute],
-                                             [p.ids for p in brute], top_k)
-            scores[em] = b_scores
-            ids[em] = b_ids
-            tally["merge_s"] += time.perf_counter() - t0
-        tally["n_fallback"] = len(em)
-        self.last_timings = tally
-        self._h_merge.observe(tally["merge_s"])
+                scores, ids = merge_topk([p.scores for p in parts],
+                                         [p.ids for p in parts], top_k)
+            merge_s = time.perf_counter() - t0
+        em = np.flatnonzero(~has_any)
+        if len(em) and self.n_items:
+            with self._tracer.span("query.fallback"):
+                qrows = qwords.rows(em)
+                brute = self._fanout(
+                    lambda sh: sh.start_brute(qrows, top_k))
+                t0 = time.perf_counter()
+                with self._tracer.span("query.merge"):
+                    b_scores, b_ids = merge_topk(
+                        [p.scores for p in brute], [p.ids for p in brute],
+                        top_k)
+                scores[em] = b_scores
+                ids[em] = b_ids
+                merge_s += time.perf_counter() - t0
+        self.last_timings = {"n_fallback": len(em)}
+        self._h_merge.observe(merge_s)
         self._h_query.observe(time.perf_counter() - wall_t0)
         return finalize_topk(TopKPartial(ids, scores, has_any))
 

@@ -207,8 +207,7 @@ def test_tcp_plane_bit_identical(s, pools, tmp_path):
             assert got[0].dtype == np.int64 and got[1].dtype == np.float32
             assert _equal(got, want), (type(plane), top_k)
     assert tcp.last_timings["n_fallback"] == 2
-    assert set(tcp.last_timings) == {"fold_s", "broadcast_s", "partial_s",
-                                     "merge_s", "n_fallback"}
+    assert set(tcp.last_timings) == {"n_fallback"}
     assert np.array_equal(tcp.shard_sizes(), port_in.shard_sizes())
     assert np.array_equal(tcp.shard_sizes(), ref_in.shard_sizes())
     assert tcp.n_spilled == port_in.n_spilled == ref_in.n_spilled
