@@ -3,14 +3,14 @@
 path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup,
 the hashed-feature trainer, the LM serving path, LM training on one NVIDIA
 card and the mesh paths over two ranks sharing it, with its hand-written
-kernels (six CUDA sources).
+kernels (seven CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
 Phases; any failure raises and exits non-zero, and no result line is
 printed then:
 
-1. Build the six CUDA sources in ``src/repro_torch/csrc`` (one nvcc per
+1. Build the seven CUDA sources in ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print nvcc's register report.
 2. Main path at full size, through the service a user calls: SearchConfig
    defaults (D = 2^16, K = 256, 32 bands x 8 rows, b = 32, n_slots 2048
@@ -19,8 +19,9 @@ printed then:
    batches through ``IngestPipeline(depth=2)``, then answer one batch of
    1024 indexed + 64 fresh documents (top_k = 5).  Every kernel's launch
    count is set to 0 just before this phase and read just after it; each
-   must be > 0, and the collision kernel must have launched once per
-   brute-force fallback call (one launch over the whole index).  Top-1
+   must be > 0, and the collision kernel and the top-k select must each
+   have launched once per brute-force fallback call (one launch over the
+   whole index, one call over its real rows).  Top-1
    self-hit on the indexed rows must be 100%, and some rows must take the
    brute-force fallback.  Then the same batch through the shard's own
    ``SketchStore.query_packed`` (the library's single-store query), its
@@ -55,7 +56,12 @@ printed then:
    16,384-row block of unpacked codes (the shape the earlier blocked
    fallback launched 16 times); its bound counts one integer compare a
    pair of codes (a pair of words at b < 32), the compare being the only
-   part of the count that needs the integer pipe.
+   part of the count that needs the integer pipe.  The top-k select
+   (``topk_select``) runs on that call's counts of the real fallback
+   rows, as the planner selects them, at top_k = 5 (``ops.topk_select``
+   must take the kernel) and at 40 (two passes of the kernel), values and
+   columns against the plain version's stable sort; its bound counts the
+   counts read once and each row's values and int64 columns written.
 4. One more query batch under ``torch.profiler``: the device-busy share
    of its wall time and device time by kernel (the timeline goes to
    ``chiprun_out/query_trace.json``).
@@ -97,9 +103,10 @@ printed then:
    fallback rows included.  Counted: the coordinator's counts set to 0
    just before the service is built, the workers' read from their STATS
    (fresh processes): the coordinator folds once a batch and launches no
-   probe or collision kernel, each worker probes once a batch and scores
-   once a batch and launches no fold; each worker's labelled registry
-   shows ``kernel.query_fused.cuda`` and no plain kernel, every worker
+   probe, collision or select kernel, each worker probes once a batch,
+   scores and selects once a batch and launches no fold; each worker's
+   labelled registry shows ``kernel.query_fused.cuda`` and no plain
+   kernel, every worker
    reports a ``cuda`` device and holds memory on the card by its own
    STATS, and every worker pid appears in ``nvidia-smi
    --query-compute-apps`` (where nvidia-smi sees this namespace's pids;
@@ -731,16 +738,18 @@ def main_path(idx, fresh_idx, report: dict):
     require(bool(np.isfinite(scores).all()), "finite scores")
     require(self_hit == 1.0, f"top-1 self-hit {self_hit}")
     require(n_fallback > 0, "some rows take the brute-force fallback")
-    for n in ("cminhash_sparse", "fold", "lsh_probe", "collision"):
+    for n in ("cminhash_sparse", "fold", "lsh_probe", "collision",
+              "topk_select"):
         require(launches[n] > 0,
                 f"kernel {n} launched on the main path ({launches[n]})")
     store_path(svc, qidx, ids, scores, report)
     n_shards = len(svc.store.shards)
-    require(per_query["collision"] == n_shards
-            and launches["collision"] == len(lat) * n_shards,
-            f"collision kernel launched once per brute-force fallback call "
-            f"({launches['collision']} launches for {len(lat)} query batches "
-            f"x {n_shards} shard)")
+    for n in ("collision", "topk_select"):
+        require(per_query[n] == n_shards
+                and launches[n] == len(lat) * n_shards,
+                f"{n} kernel launched once per brute-force fallback call "
+                f"({launches[n]} launches for {len(lat)} query batches "
+                f"x {n_shards} shard)")
     return svc, qidx
 
 
@@ -931,7 +940,41 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
                     collision_ops(qn, 16384, k, 32))[0]})
     print(f"[kernel] collision one 16,384-row block of int32 codes: "
           f"{blk_ms:.4f} ms, device {blk_dev_ms:.4f} ms")
+
+    # 5. top-k select: the fallback's real rows of kernel 4's counts
+    # against the whole index, as the planner selects them
+    out.append(select_entry(kc.packed_collision_counts_kernel(
+        wq, store.buffer.device_words(), k, cfg.b)[:n_fb]))
     return out
+
+
+def select_entry(counts: torch.Tensor) -> dict:
+    """Phase 3's top-k select row: ``ops.topk_select`` over the fallback's
+    ``counts`` at ``TOP_K`` (the kernel's path) against the plain version,
+    values and columns bit for bit (one tensor of both in the row's
+    check), timed and bounded by its bytes (the counts read once, each
+    row's values and int64 columns written); at 40, two passes of the
+    kernel, checked too."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_select as kt
+    v, c, path = ops.topk_select(counts, TOP_K)
+    require(path == "kernel", f"the select on the card takes the kernel "
+            f"({path})")
+    wv, wc = kt.topk_select_plain(counts, TOP_K)
+    require(torch.equal(v, wv), "topk_select values == the plain version's")
+    v40, c40, _ = ops.topk_select(counts, 40)
+    require(all(torch.equal(a, b) for a, b in zip(
+        (v40, c40), kt.topk_select_plain(counts, 40))),
+        "topk_select at kk 40 (two passes) == the plain version")
+    ms, dev_ms = both_ms(lambda: kt.topk_select_kernel(counts, TOP_K), 20)
+    plain_ms = time_ms(lambda: kt.topk_select_plain(counts, TOP_K), 5)
+    q, u = counts.shape
+    return kernel_entry(
+        "topk_select", "src/repro_torch/csrc/topk_select.cu",
+        "src/repro/store/planner.py:187 (np.argsort on the host)",
+        torch.cat([v.long(), c], 1), torch.cat([wv.long(), wc], 1), ms,
+        plain_ms, q * u * 4 + q * TOP_K * (4 + 8), q * u, dev_ms,
+        {"shape": [q, u], "kk": TOP_K})
 
 
 def collision_ops(q: int, n: int, k: int, b: int) -> int:
@@ -1537,14 +1580,16 @@ def tcp_path(main_svc, idx, qidx, report: dict) -> None:
                 f"against {want_fb})")
         require(coordinator["fold"] == len(lat)
                 and coordinator["lsh_probe"] == 0
-                and coordinator["collision"] == 0,
+                and coordinator["collision"] == 0
+                and coordinator["topk_select"] == 0,
                 f"the coordinator folds once a batch and probes and scores "
                 f"nothing ({coordinator})")
         for i, w in enumerate(workers):
             require(w["fold"] == 0 and w["fold_probe"] == 0,
                     f"worker {i} launches no fold ({w})")
             require(w["lsh_probe"] == len(lat)
-                    and w["collision"] == len(lat),
+                    and w["collision"] == len(lat)
+                    and w["topk_select"] == len(lat),
                     f"worker {i} probes once a batch from the wire's hashes "
                     f"and scores its fallback rows once a batch ({w})")
             prefix = f"shard{i}.replica0.kernel."
@@ -1762,7 +1807,8 @@ def replica_path(main_svc, idx, qidx, jdir: str, report: dict):
                 f"({n_fallback} against {want_fb})")
         require(coordinator["fold"] == len(lat)
                 and coordinator["lsh_probe"] == 0
-                and coordinator["collision"] == 0,
+                and coordinator["collision"] == 0
+                and coordinator["topk_select"] == 0,
                 f"the coordinator folds once a batch and launches no probe "
                 f"or collision kernel ({coordinator})")
         down = [(ln.shard, ln.replica, ln.why_down)

@@ -12,10 +12,10 @@ def all_kernels() -> dict:
     the one list of the port's kernels, read wherever launches are
     counted."""
     from . import (cminhash_kernel, cminhash_packed, cminhash_sparse,
-                   collision_kernel, lsh_probe, query_fused)
+                   collision_kernel, lsh_probe, query_fused, topk_select)
     ks = (cminhash_sparse.KERNEL, query_fused.KERNEL, lsh_probe.KERNEL,
           query_fused.FOLD_PROBE_KERNEL, collision_kernel.KERNEL,
-          cminhash_kernel.KERNEL, cminhash_packed.KERNEL)
+          cminhash_kernel.KERNEL, cminhash_packed.KERNEL, topk_select.KERNEL)
     return {k.name: k for k in ks}
 
 

@@ -1,5 +1,6 @@
 """Dense signing and pairwise scoring: the library entry points the paper's
-experiments call, and the packed-code scoring the query planner calls.
+experiments call, and the packed-code scoring and top-k select the query
+planner calls.
 
 Signing goes through ``kernels.dispatch``; the b-bit packed-code format
 lives in ``kernels.packfmt``.
@@ -13,6 +14,7 @@ from . import dispatch
 from .collision_kernel import (collision_counts_kernel,
                                packed_collision_counts_kernel)
 from .packfmt import unpack_codes
+from .topk_select import topk_select  # noqa: F401  (the planner's select)
 
 
 def cminhash_signatures(v: torch.Tensor, pi: torch.Tensor, k: int,
@@ -77,3 +79,4 @@ def packed_estimated_jaccard_matrix(words_q: torch.Tensor,
     """(Q, N) float32 estimated Jaccard from b-bit packed codes."""
     counts = packed_collision_counts(words_q, words_n, k, b)
     return counts.to(torch.float32) / k
+

@@ -124,12 +124,13 @@ class QueryPlanner:
         there, with no host copy.  ``has_candidates`` is False throughout.
         Query rows are padded to the next power of two (repeating row 0),
         as in the reference, so the scoring shapes take few distinct
-        values; the pad rows' results are sliced off.
+        values; kernel 4 scores the pad rows, the top-k select skips them.
 
         Under a traced query its legs are spans of the process's tracer:
         ``query.fallback.pad`` (tagged ``rows`` and ``padded``, the rows
         kernel 4 scores), then ``_rank``'s ``query.fallback.count``,
-        ``.sort`` and ``.copy_out``."""
+        ``.sort`` (tagged ``select``: "kernel" or "sort", the path
+        ``ops.topk_select`` takes) and ``.copy_out``."""
         q = qwords.shape[0]
         ids = np.full((q, top_k), -1, np.int64)
         scores = np.full((q, top_k), NEG_INF, np.float32)
@@ -142,26 +143,27 @@ class QueryPlanner:
                 qp = as_device_words(qwords, self.buffer.device)
                 if n_pad:
                     qp = torch.cat([qp, qp[:1].expand(n_pad, -1)])
-            ids_p, scores_p = self._rank(qp, union_ids,
-                                         self.buffer.device_words(), None,
-                                         top_k, legs="query.fallback")
-            ids, scores = ids_p[:q], scores_p[:q]
+            ids, scores = self._rank(qp, union_ids,
+                                     self.buffer.device_words(), None,
+                                     top_k, legs="query.fallback", rows=q)
         return TopKPartial(ids, scores, np.zeros(q, bool))
 
     def _rank(self, qwords, union_ids: np.ndarray,
               words_n: torch.Tensor, mask: np.ndarray | None,
               top_k: int, *, legs: str | None = None,
-              ) -> tuple[np.ndarray, np.ndarray]:
+              rows: int | None = None) -> tuple[np.ndarray, np.ndarray]:
         """Score (Q', U) on the device and select top-k per row from the
-        masked columns (mask=None: all columns).  A stable sort on -count
-        over ascending ``union_ids`` breaks ties by the smaller id, the
-        reference's stable argsort on -score: score = count / k is
-        monotone in count.  Returns partial-layout rows.  ``legs`` names
-        the spans of the count, the sort and the copies to the host
-        (``<legs>.count``, ``.sort``, ``.copy_out``); None opens none."""
+        masked columns (mask=None: all columns).  The select orders each
+        row by (count desc, column asc); over ascending ``union_ids`` that
+        breaks ties by the smaller id, the reference's stable argsort on
+        -score: score = count / k is monotone in count.  Only the first
+        ``rows`` rows (default all) are selected and returned, in
+        partial layout.  ``legs`` names the spans of the count, the
+        select and the copies to the host (``<legs>.count``, ``.sort``,
+        ``.copy_out``); None opens none."""
         cfg = self.buffer.cfg
         dev = words_n.device
-        q = qwords.shape[0]
+        q = qwords.shape[0] if rows is None else rows
         tracer = obs_trace.default()
 
         def leg(name: str):
@@ -174,10 +176,11 @@ class QueryPlanner:
                 cfg.b)
         if mask is not None:
             counts = torch.where(torch.tensor(mask, device=dev), counts, -1)
+        counts = counts[:q]
         kk = min(top_k, counts.shape[1])
-        with leg("sort"):
-            order = torch.sort(-counts, dim=1, stable=True).indices[:, :kk]
-            top = torch.gather(counts, 1, order)
+        with leg("sort") as span:
+            top, order, path = ops.topk_select(counts, kk)
+            span.tag("select", path)
         with leg("copy_out"):
             top = top.cpu().numpy()
             order = order.cpu().numpy()

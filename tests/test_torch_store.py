@@ -29,6 +29,7 @@ from repro_torch.serve.search import SearchConfig, SimilaritySearchService
 from repro_torch.store import (InProcessShard, PackedConfig,
                                PackedSignatureBuffer, ShardedSketchStore,
                                SketchStore, StoreConfig)
+from repro_torch.store.packed import pack_host
 from repro_torch.store.sharded import MANIFEST_FILE, shard_snapshot_path
 
 K, NB, R = 64, 16, 4
@@ -146,6 +147,31 @@ def test_raw_store_answers_like_the_reference(b):
     assert port.digest() == ref.digest()
     assert np.array_equal(port.candidate_pairs(), ref.candidate_pairs())
     assert port.buffer.nbytes == ref.buffer.nbytes
+
+
+@pytest.mark.parametrize("top_k", [5, 10, 40])
+def test_tied_brute_force_ranks_like_the_reference(top_k):
+    """The brute-force partial and the masked candidate partial over a
+    store whose scores mostly tie (K = 64 codes drawn from 4 values): ids
+    and scores are the reference's, ties broken by the smaller id, at
+    top_k below and above the select kernel's 32 keys a pass."""
+    rng = np.random.default_rng(3)
+    sigs = rng.integers(0, 4, (400, K)).astype(np.int32)
+    q = rng.integers(0, 4, (37, K)).astype(np.int32)
+    q[5] = sigs[17]                                     # an exact match
+    ref, port = _pair(n_slots=256)
+    ref.add(sigs)
+    port.add(sigs)
+    words = pack_host(q, 32)
+    cand = rng.integers(-1, len(sigs), (len(q), 60))
+    cand[4] = -1                                        # no candidate
+    for want, got in (
+            (ref.planner.brute_partial_packed(words, top_k),
+             port.planner.brute_partial_packed(words, top_k)),
+            (ref.planner.partial_topk_packed(words, cand, top_k),
+             port.planner.partial_topk_packed(words, cand, top_k))):
+        _same((want.ids, want.scores), (got.ids, got.scores), top_k)
+        assert np.array_equal(got.has_candidates, want.has_candidates)
 
 
 def _case_pregrow():
