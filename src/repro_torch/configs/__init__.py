@@ -23,10 +23,16 @@ ARCH_IDS = (
 )
 
 
+# The port's own configs: the reference has none of them, so they stay
+# outside ARCH_IDS and all_configs().
+PORT_ONLY = ("jamba2_mini",)
+
+
 def get_config(arch_id: str) -> ModelConfig:
     arch_id = arch_id.replace("-", "_").replace(".", "_")
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in ARCH_IDS + PORT_ONLY:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + PORT_ONLY}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG
 
@@ -37,10 +43,11 @@ def all_configs() -> dict[str, ModelConfig]:
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128,
             vocab: int = 512) -> ModelConfig:
-    """Family-preserving shrink for smoke tests."""
+    """Family-preserving shrink for smoke tests.  A config with a layer
+    pattern keeps whole periods of it (at least one)."""
     kv = 2 if cfg.n_kv_heads < cfg.n_heads else 4
     changes: dict = dict(
-        n_layers=layers,
+        n_layers=-(-layers // cfg.layer_period) * cfg.layer_period,
         d_model=d_model,
         n_heads=4,
         n_kv_heads=kv,

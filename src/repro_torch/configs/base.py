@@ -63,6 +63,25 @@ class ModelConfig:
     ssm_chunk: int = 128
     ssm_scan_dtype: str = "float32"
 
+    # Per-layer structure.  The ten configs run every layer alike; a config
+    # type with a layer pattern (configs/jamba2_mini.py) overrides these.
+    # Class attributes, not fields: the fields stay the reference's.
+    layer_period = 1          # layers in a period of the pattern (1: alike)
+    use_rope = True           # RoPE on attention's q and k
+    ssm_dt_norms = False      # RMSNorms on the Mamba mixer's dt, B and C
+    renorm_gates = True       # top-k gates divided by their sum
+    dropless = False          # every assignment computed (no capacity)
+
+    def mixer(self, i: int) -> str:
+        """Layer ``i``'s token mixer: "attn", "ssm" or "attn+ssm"."""
+        return {"ssm": "ssm", "hybrid": "attn+ssm"}.get(self.family, "attn")
+
+    def ffn(self, i: int) -> str:
+        """Layer ``i``'s second branch: "moe", "mlp" or "none"."""
+        if self.family == "moe":
+            return "moe"
+        return "mlp" if self.d_ff > 0 else "none"
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)

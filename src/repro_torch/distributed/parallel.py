@@ -62,6 +62,11 @@ class Parallel:
     rank (``mode`` "tp" or "fsdp")."""
 
     def __init__(self, mesh, cfg, mode: str = "tp", tensor_axes="model"):
+        if cfg.layer_period != 1:
+            raise NotImplementedError(
+                f"{cfg.name}: its layers follow a pattern (mixer and FFN "
+                f"differ by layer), which no mesh layout covers; run it on "
+                f"one device (mesh=None)")
         if mode not in ("tp", "fsdp"):
             raise ValueError(f"unknown sharding mode {mode!r}")
         if mode == "fsdp" and tensor_axes != "model":

@@ -279,7 +279,7 @@ def attention_block(p, x: Tensor, positions: Tensor, cfg, *,
                     for n in ("wk", "wv"))
     else:
         q, k, v = qkv_project(p, x, cfg)
-    if not cross:
+    if not cross and cfg.use_rope:
         k = apply_rope(k, positions, cfg.rope_theta)
         q = apply_rope(q, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=w,

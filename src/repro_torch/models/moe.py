@@ -1,5 +1,6 @@
 """Top-k mixture of experts at a fixed capacity (GShard drops), with
-expert parallelism over a mesh.
+expert parallelism over a mesh; or, for a config with ``dropless`` set,
+every assignment computed (one device).
 
 A PyTorch copy of ``repro.models.moe``.  The capacity, each assignment's
 place in its expert's queue and the aux loss belong to the reference's
@@ -106,10 +107,44 @@ def _expert_ffn(xf: Tensor, idx: Tensor, gates: Tensor, wg: Tensor,
     return y
 
 
-def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None):
-    """Top-k gates (renormalised) and the load-balance aux loss; with
-    ``par``, the aux loss's means are over the rank's token group, and the
-    aux loss the mean over the groups."""
+def _dropless_ffn(xf: Tensor, idx: Tensor, gates: Tensor, wg: Tensor,
+                  wu: Tensor, wd: Tensor) -> tuple[Tensor, Tensor]:
+    """Every assignment through its expert, none dropped, at any T.
+
+    xf: (T, D); idx, gates: (T, k); wg/wu: (E, D, F); wd: (E, F, D).
+    The T*k assignments are sorted by expert (stably, so each expert's
+    rows keep token order) and run as grouped products over each
+    expert's run of rows (``torch._grouped_mm``).  The counts and the
+    runs' ends stay on the device, so the host never waits for the card
+    (``torch.bincount`` would: it reads the ids' range on the host).
+    Returns (y (T, D): a token's k gated outputs summed in assignment
+    order, counts (E,): the assignments to each expert)."""
+    t, k = idx.shape
+    dtype = xf.dtype
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(wg.shape[0], dtype=torch.int64,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ends = counts.cumsum(0).to(torch.int32)
+    xs = xf[order // k]
+    h = F.silu(torch._grouped_mm(xs, wg.to(dtype), offs=ends)) \
+        * torch._grouped_mm(xs, wu.to(dtype), offs=ends)
+    out = torch.empty_like(xs)
+    out[order] = torch._grouped_mm(h, wd.to(dtype), offs=ends)
+    picked = (out * gates.reshape(-1, 1).to(dtype)).reshape(t, k, -1)
+    y = picked[:, 0]
+    for j in range(1, k):
+        y = y + picked[:, j]
+    return y, counts
+
+
+def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None,
+           renorm: bool = True):
+    """Top-k gates (renormalised to sum to one unless ``renorm`` is False)
+    and the load-balance aux loss; with ``par``, the aux loss's means are
+    over the rank's token group, and the aux loss the mean over the
+    groups."""
     logits = (xf @ router_w.to(xf.dtype)).float()             # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: larger first, the lower expert first on a tie; a
@@ -117,7 +152,8 @@ def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None):
     # promise an order for ties on the card)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[:, :k], idx[:, :k]
-    gates = gates / gates.sum(-1, keepdim=True)
+    if renorm:
+        gates = gates / gates.sum(-1, keepdim=True)
     assign = F.one_hot(idx[:, 0], e).float().mean(0)
     mean_probs = probs.mean(0)
     if par is not None:
@@ -129,17 +165,24 @@ def _route(xf: Tensor, router_w: Tensor, e: int, k: int, par=None):
     return gates, idx, aux
 
 
-def moe_block(p, x: Tensor, cfg, mesh=None) -> tuple[Tensor, Tensor]:
+def moe_block(p, x: Tensor, cfg, mesh=None, counts: list | None = None
+              ) -> tuple[Tensor, Tensor]:
     """x: (B, S, D) (or (B, D): one token a row) -> (y like x, aux_loss
     scalar).  One device: the B * S tokens of the call are one group.
     ``mesh``: None, or the ``Parallel`` the model runs under; x is the
-    rank's rows."""
+    rank's rows.  ``cfg.dropless``: no capacity (one device only), and
+    ``counts``, where given, gains the (E,) assignments to each expert."""
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(-1, x.shape[-1])
     par = mesh
-    gates, idx, aux = _route(xf, p["router"], e, k, par)
+    gates, idx, aux = _route(xf, p["router"], e, k, par, cfg.renorm_gates)
     gates = gates.to(x.dtype)
     w = p["e_gate"], p["e_up"], p["e_down"]
+    if cfg.dropless:
+        y, n = _dropless_ffn(xf, idx, gates, *w)
+        if counts is not None:
+            counts.append(n)
+        return y.reshape(x.shape), aux
     if par is None:
         cap = _capacity(len(xf), e, k, cfg.capacity_factor)
         return _expert_ffn(xf, idx, gates, *w, capacity=cap).reshape(

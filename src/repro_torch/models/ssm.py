@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import normal_init
+from .layers import normal_init, rmsnorm
 
 Tensor = torch.Tensor
 
@@ -34,7 +34,7 @@ def init_ssm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     dev = gen.device
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
     dt_init = float(np.log(np.expm1(0.01)))
-    return {
+    p = {
         "in_proj": normal_init(gen, (d, 2 * di), d ** -0.5, dtype),
         "conv_w": normal_init(gen, (cw, di), cw ** -0.5, dtype),
         "conv_b": torch.zeros(di, dtype=dtype, device=dev),
@@ -46,6 +46,11 @@ def init_ssm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
         "out_proj": normal_init(gen, (di, d),
                                 di ** -0.5 / np.sqrt(2 * cfg.n_layers), dtype),
     }
+    if cfg.ssm_dt_norms:
+        p.update(dt_norm=torch.ones(r, dtype=dtype, device=dev),
+                 b_norm=torch.ones(n, dtype=dtype, device=dev),
+                 c_norm=torch.ones(n, dtype=dtype, device=dev))
+    return p
 
 
 def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
@@ -123,6 +128,16 @@ def _out_proj(p, y: Tensor, par) -> Tensor:
     return par.exit(out) if _split(par) else out
 
 
+def _dt_b_c(p, proj: Tensor, cfg) -> tuple[Tensor, Tensor, Tensor]:
+    """``x_proj``'s output cut into (dt, B, C), each RMS-normalised where
+    ``cfg.ssm_dt_norms`` (Jamba's mixer)."""
+    parts = proj.split([cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
+    if not cfg.ssm_dt_norms:
+        return parts
+    return tuple(rmsnorm(v, p[name], cfg.norm_eps)
+                 for v, name in zip(parts, ("dt_norm", "b_norm", "c_norm")))
+
+
 def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
               conv_init: Tensor | None = None, par=None
               ) -> tuple[Tensor, Tensor, Tensor]:
@@ -134,7 +149,7 @@ def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
     """
     dtype = x.dtype
     bsz, s, _ = x.shape
-    n, r, cw = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    n, cw = cfg.ssm_state, cfg.ssm_conv
 
     xs, z = _in_proj(p, x, par)                      # (B, S, Di) each
     conv_w, conv_b = p["conv_w"].to(dtype), p["conv_b"].to(dtype)
@@ -148,7 +163,7 @@ def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
     xs_conv = F.silu(xs_conv)
 
     proj = _x_proj(p, xs_conv, par)                 # (B, S, r + 2N)
-    dt_raw, bmat, cmat = proj.split([r, n, n], dim=-1)
+    dt_raw, bmat, cmat = _dt_b_c(p, proj, cfg)
     dt = F.softplus((dt_raw @ p["dt_proj"].to(dtype)).float()
                     + p["dt_bias"].float())          # (B, S, Di) float32
     a = -torch.exp(p["a_log"].float())               # (Di, N)
@@ -169,7 +184,6 @@ def ssm_decode_step(p, x: Tensor, h: Tensor, conv_state: Tensor, cfg,
     Di) (the rank's channels over a mesh).  Returns (y: (B, D), h',
     conv_state')."""
     dtype = x.dtype
-    n, r = cfg.ssm_state, cfg.dt_rank
 
     xs, z = _in_proj(p, x, par)                      # (B, Di)
     window = torch.cat([conv_state.to(dtype), xs[:, None]], dim=1)
@@ -179,7 +193,7 @@ def ssm_decode_step(p, x: Tensor, h: Tensor, conv_state: Tensor, cfg,
     conv_state_new = window[:, 1:].to(conv_state.dtype)
 
     proj = _x_proj(p, xc, par)
-    dt_raw, bvec, cvec = proj.split([r, n, n], dim=-1)
+    dt_raw, bvec, cvec = _dt_b_c(p, proj, cfg)
     dt = F.softplus((dt_raw @ p["dt_proj"].to(dtype)).float()
                     + p["dt_bias"].float())          # (B, Di)
     a = -torch.exp(p["a_log"].float())

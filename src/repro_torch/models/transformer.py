@@ -45,11 +45,21 @@ def _pdtype(cfg) -> torch.dtype:
 
 
 def has_attention(cfg) -> bool:
-    return cfg.family != "ssm"
+    """Some layer attends."""
+    return any("attn" in cfg.mixer(i) for i in range(cfg.n_layers))
 
 
 def has_ssm(cfg) -> bool:
-    return cfg.family in ("ssm", "hybrid")
+    """Some layer has a Mamba mixer."""
+    return any("ssm" in cfg.mixer(i) for i in range(cfg.n_layers))
+
+
+def n_layers_of(cfg, kind: str) -> int:
+    """Layers whose mixer has ``kind`` ("attn", "ssm") or, for "moe",
+    whose second branch routes to experts: the leading dim of that kind's
+    cache tensors (all ``n_layers`` where every layer is alike)."""
+    return sum(kind in (cfg.ffn(i) if kind == "moe" else cfg.mixer(i))
+               for i in range(cfg.n_layers))
 
 
 def kv_eff_heads(cfg, tp: int = 1) -> int:
@@ -67,17 +77,20 @@ def kv_eff_heads(cfg, tp: int = 1) -> int:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_layer(gen: torch.Generator, cfg) -> dict:
+def init_layer(gen: torch.Generator, cfg, i: int = 0) -> dict:
+    """Layer ``i``'s weights (its mixer and second branch by
+    ``cfg.mixer(i)`` and ``cfg.ffn(i)``)."""
     dt = _pdtype(cfg)
+    mixer, ffn = cfg.mixer(i), cfg.ffn(i)
     p: dict = {"ln1": torch.ones(cfg.d_model, dtype=dt, device=gen.device)}
-    if has_attention(cfg):
+    if "attn" in mixer:
         p["attn"] = init_attention(gen, cfg, dt)
-    if has_ssm(cfg):
+    if "ssm" in mixer:
         p["ssm"] = init_ssm(gen, cfg, dt)
-    if cfg.family == "moe":
+    if ffn == "moe":
         p["moe"] = init_moe(gen, cfg, dt)
         p["ln2"] = torch.ones(cfg.d_model, dtype=dt, device=gen.device)
-    elif cfg.d_ff > 0:
+    elif ffn == "mlp":
         p["mlp"] = init_mlp(gen, cfg, dt)
         p["ln2"] = torch.ones(cfg.d_model, dtype=dt, device=gen.device)
     return p
@@ -100,7 +113,7 @@ def init_params(seed: int, cfg, device: str | torch.device = DEFAULT_DEVICE
     dt = _pdtype(cfg)
     tree = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
-        "layers": [init_layer(gen, cfg) for _ in range(cfg.n_layers)],
+        "layers": [init_layer(gen, cfg, i) for i in range(cfg.n_layers)],
         "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -149,37 +162,41 @@ def remat(fn, cfg):
     return fn
 
 
-def _ffn(lp, x: Tensor, cfg, par=None) -> tuple[Tensor, Tensor | None]:
-    """The layer's second residual branch on x: (B, S, D) or (B, D) ->
-    (x, aux loss or None)."""
-    if cfg.family == "moe":
+def _ffn(lp, x: Tensor, cfg, par=None, layer: int = 0,
+         counts: list | None = None) -> tuple[Tensor, Tensor | None]:
+    """Layer ``layer``'s second residual branch on x: (B, S, D) or (B, D)
+    -> (x, aux loss or None).  ``counts``: ``moe_block``'s list of each
+    MoE layer's (E,) assignment counts."""
+    kind = cfg.ffn(layer)
+    if kind == "moe":
         y, aux = moe_block(lp["moe"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg,
-                           par)
+                           par, counts=counts)
         return x + y, aux
-    if cfg.d_ff > 0:
+    if kind == "mlp":
         return x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
                              par), None
     return x, None
 
 
-def block_forward(lp, x: Tensor, positions: Tensor, cfg, mesh=None
-                  ) -> tuple[Tensor, Tensor]:
-    """One layer, full sequence.  Returns (x, aux_loss).  ``mesh``: None,
-    or the ``distributed.parallel.Parallel`` the model runs under (FSDP
-    gathers the layer's weights here, so a remat recompute gathers them
-    again)."""
+def block_forward(lp, x: Tensor, positions: Tensor, cfg, mesh=None,
+                  layer: int = 0) -> tuple[Tensor, Tensor]:
+    """Layer ``layer``, full sequence.  Returns (x, aux_loss).  ``mesh``:
+    None, or the ``distributed.parallel.Parallel`` the model runs under
+    (FSDP gathers the layer's weights here, so a remat recompute gathers
+    them again)."""
     par = mesh
     if par is not None:
         lp = par.weights(lp, "layers")
     xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     delta = torch.zeros_like(x)
-    if has_attention(cfg):
+    mixer = cfg.mixer(layer)
+    if "attn" in mixer:
         delta = delta + attention_block(lp["attn"], xn, positions, cfg,
                                         par=par)
-    if has_ssm(cfg):
+    if "ssm" in mixer:
         y, _, _ = ssm_block(lp["ssm"], xn, cfg, par=par)
         delta = delta + y
-    x, aux = _ffn(lp, x + delta, cfg, par)
+    x, aux = _ffn(lp, x + delta, cfg, par, layer)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -202,8 +219,8 @@ def forward(params, tokens: Tensor, cfg, mesh=None,
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = remat(block_forward, cfg)
-    for lp in params["layers"]:
-        x, a = block(lp, x, positions, cfg, par)
+    for i, lp in enumerate(params["layers"]):
+        x, a = block(lp, x, positions, cfg, par, i)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg, par), aux
@@ -235,24 +252,46 @@ def init_cache(cfg, batch: int, max_len: int,
                device: str | torch.device = DEFAULT_DEVICE, tp: int = 1
                ) -> dict:
     """Decode cache (zeros/empty).  max_len includes prompt + generation;
-    ``kv_eff_heads(cfg, tp)`` KV heads; on ``meta``, shapes only."""
+    ``kv_eff_heads(cfg, tp)`` KV heads; on ``meta``, shapes only.  K/V
+    for the layers that attend, ``h``/``conv`` for those with a Mamba
+    mixer (every layer where all are alike); with dropless experts,
+    ``expert_load`` and ``expert_hits`` (``_count_experts``)."""
     kve = kv_eff_heads(cfg, tp)
     dev = resolve_or_meta(device)
     dt = _dtype(cfg)
-    n = cfg.n_layers
     cache: dict = {"t": torch.tensor(0, dtype=torch.int32)}
     if has_attention(cfg):
+        n = n_layers_of(cfg, "attn")
         shape = (n, batch, cache_len(cfg, max_len), kve, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["entry_pos"] = torch.full((shape[2],), -1, dtype=torch.int32,
                                         device=dev)
     if has_ssm(cfg):
+        n = n_layers_of(cfg, "ssm")
         cache["h"] = torch.zeros(n, batch, cfg.d_inner, cfg.ssm_state,
                                  dtype=torch.float32, device=dev)
         cache["conv"] = torch.zeros(n, batch, cfg.ssm_conv - 1, cfg.d_inner,
                                     dtype=dt, device=dev)
+    if cfg.dropless:
+        for name in ("expert_load", "expert_hits"):
+            cache[name] = torch.zeros(n_layers_of(cfg, "moe"), cfg.n_experts,
+                                      dtype=torch.int32, device=dev)
     return cache
+
+
+def _count_experts(cache: dict, counts: list, decode: bool) -> None:
+    """Fold one call's per-MoE-layer (E,) assignment counts into the
+    cache, on the card: ``expert_load`` the assignments of the prompt and
+    every decode step, ``expert_hits`` the decode steps that gave each
+    expert a token."""
+    step = torch.stack(counts).to(torch.int32)
+    if not decode:
+        cache["expert_load"] = step
+        cache["expert_hits"] = torch.zeros_like(step)
+        return
+    cache["expert_load"] += step
+    cache["expert_hits"] += (step > 0).to(torch.int32)
 
 
 def _repeat_kv_to(k: Tensor, kve: int) -> Tensor:
@@ -312,26 +351,29 @@ def prefill(params, tokens: Tensor, cfg, mesh=None, *, tp: int = 1,
     x = _embed(params, tokens, dt, prefix_embeddings, par)
     positions = torch.arange(s, device=x.device)
     entries: dict[str, list] = {}
-    for lp in params["layers"]:
+    counts = [] if cfg.dropless else None
+    for i, lp in enumerate(params["layers"]):
         if par is not None:
             lp = par.weights(lp, "layers")
         xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         delta = torch.zeros_like(x)
-        if has_attention(cfg):
+        mixer = cfg.mixer(i)
+        if "attn" in mixer:
             delta = delta + attention_block(lp["attn"], xn, positions, cfg,
                                             par=par)
             k, v = project_kv(lp["attn"], xn, positions, cfg)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            if cfg.use_rope:
+                k = apply_rope(k, positions, cfg.rope_theta)
             entries.setdefault("k", []).append(_ring(_cache_heads(k, kve, par),
                                                      c))
             entries.setdefault("v", []).append(_ring(_cache_heads(v, kve, par),
                                                      c))
-        if has_ssm(cfg):
+        if "ssm" in mixer:
             y, h_fin, conv_tail = ssm_block(lp["ssm"], xn, cfg, par=par)
             delta = delta + y
             entries.setdefault("h", []).append(h_fin)
             entries.setdefault("conv", []).append(conv_tail)
-        x, _ = _ffn(lp, x + delta, cfg, par)
+        x, _ = _ffn(lp, x + delta, cfg, par, i, counts)
 
     x_last = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x_last, cfg, par)
@@ -340,6 +382,8 @@ def prefill(params, tokens: Tensor, cfg, mesh=None, *, tp: int = 1,
     cache["t"] = torch.tensor(s, dtype=torch.int32)
     if has_attention(cfg):
         cache["entry_pos"] = _entry_pos(s, c, x.device)
+    if counts is not None:
+        _count_experts(cache, counts, decode=False)
     return logits, cache
 
 
@@ -371,35 +415,41 @@ def decode_step(params, cache: dict, token: Tensor, cfg, mesh=None
     dt = _dtype(cfg)
     t = int(cache["t"])
     x = _embed(params, token[:, None], dt, None, par)[:, 0]    # (B, D)
-    attn, ssm = has_attention(cfg), has_ssm(cfg)
     new_cache = dict(cache)
-    if attn:
+    if has_attention(cfg):
         slot = t % cache["k"].shape[2]
         entry_pos = cache["entry_pos"].clone()
-        entry_pos[slot] = t
+        entry_pos[slot:slot + 1].fill_(t)   # a kernel; no copy from the host
         new_cache["entry_pos"] = entry_pos
         pos = torch.full((1,), t, device=x.device)
         kve = _cache_kve(cache["k"], par)
 
+    counts = [] if cfg.dropless else None
+    ai = si = 0                      # the layer's row of the K/V, h caches
     for i, lp in enumerate(params["layers"]):
         if par is not None:
             lp = par.weights(lp, "layers")
         xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         delta = torch.zeros_like(x)
-        if attn:
+        mixer = cfg.mixer(i)
+        if "attn" in mixer:
             delta = delta + decode_self_attention(
-                lp["attn"], xn, cache["k"][i], cache["v"][i], entry_pos,
+                lp["attn"], xn, cache["k"][ai], cache["v"][ai], entry_pos,
                 slot, t, pos, kve, cfg, par)
-        if ssm:
+            ai += 1
+        if "ssm" in mixer:
             y, h_new, conv_new = ssm_decode_step(
-                lp["ssm"], xn, cache["h"][i], cache["conv"][i], cfg, par)
+                lp["ssm"], xn, cache["h"][si], cache["conv"][si], cfg, par)
             delta = delta + y
-            cache["h"][i] = h_new
-            cache["conv"][i] = conv_new
-        x, _ = _ffn(lp, x + delta, cfg, par)
+            cache["h"][si] = h_new
+            cache["conv"][si] = conv_new
+            si += 1
+        x, _ = _ffn(lp, x + delta, cfg, par, i, counts)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x, cfg, par)
+    if counts is not None:
+        _count_experts(new_cache, counts, decode=True)
     new_cache["t"] = torch.tensor(t + 1, dtype=torch.int32)
     return logits, new_cache
 
@@ -422,8 +472,9 @@ def decode_self_attention(ap, xn: Tensor, k_cache: Tensor, v_cache: Tensor,
         k_new, v_new = (_project(xn, ap[n].to(dt)) for n in ("wk", "wv"))
     else:
         q, k_new, v_new = qkv_project(ap, xn, cfg)
-    q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
-    k_new = apply_rope(k_new[:, None], pos, cfg.rope_theta)[:, 0]
+    if cfg.use_rope:
+        q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+        k_new = apply_rope(k_new[:, None], pos, cfg.rope_theta)[:, 0]
     k_cache[:, slot] = _cache_heads(k_new, kve, par)
     v_cache[:, slot] = _cache_heads(v_new, kve, par)
     if split and not par.cache_split(kve):

@@ -9,6 +9,22 @@ Sampling (``temperature > 0``) draws from a ``torch.Generator`` seeded by
 Over a mesh ``generate`` is collective: every rank calls it with the same
 host batch and its own slices of the parameters, and every rank gets the
 whole (B, max_new_tokens) back (see ``generate``).
+
+Spans (the default tracer; a call is a trace of its own): ``lm.generate``
+(tags ``batch``, ``prompt_len``, ``new_tokens``) over ``lm.prefill`` (the
+prompt and the first token) and ``lm.decode`` (the other tokens, tag
+``steps``; it closes once the tokens are on the host).  These are the
+host's launches: nothing waits for the card before the tokens' copy, so
+the host may enter ``lm.decode`` while the card still runs the prompt.
+The card's times come from CUDA events, read after
+the tokens' copy to the host (no wait of their own), so they land on
+the spans still open then: ``lm.decode`` gets ``device_ms`` and
+``lm.generate`` ``prefill_device_ms`` (the prompt and the first token).
+With dropless experts, ``lm.generate`` gets ``max_load`` (the most
+assignments one expert took in one layer of the prompt) and
+``lm.decode`` ``experts_hit`` (the expert weights a decode step read,
+over all MoE layers, on average), from the cache's counters, read with
+the tokens.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ import torch
 from ..device import resolve_device
 from ..distributed import collectives as col
 from ..distributed import sharding
+from ..obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -36,7 +53,7 @@ def sample_token(logits: Tensor, gen: torch.Generator | None,
 
 def generate(bundle, params, batch: dict, *, max_new_tokens: int,
              temperature: float = 0.0, seed: int = 0,
-             mesh=None) -> np.ndarray:
+             mesh=None, keep_logits: bool = False):
     """Prefill the prompt batch and decode ``max_new_tokens`` tokens.
 
     Returns (B, max_new_tokens) int32 numpy, as the reference: the token
@@ -54,6 +71,9 @@ def generate(bundle, params, batch: dict, *, max_new_tokens: int,
     all-gathered over the batch axes at the end (one counted all-gather;
     none where the rows are replicated, and none at ``max_new_tokens=0``),
     so every rank returns the whole batch's tokens.
+
+    ``keep_logits``: return (tokens, logits), the logits each token was
+    chosen from as a (B, max_new_tokens, V) float32 tensor on the device.
     """
     dev = resolve_device(bundle.device)
     prompt_len = batch["tokens"].shape[1]
@@ -70,15 +90,50 @@ def generate(bundle, params, batch: dict, *, max_new_tokens: int,
             is not None
         batch = device_placer(mesh, sharding.batch_shardings)(batch)
         tp = sharding.mesh_shape(mesh).get("model", 1)
-    with torch.no_grad():
-        logits, cache = bundle.prefill(params, batch, mesh=mesh, tp=tp,
-                                       max_len=prompt_len + max_new_tokens)
-        toks = [sample_token(logits, gen, temperature)]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = bundle.decode_step(params, cache, toks[-1],
-                                               mesh=mesh)
-            toks.append(sample_token(logits, gen, temperature))
-    out = torch.stack(toks, dim=1)
-    if split:
-        out = col.all_gather(out, mesh, sharding.batch_axes(mesh), 0)
-    return out.cpu().numpy()
+    tracer = obs_trace.default()
+    steps = max_new_tokens - 1
+    with tracer.span("lm.generate") as root, torch.no_grad():
+        root.tag("batch", len(batch["tokens"])).tag(
+            "prompt_len", prompt_len).tag("new_tokens", max_new_tokens)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if root.sampled and dev.type == "cuda" else None
+        with tracer.child("lm.prefill"):
+            _record(events, 0)
+            logits, cache = bundle.prefill(params, batch, mesh=mesh, tp=tp,
+                                           max_len=prompt_len + max_new_tokens)
+            toks = [sample_token(logits, gen, temperature)]
+            _record(events, 1)
+            kept = [logits.float()] if keep_logits else None
+            load = cache["expert_load"].clone() \
+                if root.sampled and "expert_load" in cache else None
+        with tracer.child("lm.decode") as dec:
+            for _ in range(steps):
+                logits, cache = bundle.decode_step(params, cache, toks[-1],
+                                                   mesh=mesh)
+                toks.append(sample_token(logits, gen, temperature))
+                if keep_logits:
+                    kept.append(logits.float())
+            _record(events, 2)
+            out = torch.stack(toks, dim=1)
+            if split:
+                out = col.all_gather(out, mesh, sharding.batch_axes(mesh), 0)
+            out = out.cpu().numpy()
+            dec.tag("steps", steps)
+            if events is not None:
+                dec.tag("device_ms", events[1].elapsed_time(events[2]))
+            if load is not None and steps:
+                dec.tag("experts_hit",
+                        int(cache["expert_hits"].sum()) / steps)
+        if events is not None:
+            root.tag("prefill_device_ms",
+                     events[0].elapsed_time(events[1]))
+        if load is not None:
+            root.tag("max_load", int(load.max()))
+    if keep_logits:
+        return out, torch.stack(kept, dim=1)
+    return out
+
+
+def _record(events: list | None, i: int) -> None:
+    if events is not None:
+        events[i].record()
