@@ -3,14 +3,14 @@
 path (sparse and dense input), the paper's Fig. 7 experiment, corpus dedup,
 the hashed-feature trainer, the LM serving path, LM training on one NVIDIA
 card and the mesh paths over two ranks sharing it, with its hand-written
-kernels (seven CUDA sources).
+kernels (eight CUDA sources).
 
     python3 chip_smoke.py              # from the root of a checkout
 
 Phases; any failure raises and exits non-zero, and no result line is
 printed then:
 
-1. Build the seven CUDA sources in ``src/repro_torch/csrc`` (one nvcc per
+1. Build the eight CUDA sources in ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print nvcc's register report.
 2. Main path at full size, through the service a user calls: SearchConfig
    defaults (D = 2^16, K = 256, 32 bands x 8 rows, b = 32, n_slots 2048
@@ -240,11 +240,14 @@ printed then:
     bit-packed kernel against its plain version at one batch.  Prints
     seconds per step and the peak memory.
 12. The LM serving path (``lm_path``, ``[lm]`` lines), its counts set to 0
-    just before and read just after: it reaches no kernel of the port (the
-    JAX package computes these models in plain ``jnp``), so every count
-    must stay 0.  (a) ``llama3_2_1b`` at its full published config (16
-    layers, d_model 2048, 32 heads / 8 KV heads, d_ff 8192, vocab 128,256,
-    tied embeddings, bf16 compute, float32 parameters), weights drawn on
+    just before and read just after: it reaches no kernel of the port but
+    the selective scan (``ssm_scan``, no TPU kernel's port: the JAX
+    package computes these models in plain ``jnp``), which must launch
+    once a Mamba layer of each prompt or forward of (b)'s two Mamba
+    families, so every other count must stay 0.  (a) ``llama3_2_1b`` at
+    its full published config (16 layers, d_model 2048, 32 heads / 8 KV
+    heads, d_ff 8192, vocab 128,256, tied embeddings, bf16 compute,
+    float32 parameters), weights drawn on
     the card from ``--seed``: 8 requests of 32-token prompts from
     ``data.synthetic.token_batches``, 32 greedy tokens each through
     ``serve.decode.generate``, twice (equal tokens, each in [0, vocab));
@@ -263,6 +266,14 @@ printed then:
     2): float32 prefill + 8 teacher-forced decode steps within 1e-3 of
     ``forward`` (MoE at capacity_factor 64, so neither drops a token), then
     a bf16 prefill (finite logits) and ``generate`` (tokens in range).
+    (c) The scan kernel alone at the LM cell's Mamba layer (16 x 1,024
+    positions, d_inner 8,192, N 16, x, B and C bf16, h0 0) against its
+    plain version and the chunked scan ``models.ssm._ssm_inner``, within
+    1e-5 of the largest |value| (float32 in both, summed in other
+    orders), timed as in phase 3 beside the chunked scan and the plain
+    version; its bound is the larger of its bytes (each operand read and
+    each output written once) at 3.35 TB/s and its exps at one MUFU.EX2
+    each (16 a clock an SM: 4.18e12 a second).
 
 13. LM training on one card (``train_path``, ``[train]`` lines), its counts
     set to 0 just before and read just after: kernel 1 launches once (the
@@ -301,7 +312,8 @@ printed then:
 
 14. The mesh paths over two ranks sharing the card (``mesh_path``,
     ``[mesh]`` lines), its counts set to 0 just before and read just
-    after: (a)-(g) launch no kernel (the LM stack reaches none); (h)
+    after: (a)-(g) launch no kernel (the LM stack reaches none but the
+    selective scan, whose launches are printed); (h)
     launches the signing and query kernels on each rank.  Two processes
     (``launch.ranks.RankPool``, the spawn context) join one gloo process
     group on ``cuda:0`` (NCCL takes one rank a card); the script is their
@@ -2818,7 +2830,9 @@ def lm_path(seed: int, report: dict) -> None:
     """Phase 12: the LM serving path.  (a) ``llama3_2_1b`` at its full
     published config through ``models.build`` and ``serve.decode.generate``;
     (b) one config of each other family at full width, cut to
-    ``LM_CUT_LAYERS`` layers.  Counted: the path reaches no kernel."""
+    ``LM_CUT_LAYERS`` layers; (c) the scan kernel alone (``ssm_scan_entry``).
+    Counted: the path reaches no kernel but the scan, once a Mamba layer of
+    each prompt."""
     import copy
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
@@ -2931,6 +2945,7 @@ def lm_path(seed: int, report: dict) -> None:
 
     # (b) each other family at full width, LM_CUT_LAYERS layers
     families = {}
+    scans = 0
     for arch in LM_FAMILIES:
         t0 = time.perf_counter()
         full_cfg = get_config(arch)
@@ -2961,6 +2976,8 @@ def lm_path(seed: int, report: dict) -> None:
         t1 = time.perf_counter()
         toks = generate(b16, params, batch, max_new_tokens=LM_FAMILY_STEPS)
         gen_s = time.perf_counter() - t1
+        # float32 forward and prefill, bf16 prefill, generate's prompt
+        scans += 4 * sum("ssm" in fcfg.mixer(i) for i in range(fcfg.n_layers))
         require(toks.shape == (LM_BATCH, LM_FAMILY_STEPS)
                 and 0 <= toks.min() and toks.max() < fcfg.vocab_size,
                 f"{arch} bf16: tokens in [0, vocab_size)")
@@ -2979,13 +2996,77 @@ def lm_path(seed: int, report: dict) -> None:
         del params, b32, b16, logits
         torch.cuda.empty_cache()
     launches_all = read_counts(ks_all)
-    require(sum(launches_all.values()) == 0,
-            f"the LM path reaches no kernel of the port ({launches_all})")
-    out.update(families=families, launches=launches_all,
+    require(sum(launches_all.values()) == launches_all["ssm_scan"] == scans,
+            f"the LM path reaches no kernel of the port but the scan, once a "
+            f"Mamba layer of each prompt ({scans}: {launches_all})")
+    # (c) the scan kernel alone at the LM cell's shape
+    row = ssm_scan_entry(seed)
+    report.setdefault("kernels", []).append(row)
+    out.update(families=families, launches=launches_all, ssm_scan=row,
                wall_s=time.perf_counter() - t_phase)
     report["lm_path"] = out
     print(f"[lm] phase {out['wall_s']:.1f} s; kernel launches "
           f"{launches_all}")
+
+
+SCAN_SHAPE = (16, 1024, 8192, 16)   # the LM cell's Mamba layer: B, S, Di, N
+SCAN_TOL = 1e-5                     # of the largest |y| or |h|
+SCAN_EXPS_PER_S = 132 * 16 * 1.98e9     # MUFU.EX2: 16 a clock an SM
+
+
+def ssm_scan_entry(seed: int) -> dict:
+    """Phase 12 (c): the scan kernel at ``SCAN_SHAPE`` against its plain
+    version and the chunked scan, timed beside both and its bound."""
+    from repro_torch.kernels import ssm_scan as kss
+    from repro_torch.models.ssm import _ssm_inner
+    b, s, di, n = SCAN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, generator=gen, device="cuda") * 0.5 - 4.6)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").expand(di, n).contiguous()
+    bm, cm, xs = (torch.randn(*shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16)
+                  for shape in ((b, s, n), (b, s, n), (b, s, di)))
+    ops = (dt, a, bm, cm, xs, torch.zeros(b, di, n, device="cuda"))
+    got = kss.ssm_scan_kernel(*ops)
+    wants = {"plain": kss.ssm_scan_plain(*ops),
+             "chunked": _ssm_inner(*ops, 32, torch.float32)}
+    diffs = {k: [max_abs_err(g, w) for g, w in zip(got, want)]
+             for k, want in wants.items()}
+    errs = {k: max(d / float(w.abs().max()) for d, w in zip(diffs[k], want))
+            for k, want in wants.items()}
+    for name, err in errs.items():
+        require(err < SCAN_TOL, f"ssm_scan within {SCAN_TOL} of the {name} "
+                f"scan ({err:.3e})")
+    abs_err = max(diffs["plain"])
+    del got, wants
+    ms, dev_ms = both_ms(lambda: kss.ssm_scan_kernel(*ops), 20)
+    plain_ms = time_ms(lambda: kss.ssm_scan_plain(*ops), 3, warmup=1)
+    chunked_ms = time_ms(lambda: _ssm_inner(*ops, 32, torch.float32), 3,
+                         warmup=1)
+    nbytes = sum(t.numel() * t.element_size() for t in ops) \
+        + (b * s * di + b * di * n) * 4
+    exps = b * s * di * n
+    by_bytes, by_exps = nbytes / HBM_BYTES_PER_S, exps / SCAN_EXPS_PER_S
+    b_ms, b_by = max(by_bytes, by_exps) * 1e3, \
+        "bytes" if by_bytes >= by_exps else "exps"
+    print(f"[kernel] ssm_scan {list(SCAN_SHAPE)} (bf16 x, B, C): within "
+          f"{errs['plain']:.3e} of the plain version, {errs['chunked']:.3e} "
+          f"of the chunked scan; {ms:.4f} ms, device {fmt_ms(dev_ms)} ms "
+          f"(plain {plain_ms:.4f} ms, chunked {chunked_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}: {by_bytes * 1e3:.4f} by {nbytes} bytes, "
+          f"{by_exps * 1e3:.4f} by {exps} exps); {card_line()}")
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "none (src/repro/models/ssm.py:88 "
+                        "jax.lax.associative_scan)",
+            "launches": None, "max_abs_err": abs_err, "equal": False,
+            "tolerance": SCAN_TOL, "rel_err": errs, "ms": ms,
+            "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "chunked_ms": chunked_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bytes": nbytes, "operations": exps,
+            "shape": list(SCAN_SHAPE)}
 
 
 TRAIN_ARCH = "llama3_2_1b"
@@ -3889,7 +3970,8 @@ def mesh_path(seed: int, report: dict, entry: dict | None = None) -> None:
     device, from ``entry``'s inputs (``entry_inputs``).
     In (a), (c), (f) and (g) each rank's gradients are held against one
     device's, and its parameters after the step; the grad norm must be
-    the same on every rank.  (a)-(g) reach no kernel of the port; (h)
+    the same on every rank.  (a)-(g) reach no kernel of the port but the
+    selective scan; (h)
     launches the signing and query kernels on each rank.  The parent's
     counts (to the end of (g)) and each rank's, each set to 0 just before
     its part, summed."""
@@ -4069,14 +4151,15 @@ def mesh_path(seed: int, report: dict, entry: dict | None = None) -> None:
         part("f")
         out["families"] = _mesh_families(run, tmp, tc, seed)
         part("g")
-        # (a)-(g) reach no kernel; the parent's counts stop here, so that
-        # (h)'s one-device references do not count as the mesh's launches
+        # (a)-(g) reach no kernel but the scan; the parent's counts stop
+        # here, so that (h)'s one-device references do not count as the
+        # mesh's launches
         parent = read_counts(ks_all)
         quiet = {n: parent[n] + sum(r[n] for r in rank_launches)
                  for n in ks_all}
-        require(sum(quiet.values()) == 0, "(a)-(g) launch no kernel of the "
-                f"port, the parent's and both ranks' counts summed "
-                f"({quiet})")
+        require(sum(quiet.values()) == quiet["ssm_scan"], "(a)-(g) launch "
+                f"no kernel of the port but the scan, the parent's and both "
+                f"ranks' counts summed ({quiet})")
         # (h) signing, the service, dedup and generate over the mesh
         out["entry"] = _mesh_entry(run, seed, entry_inputs(entry))
         part("h")

@@ -33,7 +33,7 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("cminhash_sparse", "fold", "lsh_probe", "collision",
-           "cminhash_dense", "cminhash_packed", "topk_select")
+           "cminhash_dense", "cminhash_packed", "topk_select", "ssm_scan")
 
 
 def nvcc_path() -> str:

@@ -9,6 +9,12 @@ float32.  The reference combines the same pairs with
 ``jax.lax.associative_scan``, in another order, so the two round
 differently: the tests hold them within stated tolerances.
 
+On a CUDA device, where no gradient is wanted and the scan is float32,
+``ssm_block`` runs the scan as one launch of the hand-written kernel
+(``kernels/ssm_scan.py``), one position at a time with the state in
+registers; the chunked scan stays the path of the CPU, of training and of
+a lower ``ssm_scan_dtype``, and ``cfg.ssm_chunk`` shapes only it.
+
 Over a mesh (``par``, a ``distributed.parallel.Parallel`` whose SSM
 channels split) a rank runs its ``d_inner / tp`` channels: the conv, the
 scan, ``dt_proj`` (column-parallel) and the ``h``/``conv`` caches are its
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ssm_scan
 from .layers import normal_init, rmsnorm
 
 Tensor = torch.Tensor
@@ -105,6 +112,16 @@ def _ssm_inner(dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor, xs: Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _scan_on_kernel(cfg, *operands: Tensor) -> bool:
+    """The scan kernel's case: the operands on a CUDA device, no gradient
+    wanted through them (the kernel has no backward) and a float32 scan
+    (a lower ``ssm_scan_dtype`` is the chunked scan's alone)."""
+    return (operands[0].device.type == "cuda"
+            and cfg.ssm_scan_dtype == "float32"
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in operands)))
+
+
 def _split(par) -> bool:
     return par is not None and par.ssm_split
 
@@ -171,8 +188,13 @@ def ssm_block(p, x: Tensor, cfg, h0: Tensor | None = None,
     if h0 is None:
         h0 = torch.zeros(bsz, a.shape[0], n, dtype=torch.float32,
                          device=x.device)
-    y, h_final = _ssm_inner(dt, a, bmat, cmat, xs_conv, h0, cfg.ssm_chunk,
-                            getattr(torch, cfg.ssm_scan_dtype))
+    operands = (dt, a, bmat, cmat, xs_conv, h0)
+    if _scan_on_kernel(cfg, *operands):
+        y, h_final = ssm_scan.ssm_scan_kernel(
+            *(t.contiguous() for t in operands))
+    else:
+        y, h_final = _ssm_inner(*operands, cfg.ssm_chunk,
+                                getattr(torch, cfg.ssm_scan_dtype))
     y = y + xs_conv.float() * p["d_skip"].float()
     y = y.to(dtype) * F.silu(z)
     return _out_proj(p, y, par), h_final, conv_tail

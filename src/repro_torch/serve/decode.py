@@ -24,7 +24,9 @@ With dropless experts, ``lm.generate`` gets ``max_load`` (the most
 assignments one expert took in one layer of the prompt) and
 ``lm.decode`` ``experts_hit`` (the expert weights a decode step read,
 over all MoE layers, on average), from the cache's counters, read with
-the tokens.
+the tokens.  On a CUDA device ``lm.generate`` gets ``ssm_scan_launches``,
+the scan kernel's launches over the call (one a Mamba layer of the
+prompt), from the wrapper's host count.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ..device import resolve_device
 from ..distributed import collectives as col
 from ..distributed import sharding
+from ..kernels import ssm_scan
 from ..obs import trace as obs_trace
 
 Tensor = torch.Tensor
@@ -92,6 +95,7 @@ def generate(bundle, params, batch: dict, *, max_new_tokens: int,
         tp = sharding.mesh_shape(mesh).get("model", 1)
     tracer = obs_trace.default()
     steps = max_new_tokens - 1
+    scans = ssm_scan.KERNEL.launches
     with tracer.span("lm.generate") as root, torch.no_grad():
         root.tag("batch", len(batch["tokens"])).tag(
             "prompt_len", prompt_len).tag("new_tokens", max_new_tokens)
@@ -129,6 +133,8 @@ def generate(bundle, params, batch: dict, *, max_new_tokens: int,
                      events[0].elapsed_time(events[1]))
         if load is not None:
             root.tag("max_load", int(load.max()))
+        if dev.type == "cuda":
+            root.tag("ssm_scan_launches", ssm_scan.KERNEL.launches - scans)
     if keep_logits:
         return out, torch.stack(kept, dim=1)
     return out

@@ -9,7 +9,11 @@ and sentinel codes, the whole serving index in one launch, outputs past
 2^31 entries and counts past 2^24; for the signing kernels' window-min core
 (sparse, dense int8 and bit-packed), D on both sides of each table
 placement, rows longer than the compaction list, K past the hashes a lane
-holds, set bits past D in the last word.  Integer outputs: tolerance 0.
+holds, set bits past D in the last word; for the selective scan, the LM
+cell's widths, S of 0 and below a tile, ragged and unaligned channels,
+every lane split, and its dispatch from ``ssm_block`` and a prefill with
+no host sync.  Integer outputs: tolerance 0; the scan's float32: 1e-5 of
+the largest value.
 Also: the wrappers refuse what the kernels do not take, the service and
 the raw-signature store answer the same on the card as on the CPU, and
 snapshots cross between the card and the CPU.  Imports neither jax nor repro,
@@ -37,6 +41,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import lsh_probe as kp
 from repro_torch.kernels import ops
 from repro_torch.kernels import query_fused as kq
+from repro_torch.kernels import ssm_scan as kss
 from repro_torch.kernels.packfmt import PACK_BITS, pack_codes, pack_geometry
 from repro_torch.store.table import BandedLSHTable
 
@@ -1193,7 +1198,8 @@ def test_lm_ring_cache_on_the_card_matches_the_cpu(cuda, monkeypatch, arch,
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_lm_bf16_generate_on_the_card(cuda, arch):
     """The configs' own bf16 compute on the card: finite prefill logits,
-    tokens in range, the same tokens twice, and no kernel of the port."""
+    tokens in range, the same tokens twice, and no kernel of the port but
+    the scan kernel, once a Mamba layer of each of the three prompts."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import all_kernels
     from repro_torch.models import build
@@ -1219,6 +1225,8 @@ def test_lm_bf16_generate_on_the_card(cuda, arch):
         and toks.max() < cfg.vocab_size
     assert np.array_equal(toks, generate(bundle, params, batch,
                                          max_new_tokens=6))
+    n_ssm = sum("ssm" in cfg.mixer(i) for i in range(cfg.n_layers))
+    before["ssm_scan"] += 3 * n_ssm
     assert {n: k.launches for n, k in all_kernels().items()} == before
 
 
@@ -1815,3 +1823,156 @@ def test_autotune_measure_on_the_card(cuda, tmp_path, monkeypatch, kind, b,
         assert torch.equal(got, runner.plain())
     finally:
         autotune.clear_cache()
+
+
+# -- the selective scan (csrc/ssm_scan.cu) -------------------------------------
+#
+# Tolerance: 1e-5 of the largest |value| (y or h), against the plain version
+# (the same order, one position at a time: the kernel contracts h's update and
+# y's sum into FMAs, ~1 ulp a step, damped by the decays) and against the
+# chunked scan ``_ssm_inner`` (the decays multiplied in another order).
+
+SCAN_TOL = 1e-5
+
+
+def _scan_operands(cuda, b, s, di, n, dtype, seed):
+    """(dt, a, B, C, x, h0) as ``ssm_block`` makes them, on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, generator=gen, device=cuda) * 0.5 - 4.6)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=cuda) \
+        * torch.rand(di, 1, generator=gen, device=cuda).add(0.5)
+    bm, cm, xs = (torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+                  for shape in ((b, s, n), (b, s, n), (b, s, di)))
+    h0 = torch.randn(b, di, n, generator=gen, device=cuda)
+    return dt, a.contiguous(), bm, cm, xs, h0
+
+
+def _scan_err(got, want) -> float:
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if want.numel() == 0:
+        return 0.0
+    scale = float(want.abs().max()) or 1.0
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def _scan_close(got, ops, inner=True):
+    from repro_torch.models.ssm import _ssm_inner
+    wants = [kss.ssm_scan_plain(*ops)]
+    if inner and ops[0].shape[1]:
+        wants.append(_ssm_inner(*ops, 32, torch.float32))
+    for want in wants:
+        assert _scan_err(got[0], want[0]) < SCAN_TOL
+        assert _scan_err(got[1], want[1]) < SCAN_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_kernel_at_the_cells_widths(cuda, dtype):
+    """B 2, S 1,024, Di 8,192, N 16 (AI21-Jamba2-Mini's Mamba layers; B 2
+    splits each channel over 4 lanes), then the same rows through one lane
+    a channel, as B 16 runs."""
+    ops = _scan_operands(cuda, 2, 1024, 8192, 16, dtype, seed=11)
+    got = kss.ssm_scan_kernel(*ops)
+    torch.cuda.synchronize()
+    _scan_close(got, ops)
+    one_lane = kss._launch(*ops, lanes=1)
+    torch.cuda.synchronize()
+    _scan_close(one_lane, ops, inner=False)
+
+
+@pytest.mark.parametrize("s", [0, 1, 5, 13, 64])
+@pytest.mark.parametrize("di,n", [(130, 16), (200, 8), (202, 8), (256, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_ssm_scan_kernel_on_ragged_shapes(cuda, s, di, n, dtype, lanes):
+    """S of 0, 1, below and not a multiple of the 8-position tile; Di not a
+    multiple of a block's channels, and 202 (rows not on 16 bytes: the
+    plain-load staging); N 8 and 16; non-zero h0; every lane split."""
+    ops = _scan_operands(cuda, 3, s, di, n, dtype, seed=s * 7 + di + n)
+    got = kss._launch(*ops, lanes=lanes)
+    torch.cuda.synchronize()
+    assert got[0].shape == (3, s, di) and got[1].shape == (3, di, n)
+    _scan_close(got, ops)
+
+
+def test_ssm_scan_kernel_on_views_of_unaligned_storage(cuda):
+    """Operands that start off 16 bytes (views one element in): the
+    plain-load staging, the same answers."""
+    ops = _scan_operands(cuda, 2, 21, 256, 16, torch.bfloat16, seed=5)
+    shifted = []
+    for t in ops:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    got = kss.ssm_scan_kernel(*shifted)
+    torch.cuda.synchronize()
+    _scan_close(got, ops)
+
+
+def test_ssm_scan_kernel_refuses_a_cpu_or_strided_operand(cuda):
+    ops = list(_scan_operands(cuda, 2, 5, 128, 16, torch.bfloat16, seed=1))
+    with pytest.raises(ValueError, match="h0 is on cpu"):
+        kss.ssm_scan_kernel(*ops[:5], ops[5].cpu())
+    strided = torch.empty(2, 5, 32, dtype=torch.bfloat16, device=cuda)
+    strided = strided[:, :, ::2]
+    strided.copy_(ops[3])
+    with pytest.raises(ValueError, match="cmat must be contiguous"):
+        kss.ssm_scan_kernel(*ops[:3], strided, *ops[4:])
+
+
+def _mamba_cfg(arch="falcon_mamba_7b", **changes):
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)), **changes)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "jamba2_mini"])
+def test_prefill_through_the_scan_kernel_never_waits_for_the_card(cuda,
+                                                                  arch):
+    """A bf16 prefill at reduced widths queues its work, the scan kernel's
+    launches included, with no host sync."""
+    from repro_torch.models import build
+    cfg = _mamba_cfg(arch)
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(0)
+    tok = torch.randint(0, cfg.vocab_size_real or cfg.vocab_size, (4, 40),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    n_ssm = sum("ssm" in cfg.mixer(i) for i in range(cfg.n_layers))
+    with torch.no_grad():
+        bundle.prefill(params, {"tokens": tok})          # builds, warms up
+        torch.cuda.synchronize()
+        before = kss.KERNEL.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = bundle.prefill(params, {"tokens": tok})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert kss.KERNEL.launches - before == n_ssm > 0
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_ssm_block_takes_the_kernel_only_without_grad_in_float32(cuda):
+    """Under ``no_grad`` one launch a call, equal to the chunked scan's
+    block; with a gradient wanted, or ``ssm_scan_dtype="bfloat16"``, none."""
+    from repro_torch.models import ssm as t_ssm
+    cfg = _mamba_cfg(dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = t_ssm.init_ssm(gen, cfg, torch.float32)
+    x = torch.randn(2, 37, cfg.d_model, generator=gen, device=cuda)
+    n0 = kss.KERNEL.launches
+    with torch.no_grad():
+        got = t_ssm.ssm_block(p, x, cfg)
+        assert kss.KERNEL.launches == n0 + 1
+        want = t_ssm.ssm_block(p, x, dataclasses.replace(
+            cfg, ssm_scan_dtype="bfloat16"))
+        assert kss.KERNEL.launches == n0 + 1
+    grad_p = {k: v.clone().requires_grad_() for k, v in p.items()}
+    chunked = t_ssm.ssm_block(grad_p, x, cfg)
+    assert kss.KERNEL.launches == n0 + 1
+    chunked[0].float().sum().backward()
+    assert grad_p["a_log"].grad is not None
+    torch.cuda.synchronize()
+    for g, w in zip(got, chunked):
+        assert _scan_err(g, w.detach()) < SCAN_TOL
+    # the bf16 scan is another function: it lands elsewhere
+    assert _scan_err(got[0], want[0]) > SCAN_TOL
