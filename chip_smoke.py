@@ -26,8 +26,8 @@ printed then:
    brute-force fallback.  Then the same batch through the shard's own
    ``SketchStore.query_packed`` (the library's single-store query), its
    counts set to 0 just before and read just after (``store_path``): it
-   must answer as the service did, with one launch of the fold + probe
-   kernel a batch and none of the probe from hashes.
+   must answer as the service did, with one launch of the fold and one of
+   the probe a batch, the leg the service's shard runs.
 3. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it: outputs must be equal (tolerance 0, all
    integers).  Times are medians of CUDA-event timings after warm-up.
@@ -45,12 +45,12 @@ printed then:
    p=0)`` (float64 holds the int32 codes exactly; checked equal), timed
    here only; no single PyTorch call computes the others, so theirs is
    null.  The probe runs from the fold's hashes on the card
-   (``lsh_probe``) and, folding the query words itself, as one launch
-   (``fold_probe``); its bound counts the function's own bytes (8 a hash
-   or R * 4 a band's words, 8 a probe step this run's walks take, W * 4 a
-   hit, the output), and the dependent reads of the earlier and the
-   current probe over this run's walks are printed beside it; then the fold -> candidates leg
-   as the service's shard runs it is timed.  The collision kernel is timed
+   (``lsh_probe``); its bound counts the function's own bytes (8 a hash,
+   8 a probe step this run's walks take, W * 4 a hit, the output), and
+   the dependent reads of the earlier and the current probe over this
+   run's walks are printed beside it; then the fold -> candidates leg as
+   every query leg runs it (the service's shard and the single store) is
+   timed.  The collision kernel is timed
    at the fallback's real call, the pow2-padded fallback rows against all
    262,144 indexed rows in one launch on the stored words, and on one
    16,384-row block of unpacked codes (the shape the earlier blocked
@@ -75,7 +75,7 @@ printed then:
    count on 2-bit words).  The same 262,144 documents through
    ``IngestPipeline(depth=2)``, the same 1088-row batch five times; counts
    set to 0 just before and read just after: the sparse kernel and the
-   probe must have launched, the fold and fold + probe kernels not at all,
+   probe must have launched, the fold kernel not at all,
    the collision kernel once per fallback call per shard.  Every indexed
    row must find its own id in its top 5 at score 1.0, and some rows must
    take the fallback.  The query side's registry histograms over batches
@@ -410,11 +410,11 @@ timed both ways; the collision kernel's count loop is profiled in SASS
 (instructions a compare, by opcode).  Then the query side at the main
 path's full-size shapes (a 2^19-slot, 32-band table of 262,144 documents,
 1088 x 32 x 8 query codes): the fold, the probe from the fold's hashes,
-the fold -> candidates leg as the service's shard runs it (fold, probe;
-DIR's sources on the earlier operand-row interface: fold, hashes to the
-host, ``probe_operands``, upload, probe) and as the single store runs it (one
-fold + probe launch; DIR's: fold, ``meta_from_hashes``, probe); each also
-timed with L2 flushed before every run.  Output:
+and the fold -> candidates leg as every query leg runs it, the service's
+shard and the single store alike (fold, probe; DIR's sources on the
+earlier operand-row interface: fold, hashes to the host,
+``probe_operands``, upload, probe); each also timed with L2 flushed before
+every run.  Output:
 ``chiprun_out/compare.json`` and ``chiprun_out/collision.sass``.
 Last, the trainer's gather form (``core.linear_model.fit_logistic``)
 against its first, index form at phase 11's shape, in turns
@@ -768,8 +768,8 @@ def main_path(idx, fresh_idx, report: dict):
 def store_path(svc, qidx, ids, scores, report: dict) -> None:
     """Phase 2, second leg: the same query batch through the main path's
     shard store, ``SketchStore.query_packed``, the library's single-store
-    query (fold and probe in one launch of the probe kernel), counted apart
-    from the service.  It must answer as the service did."""
+    query (the shard's leg: the fold, then the probe from its hashes),
+    counted apart from the service.  It must answer as the service did."""
     ks = kernels()
     store = svc.store.shards[0].store
     qwords = svc.engine.sign(qidx, layout="sparse", pack_b=svc.cfg.b)
@@ -792,9 +792,10 @@ def store_path(svc, qidx, ids, scores, report: dict) -> None:
           + f" ms; launches {launches}")
     require(np.array_equal(s_ids, ids) and np.array_equal(s_scores, scores),
             "the store's own query answers as the service")
-    require(launches["fold_probe"] == len(lat) and launches["lsh_probe"] == 0,
-            f"the store's query probes in one fold + probe launch a batch "
-            f"({launches['fold_probe']} for {len(lat)} batches)")
+    require(launches["fold"] == len(lat) and launches["lsh_probe"] == len(lat),
+            f"the store's query folds and probes once a batch, as the "
+            f"service's shard ({launches['fold']} fold and "
+            f"{launches['lsh_probe']} probe launches for {len(lat)} batches)")
 
 
 def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
@@ -883,8 +884,7 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
     ns, mp = store.table.n_slots, store.table.max_probes
     row, got = probe_entry(records, folded, ns, mp)
     out.append(row)
-    w, e = records.shape[1] - 2, folded.numel()
-    walk_bytes = row["probe_steps"] * 8 + row["hits"] * w * 4
+    e = folded.numel()
     print(f"[kernel] lsh_probe walk: {row['probe_steps']} steps for {e} "
           f"entries (most {row['steps_max']}), {row['hits']} hits; "
           f"dependent round trips, mean / most: thread an entry "
@@ -893,30 +893,15 @@ def kernel_checks(svc, idx, qidx, report: dict) -> list[dict]:
           f"{row['round_trips_group_walk']['mean']:.3f} / "
           f"{row['round_trips_group_walk']['max']}")
 
-    # 3b. fold + probe in one launch, from the query words (the store's own
-    # query)
-    fused = kq.fold_probe_kernel(records, rows, n_slots=ns, max_probes=mp)
-    require(torch.equal(fused, got), "fold + probe == probe of the fold")
-    ms, dev_ms = both_ms(lambda: kq.fold_probe_kernel(
-        records, rows, n_slots=ns, max_probes=mp), 50)
-    plain_ms = time_ms(lambda: kq.fold_probe_plain(
-        records, rows, n_slots=ns, max_probes=mp), 5)
-    entry("fold_probe", "src/repro_torch/csrc/lsh_probe.cu",
-          "src/repro/kernels/lsh_probe.py:137", fused,
-          kq.fold_probe_plain(records, rows, n_slots=ns, max_probes=mp), ms,
-          plain_ms, rows.numel() * 4 + walk_bytes + fused.numel() * 4,
-          row["probe_steps"] * 3 + rows.numel() * 5, dev_ms,
-          {"shape": list(rows.shape) + [w],
-           "also_replaces": "src/repro/kernels/query_fused.py:164"})
-
-    # the fold -> candidates leg as the main path's shard runs it: words on
-    # the card to candidate ids on the card
+    # the fold -> candidates leg as every query leg runs it (the main
+    # path's shard, the single store): words on the card to candidate ids
+    # on the card
     leg_ms, leg_dev_ms = both_ms(lambda: kp.lsh_probe_hashes_kernel(
         records, dispatch.fold_hashes(qwords, n_bands=cfg.n_bands),
         n_slots=ns, max_probes=mp), 50)
     report["query_leg"] = {"service_ms": leg_ms,
                            "service_device_ms": leg_dev_ms}
-    print(f"[kernel] fold -> candidates leg as the service runs it: "
+    print(f"[kernel] fold -> candidates leg as every query leg runs it: "
           f"{leg_ms:.4f} ms, device {leg_dev_ms:.4f} ms")
 
     # 4. collision counts: the brute-force fallback's call, the
@@ -1261,9 +1246,9 @@ def raw_path(idx, fresh_idx, report: dict):
     require(n_fallback > 0, "some raw rows take the brute-force fallback")
     for n in ("cminhash_sparse", "lsh_probe"):
         require(launches[n] > 0, f"kernel {n} launched on the raw path")
-    require(launches["fold"] == 0 and launches["fold_probe"] == 0,
+    require(launches["fold"] == 0,
             f"raw keys are folded on the host: no fold launch "
-            f"({launches['fold']}, {launches['fold_probe']})")
+            f"({launches['fold']})")
     require(launches["collision"] == len(lat) * n_shards,
             f"collision kernel launched once per brute-force fallback call "
             f"({launches['collision']} for {len(lat)} query batches x "
@@ -1597,7 +1582,7 @@ def tcp_path(main_svc, idx, qidx, report: dict) -> None:
                 f"the coordinator folds once a batch and probes and scores "
                 f"nothing ({coordinator})")
         for i, w in enumerate(workers):
-            require(w["fold"] == 0 and w["fold_probe"] == 0,
+            require(w["fold"] == 0,
                     f"worker {i} launches no fold ({w})")
             require(w["lsh_probe"] == len(lat)
                     and w["collision"] == len(lat)
@@ -1714,8 +1699,7 @@ def check_lane_launches(lanes: list[dict], tag: str) -> None:
                 f"and the collision kernel once a BRUTE ({probes} probe "
                 f"launches for {queries} QUERY frames, {scores} collision "
                 f"launches for {brutes} BRUTE frames)")
-        require(all(ln["launches"]["fold"] == 0
-                     and ln["launches"]["fold_probe"] == 0 for ln in mine),
+        require(all(ln["launches"]["fold"] == 0 for ln in mine),
                 f"{tag}: shard {s}'s lanes launch no fold")
     # a lane's store uploads its index to the card on its first read, so
     # only a lane that answered a QUERY must hold bytes there
@@ -5175,16 +5159,16 @@ def query_case(n_docs: int):
 
 def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
     """``--compare``, the query side: the fold, the probe and the fold ->
-    candidates leg at the main path's full-size shapes (1088 x 32 x 8 query
-    codes, a 2^19-slot, 32-band table of 262,144 documents).  With
-    ``--baseline DIR``, beside each the previous ``fold.cu`` /
-    ``lsh_probe.cu`` built from DIR, called as the earlier wrappers called
-    them: a probe with the earlier operand-row interface gets its operands
-    built as those wrappers built them, on the host (``probe_operands``,
-    then an upload) in the service's leg and on the card
-    (``meta_from_hashes``) in the single store's.  Each variant is
-    checked against the plain version and timed in turns, with and
-    without the host's launch work, and with L2 flushed."""
+    candidates leg ("service leg": every query leg, the service's shard
+    and the single store alike) at the main path's full-size shapes (1088
+    x 32 x 8 query codes, a 2^19-slot, 32-band table of 262,144
+    documents).  With ``--baseline DIR``, beside each the previous
+    ``fold.cu`` / ``lsh_probe.cu`` built from DIR, called as the earlier
+    wrappers called them: a probe with the earlier operand-row interface
+    gets its operands built as those wrappers built them, on the host
+    (``probe_operands``, then an upload).  Each variant is checked against
+    the plain version and timed in turns, with and without the host's
+    launch work, and with L2 flushed."""
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels import lsh_probe as kp
     from repro_torch.kernels import query_fused as kq
@@ -5203,9 +5187,7 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
                records, hashes, n_slots=ns, max_probes=mp),
            "service leg": lambda: kp.lsh_probe_hashes_kernel(
                records, dispatch.fold_hashes(qwords, n_bands=nb),
-               n_slots=ns, max_probes=mp),
-           "store leg": lambda: kq.fold_probe_kernel(
-               records, rows, n_slots=ns, max_probes=mp)}
+               n_slots=ns, max_probes=mp)}
     old = {}
     if libs:
         with open(os.path.join(baseline, "src", "repro_torch", "csrc",
@@ -5235,9 +5217,7 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
                    "probe": lambda: old_probe(meta),
                    "service leg": lambda: old_probe(torch.tensor(
                        kp.probe_operands(kq.hashes_to_host(old_fold()), ns),
-                       device=dev)),
-                   "store leg": lambda: old_probe(kq.meta_from_hashes(
-                       old_fold(), n_slots=ns).contiguous())}
+                       device=dev))}
         else:
             probe_k = (_build.CudaKernel("lsh_probe", kp.KERNEL.argtypes,
                                          library=libs["lsh_probe"])
@@ -5257,7 +5237,7 @@ def compare_query(baseline: str | None, libs: dict, report: dict) -> None:
     want = {"fold": kq.fold_rows_plain(rows),
             "probe": kp.lsh_probe_hashes_plain(records, hashes, n_slots=ns,
                                                max_probes=mp)}
-    want["service leg"] = want["store leg"] = want["probe"]
+    want["service leg"] = want["probe"]
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     cases = [(case, {"new": fn, **({"old": old[case]} if case in old
                                    else {})}, want[case])

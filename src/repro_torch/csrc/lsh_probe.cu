@@ -2,9 +2,7 @@
 //
 // Replaces the Pallas probe kernel of the JAX package:
 //   src/repro/kernels/lsh_probe.py  _probe_kernel (:112) and
-//   lsh_probe_pallas (:137; pallas_call at :155),
-// and, in its words-in form, the fold in front of it as well
-// (src/repro/kernels/query_fused.py fold_planes_pallas, :164).
+//   lsh_probe_pallas (:137; pallas_call at :155).
 //
 // Computes, for each entry e (one (query, band) pair, row-major by query),
 // from the entry's uint64 band hash `key`:
@@ -18,9 +16,8 @@
 // slot (key halves -1, -1): slots are never freed and inserts walk the same
 // chain, so no record of a key sits past an unused slot on its chain, and
 // the early exit gives the reference's fixed-depth branchless probe.  The
-// key comes either from the fold's (E,) int64 hashes (lsh_probe_launch) or
-// from the entry's R packed words, folded here (fold_probe_launch, through
-// band_fold.cuh): fold, operands and probe in one launch.
+// keys are (E,) int64 hashes where the fold kernel (fold.cu) wrote them, or
+// where the host uploaded its own fold: every query leg folds, then probes.
 //
 // What bounds it on an H100: latency.  At serving size the records are 32
 // bands * 2^19 slots * 10 int32 = 640 MiB, far past the 50 MB L2, so a
@@ -56,21 +53,18 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "band_fold.cuh"
-
 namespace {
 
 constexpr int kThreads = 256;  // kThreads / kGroup entries a block
 
 // kGroup: lanes an entry (a power of two, <= 16); kSteps: probe steps a
 // round trip (<= kGroup).
-template <int kGroup, int kSteps, bool kEven, bool kWords>
+template <int kGroup, int kSteps, bool kEven>
 __global__ void __launch_bounds__(kThreads)
 lsh_probe_kernel(const int* __restrict__ records,
-                 const long long* __restrict__ hashes,
-                 const int* __restrict__ rows, int* __restrict__ out,
+                 const long long* __restrict__ hashes, int* __restrict__ out,
                  long long n_entries, int n_bands, int n_slots,
-                 int max_probes, int W, int R) {
+                 int max_probes, int W) {
   static_assert(kGroup <= 16 && (kGroup & (kGroup - 1)) == 0 &&
                     kSteps <= kGroup,
                 "probe geometry");
@@ -84,8 +78,7 @@ lsh_probe_kernel(const int* __restrict__ records,
   const unsigned group = ((1u << kGroup) - 1) << shift;
 
   const unsigned long long key =
-      kWords ? band_fold::fold(rows + e * R, R, false)
-             : static_cast<unsigned long long>(__ldg(hashes + e));
+      static_cast<unsigned long long>(__ldg(hashes + e));
   const int stride = 2 + W;
   const int cw = W / kInts;                   // id chunks a record
   Chunk* __restrict__ o = reinterpret_cast<Chunk*>(out + e * W);
@@ -142,73 +135,48 @@ lsh_probe_kernel(const int* __restrict__ records,
   }
 }
 
-template <int kGroup, int kSteps, bool kWords>
-int launch(const int* records, const long long* hashes, const int* rows,
-           int* out, long long n_entries, int n_bands, int n_slots,
-           int max_probes, int W, int R, void* stream) {
+template <int kGroup, int kSteps>
+int launch(const int* records, const long long* hashes, int* out,
+           long long n_entries, int n_bands, int n_slots, int max_probes,
+           int W, void* stream) {
   const long long grid = (n_entries * kGroup + kThreads - 1) / kThreads;
   const bool even = W % 2 == 0 &&
                     reinterpret_cast<uintptr_t>(records) % 8 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (even)
-    lsh_probe_kernel<kGroup, kSteps, true, kWords><<<unsigned(grid), kThreads, 0, s>>>(
-        records, hashes, rows, out, n_entries, n_bands, n_slots, max_probes,
-        W, R);
+    lsh_probe_kernel<kGroup, kSteps, true><<<unsigned(grid), kThreads, 0, s>>>(
+        records, hashes, out, n_entries, n_bands, n_slots, max_probes, W);
   else
-    lsh_probe_kernel<kGroup, kSteps, false, kWords><<<unsigned(grid), kThreads, 0, s>>>(
-        records, hashes, rows, out, n_entries, n_bands, n_slots, max_probes,
-        W, R);
+    lsh_probe_kernel<kGroup, kSteps, false><<<unsigned(grid), kThreads, 0, s>>>(
+        records, hashes, out, n_entries, n_bands, n_slots, max_probes, W);
   return cudaGetLastError();
-}
-
-// The compiled (group, steps) instances; any other pair is refused.
-template <bool kWords>
-int launch_geometry(const int* records, const long long* hashes,
-                    const int* rows, int* out, long long n_entries,
-                    int n_bands, int n_slots, int max_probes, int W, int R,
-                    int group, int steps, void* stream) {
-  using Launch = int (*)(const int*, const long long*, const int*, int*,
-                         long long, int, int, int, int, int, void*);
-  struct Instance {
-    int group, steps;
-    Launch fn;
-  };
-  static constexpr Instance kInstances[] = {
-      {2, 2, launch<2, 2, kWords>},   {4, 2, launch<4, 2, kWords>},
-      {4, 4, launch<4, 4, kWords>},   {8, 4, launch<8, 4, kWords>},
-      {8, 8, launch<8, 8, kWords>},   {16, 8, launch<16, 8, kWords>}};
-  for (const Instance& i : kInstances)
-    if (i.group == group && i.steps == steps)
-      return n_entries == 0 ? cudaSuccess
-                            : i.fn(records, hashes, rows, out, n_entries,
-                                   n_bands, n_slots, max_probes, W, R,
-                                   stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // (E,) int64 band hashes (uint64 bits, row-major by (query, band)) ->
-// (E, W) candidate ids, with (group, steps) among the compiled instances.
+// (E, W) candidate ids.  (group, steps) must be one of the compiled
+// instances; any other pair is refused.
 extern "C" int lsh_probe_launch(const int* records, const long long* hashes,
                                 int* out, long long n_entries, int n_bands,
                                 int n_slots, int max_probes, int W,
                                 int group, int steps, void* stream) {
-  return launch_geometry<false>(records, hashes, nullptr, out, n_entries,
-                                n_bands, n_slots, max_probes, W, 0, group,
-                                steps, stream);
-}
-
-// (E, R) int32 packed words, one band of one query a row (zero-extended,
-// as packed words fold) -> (E, W) candidate ids: fold + probe.
-extern "C" int fold_probe_launch(const int* records, const int* rows,
-                                 int* out, long long n_entries, int n_bands,
-                                 int n_slots, int max_probes, int W, int R,
-                                 int group, int steps, void* stream) {
-  return launch_geometry<true>(records, nullptr, rows, out, n_entries,
-                               n_bands, n_slots, max_probes, W, R, group,
-                               steps, stream);
+  using Launch = int (*)(const int*, const long long*, int*, long long, int,
+                         int, int, int, void*);
+  struct Instance {
+    int group, steps;
+    Launch fn;
+  };
+  static constexpr Instance kInstances[] = {
+      {2, 2, launch<2, 2>},   {4, 2, launch<4, 2>},   {4, 4, launch<4, 4>},
+      {8, 4, launch<8, 4>},   {8, 8, launch<8, 8>},   {16, 8, launch<16, 8>}};
+  for (const Instance& i : kInstances)
+    if (i.group == group && i.steps == steps)
+      return n_entries == 0 ? cudaSuccess
+                            : i.fn(records, hashes, out, n_entries, n_bands,
+                                   n_slots, max_probes, W, stream);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* lsh_probe_error(int code) {

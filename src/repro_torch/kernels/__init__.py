@@ -15,9 +15,8 @@ def all_kernels() -> dict:
                    collision_kernel, lsh_probe, query_fused, ssm_scan,
                    topk_select)
     ks = (cminhash_sparse.KERNEL, query_fused.KERNEL, lsh_probe.KERNEL,
-          query_fused.FOLD_PROBE_KERNEL, collision_kernel.KERNEL,
-          cminhash_kernel.KERNEL, cminhash_packed.KERNEL, topk_select.KERNEL,
-          ssm_scan.KERNEL)
+          collision_kernel.KERNEL, cminhash_kernel.KERNEL,
+          cminhash_packed.KERNEL, topk_select.KERNEL, ssm_scan.KERNEL)
     return {k.name: k for k in ks}
 
 

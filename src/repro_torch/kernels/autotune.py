@@ -17,9 +17,9 @@ knobs):
                     launch's own pick from occupancy (the default)
 * ``fold``       -> {threads}        (kernels.query_fused fold; keyed
                                       B=queries, D=n_bands, K=rows a band)
-* ``probe``      -> {group, steps}   (kernels.lsh_probe, also the probe of
-                                      ``fold_probe``; keyed B=entries,
-                                      D=n_slots, K=record width W)
+* ``probe``      -> {group, steps}   (kernels.lsh_probe, from the fold's
+                                      hashes; keyed B=entries, D=n_slots,
+                                      K=record width W)
 * ``collision``  -> {block_q}        (kernels.collision_kernel; keyed B=Q,
                                       D=N, K=words a row)
 

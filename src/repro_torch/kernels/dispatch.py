@@ -152,15 +152,17 @@ def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
     """Fold -> probe -> score over resident store state: (Q, W) packed
     query words -> ``(ids, scores, has_candidates)`` host arrays.
 
-    * ``hashes=None``: the probe kernel folds the words itself, one launch
-      (power-of-two ``n_slots``: the store gates, as the reference does).
-    * ``hashes=`` the coordinator's ``BandHashes`` (folded once for every
-      shard): the probe reads their device tensor directly.
+    * ``hashes=None``: the fold kernel folds the words (``fold_hashes``),
+      then the probe reads its hashes, as the reference folds and then
+      probes (power-of-two ``n_slots``: the store gates, as the reference
+      does).
+    * ``hashes=`` a ``BandHashes`` folded by the caller (the coordinator
+      folds once for every shard; the store's own queries fold as it
+      does): the probe reads their device tensor directly.
     * ``spill_lookup``: optional ``hashes -> (Q, M) int64`` host callable
       for the table's spilled keys, given the host uint64 hashes and
       concatenated before scoring.  Only this leg makes a host copy of the
-      hashes (once a batch, ``BandHashes.host``); without ``hashes`` the
-      fold kernel runs once more for it.
+      hashes (once a batch, ``BandHashes.host``).
 
     Under a traced query each leg is a span of the process's tracer:
     ``query.probe`` (the launch), ``query.spill`` (tagged ``hits``, the
@@ -178,22 +180,14 @@ def query_fused(records_dev: torch.Tensor, words_dev: torch.Tensor,
     qwords = qwords.to(dev).contiguous()
     q = qwords.shape[0]
     w = records_dev.shape[1] - 2
+    if hashes is None:
+        hashes = _query_fused.BandHashes(fold_hashes(qwords, n_bands=n_bands))
     with tracer.child("query.probe"):
-        if hashes is None:
-            rows = _query_fused.words_to_rows(qwords, n_bands)
-            cand = _query_fused.fold_probe_kernel(records_dev, rows,
-                                                  n_slots=n_slots,
-                                                  max_probes=max_probes)
-        else:
-            cand = _lsh_probe.lsh_probe_hashes_kernel(
-                records_dev, hashes.dev, n_slots=n_slots,
-                max_probes=max_probes)
-        cand = cand.reshape(q, n_bands * w)
+        cand = _lsh_probe.lsh_probe_hashes_kernel(
+            records_dev, hashes.dev, n_slots=n_slots,
+            max_probes=max_probes).reshape(q, n_bands * w)
     if spill_lookup is not None:
         with tracer.child("query.spill") as span:
-            if hashes is None:
-                hashes = _query_fused.BandHashes(fold_hashes(
-                    qwords, n_bands=n_bands))
             with tracer.child(".copy_out"):
                 host = hashes.host()
             spill = np.asarray(spill_lookup(host))

@@ -1,18 +1,15 @@
-"""Device query pipeline pieces: band-hash fold, fused fold + probe, top-k
-scoring.
+"""Device query pipeline pieces: band-hash fold, top-k scoring.
 
 * **fold** — the polynomial band-hash fold ``h = h * BASE + x + 1;
   h ^= h >> 29`` over each band's R codes, in uint64.  The reference
-  emulates it on two uint32 planes; the CUDA kernel (``csrc/fold.cu`` on
-  ``csrc/band_fold.cuh``) uses native 64-bit integers and the plain
-  version wrapping int64 (with the logical shift written as an arithmetic
-  shift and a mask).  Hashes travel as int64 tensors with uint64 bits and
-  stay on the device (``BandHashes``); a host uint64 copy is made only for
-  a host consumer.  Packed words zero-extend, raw int32 signature codes
-  sign-extend, as the host fold does.
-* **fold + probe** — ``fold_probe_kernel``: the probe kernel
-  (``csrc/lsh_probe.cu``) folding each entry's packed words itself, so
-  fold, operands and probe are one launch (the single store's own query).
+  emulates it on two uint32 planes; the CUDA kernel (``csrc/fold.cu``)
+  uses native 64-bit integers and the plain version wrapping int64 (with
+  the logical shift written as an arithmetic shift and a mask).  Hashes
+  travel as int64 tensors with uint64 bits and stay on the device
+  (``BandHashes``), where the probe (``lsh_probe``) reads them; a host
+  uint64 copy is made only for a host consumer.  Packed words
+  zero-extend, raw int32 signature codes sign-extend, as the host fold
+  does.
 * **probe meta** — ``meta_from_hashes`` is the port of the reference's
   ``meta_from_planes`` (power-of-two ``n_slots``), held by its parity test;
   the probe kernel derives its operands itself and no card path calls it.
@@ -33,7 +30,7 @@ import torch
 
 from ..device import take_rows, u32_to_host
 from . import _build, autotune
-from .lsh_probe import META_COLS, check_geometry, lsh_probe_hashes_plain
+from .lsh_probe import META_COLS
 from .packfmt import unpack_codes
 
 BASE = 0x9E3779B97F4A7C15
@@ -46,12 +43,6 @@ KERNEL = _build.CudaKernel("fold", [
     ctypes.c_void_p, ctypes.c_void_p,                    # rows, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # n_rows, nb, R
     ctypes.c_int, ctypes.c_int])                         # sign_extend, threads
-FOLD_PROBE_KERNEL = _build.CudaKernel("fold_probe", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # records, rows, out
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # E, n_bands, n_slots
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # max_probes, W, R
-    ctypes.c_int, ctypes.c_int],                         # group, steps
-    source="lsh_probe")
 
 
 def words_to_rows(words: torch.Tensor, n_bands: int) -> torch.Tensor:
@@ -103,45 +94,6 @@ def fold_rows_kernel(rows: torch.Tensor, *, sign_extend: bool = False,
     if b * nb:
         KERNEL.launch(dev, _build.ptr(rows), _build.ptr(out), b, nb, r,
                       int(sign_extend), threads)
-    return out
-
-
-def fold_probe_plain(flat_records: torch.Tensor, rows: torch.Tensor, *,
-                     n_slots: int, max_probes: int) -> torch.Tensor:
-    """(Q, nb, R) int32 packed words -> (Q * nb, W) candidate ids, -1
-    padded: ``fold_rows_plain``, then ``lsh_probe_hashes_plain``."""
-    return lsh_probe_hashes_plain(flat_records, fold_rows_plain(rows),
-                                  n_slots=n_slots, max_probes=max_probes)
-
-
-def fold_probe_kernel(flat_records: torch.Tensor, rows: torch.Tensor, *,
-                      n_slots: int, max_probes: int, group: int | None = None,
-                      steps: int | None = None) -> torch.Tensor:
-    """(n_bands * n_slots, 2 + W) int32 records and (Q, nb, R) int32 packed
-    words -> (Q * nb, W) int32 candidate ids: the probe kernel with the
-    fold in its prologue (one launch) for CUDA tensors, the plain version
-    for CPU tensors.  ``group`` and ``steps`` are the probe's geometry
-    (``lsh_probe.lsh_probe_hashes_kernel``)."""
-    dev = rows.device
-    if dev.type == "cpu":
-        return fold_probe_plain(flat_records, rows, n_slots=n_slots,
-                                max_probes=max_probes)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    geo = autotune.resolve("probe", rows.shape[0] * rows.shape[1], n_slots,
-                           flat_records.shape[1] - 2, dev.type, group=group,
-                           steps=steps)
-    _build.check_cuda_operand(flat_records, "records", torch.int32, 2, dev)
-    _build.check_cuda_operand(rows, "rows", torch.int32, 3, dev)
-    q, nb, r = rows.shape
-    w = flat_records.shape[1] - 2
-    check_geometry(flat_records, nb, n_slots)
-    out = torch.empty((q * nb, w), dtype=torch.int32, device=dev)
-    if q * nb:
-        FOLD_PROBE_KERNEL.launch(dev, _build.ptr(flat_records),
-                                 _build.ptr(rows), _build.ptr(out), q * nb,
-                                 nb, n_slots, max_probes, w, r,
-                                 geo["group"], geo["steps"])
     return out
 
 

@@ -54,18 +54,16 @@ from typing import Protocol
 import numpy as np
 import torch
 
-from ..core.lsh import band_hashes, band_hashes_packed
-from ..device import (DEFAULT_DEVICE, as_device_words, as_host_sigs,
-                      as_host_words, resolve_device)
+from ..device import (DEFAULT_DEVICE, as_host_sigs, as_host_words,
+                      resolve_device)
 from ..distributed.collectives import merge_topk
-from ..kernels.packfmt import pack_codes
-from ..kernels.query_fused import BandHashes, QueryWords, hashes_to_device
+from ..kernels.query_fused import BandHashes, QueryWords
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ._growth import grown
-from .packed import pack_host
 from .planner import TopKPartial, finalize_topk
-from .store import QUERY_IMPLS, SketchStore, StoreConfig, check_packed_banding
+from .store import (QUERY_IMPLS, SketchStore, StoreConfig,
+                    check_packed_banding, query_operands)
 
 _GOLD = np.uint64(0x9E3779B97F4A7C15)    # Fibonacci hashing multiplier
 
@@ -473,26 +471,11 @@ class ShardedSketchStore:
         The coordinator folds the band keys on the host, once, and uploads
         them once for every shard; it uploads the signatures and packs the
         query words on the device, as the reference packs them on its own
-        (with ``query_impl="host"`` both stay on the host).  The shards
-        probe the device keys and keep the host copy for the spill leg."""
+        (with ``query_impl="host"`` both stay on the host): the single
+        store's ``query_operands``.  The shards probe the device keys and
+        keep the host copy for the spill leg."""
         self._check_queryable("query()")
-        qsigs = as_host_sigs(qsigs)
-        with self._tracer.span("store.query"):
-            t0 = time.perf_counter()
-            with self._tracer.span("query.fold"):
-                host = band_hashes(qsigs, self.cfg.n_bands,
-                                   self.cfg.rows_per_band)
-                if self.query_impl == "host":
-                    hashes = BandHashes(host=host)
-                    qwords = pack_host(qsigs, self.cfg.b)
-                else:
-                    hashes = BandHashes(hashes_to_device(host, self.device),
-                                        host=host)
-                    qwords = pack_codes(torch.from_numpy(
-                        np.ascontiguousarray(qsigs, np.int32)).to(
-                            self.device), self.cfg.b)
-            return self._merged_query(hashes, qwords, top_k, "sig",
-                                      time.perf_counter() - t0)
+        return self._folded_query("sig", top_k, sigs=as_host_sigs(qsigs))
 
     def query_packed(self, qwords,
                      top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
@@ -506,25 +489,21 @@ class ShardedSketchStore:
         time lands in the first shard's ``query.partial``)."""
         self._check_queryable("query_packed()")
         check_packed_banding(self.cfg)
+        return self._folded_query("packed", top_k, words=qwords)
+
+    def _folded_query(self, mode: str, top_k: int, **batch,
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """The batch's hashes and words where the shards read them
+        (``query_operands``: on the device, or on the host for the host
+        walk), under ``query.fold``, then ``_merged_query``."""
         with self._tracer.span("store.query"):
             t0 = time.perf_counter()
             with self._tracer.span("query.fold"):
-                qwords, hashes = self._fold_packed(qwords)
-            fold_s = time.perf_counter() - t0
-            return self._merged_query(hashes, qwords, top_k, "packed",
-                                      fold_s)
-
-    def _fold_packed(self, qwords) -> tuple[object, BandHashes]:
-        """The query words where the shards read them, and their hashes:
-        device words and device hashes, or host ones for the host walk."""
-        if self.query_impl != "host":
-            from ..kernels.dispatch import fold_hashes
-            qdev = as_device_words(qwords, self.device)
-            return qdev, BandHashes(fold_hashes(qdev,
-                                                n_bands=self.cfg.n_bands))
-        qnp = as_host_words(qwords)
-        return qnp, BandHashes(host=band_hashes_packed(qnp,
-                                                       self.cfg.n_bands))
+                hashes, qwords = query_operands(
+                    self.cfg, self.device, host=self.query_impl == "host",
+                    **batch)
+            return self._merged_query(hashes, qwords, top_k, mode,
+                                      time.perf_counter() - t0)
 
     def _check_queryable(self, op: str) -> None:
         self._check_consistent()

@@ -3,10 +3,13 @@
 Owns a ``PackedSignatureBuffer`` (b-bit columnar signature storage), a
 ``BandedLSHTable`` (open-addressing bucket arrays) and a ``QueryPlanner``.
 ``add`` appends a raw (B, K) signature batch and ``add_packed`` a packed-word
-batch, each indexed on the host; ``query`` answers raw query signatures
-(host band keys, the probe, then the planner's scoring), and
-``query_packed`` answers packed query words through the fused device
-pipeline (fold -> probe -> score), each with the brute-force fallback for
+batch, each indexed on the host.  ``query`` (raw query signatures) and
+``query_packed`` (packed query words) take one leg, the one each shard of
+the sharded plane runs: ``query_operands`` puts the batch's band hashes
+and words where the leg reads them (raw band keys folded on the host and
+uploaded, packed words folded by the fold kernel), then
+``partial_topk_packed_hashed`` probes from the hashes and scores on the
+device (or walks on the host), and the brute-force fallback answers the
 rows that have no candidate.  ``candidate_pairs`` serves dedup;
 ``save``/``load`` snapshot the whole store to one ``.npz`` in the JAX
 package's format, and ``digest`` names its signatures.
@@ -29,15 +32,17 @@ import torch
 from ..core.lsh import band_hashes, band_hashes_packed
 from ..device import (DEFAULT_DEVICE, as_device_words, as_host_sigs,
                       as_host_words, resolve_device, take_rows)
-from ..kernels.packfmt import PACK_BITS
-from ..kernels.query_fused import BandHashes
+from ..kernels import dispatch
+from ..kernels.packfmt import PACK_BITS, pack_codes
+from ..kernels.query_fused import BandHashes, hashes_to_device
 from ..obs import metrics as obs_metrics
-from .packed import PackedConfig, PackedSignatureBuffer
+from .packed import PackedConfig, PackedSignatureBuffer, pack_host
 from .planner import QueryPlanner, TopKPartial, finalize_topk
 from .table import PROBE_IMPLS, BandedLSHTable
 
-# "auto": the fused device pipeline (CUDA kernels on a CUDA store, their
-# plain versions on a CPU store); "host": the host fold + planner walk
+# "auto": the device leg, fold -> probe -> score (CUDA kernels on a CUDA
+# store, their plain versions on a CPU store); "host": the host fold +
+# planner walk
 QUERY_IMPLS = ("auto", "host")
 
 
@@ -105,6 +110,44 @@ def check_packed_banding(cfg: StoreConfig) -> None:
             f"packed banding needs rows_per_band % (32/b) == 0 (got "
             f"rows_per_band={cfg.rows_per_band}, b={cfg.b}); "
             "use add()/query() on raw signatures instead")
+
+
+def query_operands(cfg: StoreConfig, device: torch.device, *, host: bool,
+                   words=None, sigs=None, hashes: np.ndarray | None = None,
+                   ) -> tuple[BandHashes, object]:
+    """A query batch's band hashes and packed words where the query leg
+    (``SketchStore.partial_topk_packed_hashed``) reads them: on ``device``,
+    or on the host for the host walk (``host=True``).  The one place that
+    decides it, for the single store, the sharded plane's coordinator and
+    the tcp worker.  The batch comes as
+
+    * ``words``: (Q, W) packed words, a tensor or a host array, folded by
+      the fold kernel (the hashes stay on the device) or by the host
+      uint64 fold;
+    * ``sigs``: (Q, K) raw signatures, whose band keys fold on the host
+      (any ``rows_per_band``) and go up once, and whose words are packed
+      on the device (on the host for the host walk);
+    * ``words`` and ``hashes``: host uint64 hashes folded elsewhere (the
+      wire's), which go up once beside the words.
+
+    On the device the hashes keep a host copy when they were folded on
+    the host, for the spill leg."""
+    if sigs is not None:
+        sigs = as_host_sigs(sigs)
+        hashes = band_hashes(sigs, cfg.n_bands, cfg.rows_per_band)
+        words = pack_host(sigs, cfg.b) if host else pack_codes(
+            torch.from_numpy(np.ascontiguousarray(sigs, np.int32)).to(device),
+            cfg.b)
+    if host:
+        words = as_host_words(words)
+        if hashes is None:
+            hashes = band_hashes_packed(words, cfg.n_bands)
+        return BandHashes(host=hashes), words
+    words = as_device_words(words, device)
+    if hashes is None:
+        return BandHashes(dispatch.fold_hashes(words, n_bands=cfg.n_bands)), \
+            words
+    return BandHashes(hashes_to_device(hashes, device), host=hashes), words
 
 
 class SketchStore:
@@ -286,14 +329,13 @@ class SketchStore:
 
     def query(self, qsigs, top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
         """(Q, K) signatures -> (ids (Q, top_k) [-1 pad], scores (Q, top_k)):
-        candidates (with per-query-matched spill, capped at top_k per hot
-        spilled key) scored by the planner, whose collision count runs on
+        band keys folded on the host and uploaded once, the words packed on
+        the device, then ``_answer``: candidates (with per-query-matched
+        spill, capped at top_k per hot spilled key) probed and scored on
         the store's device; rows with no candidate fall back to brute
         force."""
         self._check_queryable("query()")
-        qsigs = as_host_sigs(qsigs)
-        return self.planner.topk(
-            qsigs, self.candidate_rows(qsigs, spill_cap=top_k), top_k)
+        return self._answer(self._operands(sigs=qsigs), top_k, "sig")
 
     def _check_queryable(self, op: str) -> None:
         if not self.cfg.store_signatures:
@@ -310,9 +352,9 @@ class SketchStore:
                                           spill_cap=spill_cap)
 
     def _resolve_query_impl(self) -> str:
-        """The fused pipeline needs power-of-two ``n_slots`` (for the
-        device-side meta), stored signatures and a non-empty buffer; else
-        the host walk."""
+        """The device leg needs power-of-two ``n_slots`` (the reference's
+        gate, kept so both packages take the same leg), stored signatures
+        and a non-empty buffer; else the host walk."""
         if self.query_impl == "host":
             return "host"
         ns = self.table.n_slots
@@ -321,14 +363,18 @@ class SketchStore:
             return "host"
         return "device"
 
+    def _operands(self, **batch) -> tuple[BandHashes, object]:
+        return query_operands(self.cfg, self.device,
+                              host=self._resolve_query_impl() == "host",
+                              **batch)
+
     def _fused_partial(self, qwords, top_k: int, *,
-                       hashes: BandHashes | None) -> TopKPartial:
-        """Run the fused pipeline over the resident state and wrap it as a
-        planner partial.  ``hashes=None`` folds inside the probe kernel;
-        shard workers pass the coordinator's ``BandHashes``, whose device
-        tensor the probe reads.  Spilled keys stay a host leg, invoked only
-        when the spill is non-empty (the one reader of host hashes)."""
-        from ..kernels import dispatch
+                       hashes: BandHashes) -> TopKPartial:
+        """Run the device pipeline over the resident state and wrap it as a
+        planner partial: the probe reads ``hashes.dev`` where the caller
+        folded or uploaded them.  Spilled keys stay a host leg, invoked
+        only when the spill is non-empty (the one reader of host
+        hashes)."""
         spill = None
         if self.table.n_spilled:
             spill = lambda h: self.table.spilled_candidates(h, cap=top_k)
@@ -343,10 +389,11 @@ class SketchStore:
     def partial_topk_packed_hashed(self, hashes: BandHashes, qwords,
                                    top_k: int, *,
                                    mode: str = "packed") -> TopKPartial:
-        """Per-shard candidate partial from pre-folded band hashes (``mode``
-        names how they were folded): device probe + score, or the host walk
-        (on ``hashes.host()``) when the query knob or the table's geometry
-        says so."""
+        """The candidate partial of one query leg, from pre-folded band
+        hashes (``mode`` names how they were folded): device probe +
+        score, or the host walk (on ``hashes.host()``) when the query knob
+        or the table's geometry says so.  Every query reaches it: the
+        store's own, an in-process shard's and a tcp worker's."""
         if self._resolve_query_impl() == "host":
             return self.planner.partial_topk_packed(
                 as_host_words(qwords),
@@ -355,27 +402,31 @@ class SketchStore:
         self._band_keys(mode, write=False)
         return self._fused_partial(qwords, top_k, hashes=hashes)
 
-    def query_packed(self, qwords,
-                     top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
-        """(Q, W) packed query words -> (ids (Q, top_k) [-1 pad], scores
-        (Q, top_k)): fold -> probe -> score fused on the device, then the
-        brute-force fallback for rows with no candidate."""
-        self._check_queryable("query_packed()")
-        if self._resolve_query_impl() == "host":
-            qnp = as_host_words(qwords)
-            return self.planner.topk_packed(
-                qnp, self.candidate_rows_packed(qnp, spill_cap=top_k), top_k)
-        check_packed_banding(self.cfg)
-        self._band_keys("packed", write=False)
-        qdev = as_device_words(qwords, self.device)
-        part = self._fused_partial(qdev, top_k, hashes=None)
+    def _answer(self, operands: tuple[BandHashes, object], top_k: int,
+                mode: str) -> tuple[np.ndarray, np.ndarray]:
+        """One leg over the whole store (``partial_topk_packed_hashed``),
+        then the brute-force partial for the rows with no candidate."""
+        hashes, qwords = operands
+        part = self.partial_topk_packed_hashed(hashes, qwords, top_k,
+                                               mode=mode)
         em = np.flatnonzero(~part.has_candidates)
         if len(em):
-            brute = self.planner.brute_partial_packed(take_rows(qdev, em),
+            brute = self.planner.brute_partial_packed(take_rows(qwords, em),
                                                       top_k)
             part.ids[em] = brute.ids
             part.scores[em] = brute.scores
         return finalize_topk(part)
+
+    def query_packed(self, qwords,
+                     top_k: int = 10) -> tuple[np.ndarray, np.ndarray]:
+        """(Q, W) packed query words (a device tensor or a host array) ->
+        (ids (Q, top_k) [-1 pad], scores (Q, top_k)): the fold kernel, the
+        probe from its hashes and the scorer on the device (the host fold
+        and walk for the host leg), then the brute-force fallback for rows
+        with no candidate."""
+        self._check_queryable("query_packed()")
+        check_packed_banding(self.cfg)
+        return self._answer(self._operands(words=qwords), top_k, "packed")
 
     def candidate_pairs(self) -> np.ndarray:
         """(P, 2) int64 unique (i, j), i < j, sharing >= 1 band bucket."""

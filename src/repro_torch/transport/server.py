@@ -12,12 +12,13 @@ store's own, which keeps tcp answers bit-identical to the in-process plane.
 
 The wire carries host arrays; the seam to the card is here.  A QUERY's
 uint64 hashes (two uint32 planes) and uint32 words are uploaded once each
-to the store's device: the probe kernel reads the device hashes, the spill
-leg the host ones (``BandHashes(dev, host=)``), and the worker launches no
-fold.  BRUTE uploads the fallback rows' words and scores them with the
-collision kernel.  Replies go back in the reference's dtypes (ids int64,
-scores float32, has bool).  There is no fallback: a failed launch is a
-handler exception, answered with an ERROR frame.
+to the store's device (``store.store.query_operands``, where every query
+leg places its operands): the probe kernel reads the device hashes, the
+spill leg the host ones (``BandHashes(dev, host=)``), and the worker
+launches no fold.  BRUTE uploads the fallback rows' words and scores them
+with the collision kernel.  Replies go back in the reference's dtypes
+(ids int64, scores float32, has bool).  There is no fallback: a failed
+launch is a handler exception, answered with an ERROR frame.
 
 Workers start with the ``spawn`` context (a coordinator that has touched
 CUDA cannot fork), each with its own CUDA context on the card, and boot
@@ -60,10 +61,9 @@ import traceback
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device, u32_to_device
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import launch_counts
 from ..kernels.dispatch import select_probe_impl
-from ..kernels.query_fused import BandHashes, hashes_to_device
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..store.sharded import shard_snapshot_path
@@ -156,18 +156,6 @@ def _partial_reply(part) -> Message:
                                      "has": part.has_candidates})
 
 
-def _query_operands(store: SketchStore, hashes: np.ndarray,
-                    qwords: np.ndarray) -> tuple[BandHashes, object]:
-    """A QUERY's hashes and words where the store reads them: uploaded
-    once each to the store's device for the fused pipeline (the probe
-    reads the device hashes, the spill leg the host ones), or left on the
-    host when the store walks on the host."""
-    if store._resolve_query_impl() == "host":
-        return BandHashes(host=hashes), qwords
-    return (BandHashes(hashes_to_device(hashes, store.device), host=hashes),
-            u32_to_device(qwords, store.device))
-
-
 def _device_bytes(store: SketchStore) -> int:
     """Bytes this process holds allocated on the store's card (0 on the
     CPU): the worker's own evidence that it serves from the card."""
@@ -199,9 +187,9 @@ def _handle(store: SketchStore, msg: Message,
             raise
         return Message(MsgType.OK, {"n": n}), True
     if msg.type == MsgType.QUERY:
-        hashes, qwords = _query_operands(
-            store, wire.join_u64(f["hash_lo"], f["hash_hi"]),
-            np.asarray(f["qwords"], np.uint32))
+        hashes, qwords = store._operands(
+            words=np.asarray(f["qwords"], np.uint32),
+            hashes=wire.join_u64(f["hash_lo"], f["hash_hi"]))
         return _partial_reply(store.partial_topk_packed_hashed(
             hashes, qwords, int(f["top_k"]), mode=f["mode"])), True
     if msg.type == MsgType.BRUTE:

@@ -358,8 +358,6 @@ def _calls(dev: str = "cpu"):
         ("fold", 3, 4, 2): lambda: kq.fold_rows_kernel(rows),
         ("probe", 12, 64, 3): lambda: kp.lsh_probe_hashes_kernel(
             rec, h, n_slots=64, max_probes=4),
-        ("probe", 12, 64, 3, "words"): lambda: kq.fold_probe_kernel(
-            rec, rows, n_slots=64, max_probes=4),
         ("collision", 3, 3, 2): lambda: kc.collision_counts_kernel(
             rows[:, 0].contiguous(), rows[:, 1].contiguous()),
     }

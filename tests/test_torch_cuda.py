@@ -525,9 +525,10 @@ def test_probe_kernel_from_hashes_matches_plain(cuda, ns, w, mp, load):
                                        (4096, 7, 16, 20)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_probe_kernel_from_words_matches_plain(cuda, ns, w, mp, r, offset):
-    """Fold + probe in one launch: R = 8 (16-byte rows), R not a multiple of
-    4, R past one batch of vector loads, rows moved off the 16-byte
-    boundary by a storage offset."""
+    """The words-in leg, the fold kernel and then the probe from its hashes,
+    against the plain fold and probe: R = 8 (16-byte rows), R not a
+    multiple of 4, R past one batch of vector loads, rows moved off the
+    16-byte boundary by a storage offset."""
     rng = np.random.default_rng(ns + r + offset)
     nb = 4
     words = rng.integers(0, 2**32, (int(0.8 * ns), nb * r), dtype=np.uint32)
@@ -541,10 +542,12 @@ def test_probe_kernel_from_words_matches_plain(cuda, ns, w, mp, r, offset):
     buf[offset:] = torch.from_numpy(q.view(np.int32).reshape(-1))
     rows = buf[offset:].view(len(q), nb, r)
     flat = torch.tensor(table.records.reshape(-1, 2 + w))
-    want = kq.fold_probe_plain(flat, rows, n_slots=ns, max_probes=mp)
-    got = kq.fold_probe_kernel(flat.to(cuda),
-                               buf.to(cuda)[offset:].view(len(q), nb, r),
-                               n_slots=ns, max_probes=mp)
+    want = kp.lsh_probe_hashes_plain(flat, kq.fold_rows_plain(rows),
+                                     n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(
+        flat.to(cuda), kq.fold_rows_kernel(
+            buf.to(cuda)[offset:].view(len(q), nb, r)),
+        n_slots=ns, max_probes=mp)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert (want >= 0).any() and (want < 0).all(dim=1).any()
@@ -624,10 +627,6 @@ def test_probe_kernels_on_no_entries(cuda):
         rec, torch.zeros((0, 3), dtype=torch.int64, device=cuda), n_slots=64,
         max_probes=16)
     assert got.shape == (0, 8)
-    got = kq.fold_probe_kernel(
-        rec, torch.zeros((0, 3, 8), dtype=torch.int32, device=cuda),
-        n_slots=64, max_probes=16)
-    assert got.shape == (0, 8)
 
 
 def test_probe_kernel_record_offsets_past_2_31(cuda):
@@ -685,9 +684,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="cuda|cpu"):
         kp.lsh_probe_hashes_kernel(rec.cpu(), h, n_slots=64, max_probes=4)
     with pytest.raises(ValueError, match="contiguous"):
-        kq.fold_probe_kernel(rec, torch.zeros(
-            (5, 8, 3), dtype=torch.int32, device=cuda).transpose(1, 2),
-            n_slots=64, max_probes=4)
+        kp.lsh_probe_hashes_kernel(rec, torch.zeros(
+            (3, 5), dtype=torch.int64, device=cuda).t(), n_slots=64,
+            max_probes=4)
 
 
 @pytest.mark.parametrize("q,n,k", [(1, 1, 1), (37, 1001, 130),
@@ -1022,7 +1021,7 @@ def test_tcp_plane_on_the_card_answers_like_the_inproc_card_plane(
     for st in stats:
         assert st["device"].startswith("cuda") and st["probe_impl"] == "device"
         w = _json.loads(st["launches"])
-        assert w["fold"] == 0 and w["fold_probe"] == 0
+        assert w["fold"] == 0
         assert w["lsh_probe"] == 2 and w["collision"] == 2
         counters = _json.loads(st["obs"])["counters"]
         assert counters["kernel.query_fused.cuda"] == 2
@@ -1037,6 +1036,7 @@ def test_tcp_worker_uploads_each_query_operand_once_on_the_card(
     partial equals the CPU store's."""
     from repro_torch.store import SketchStore, StoreConfig
     from repro_torch.store import planner as t_planner
+    from repro_torch.store import store as t_store
     from repro_torch.transport import server as t_server
     from repro_torch.transport import wire
     from repro_torch.transport.wire import Message, MsgType
@@ -1052,21 +1052,21 @@ def test_tcp_worker_uploads_each_query_operand_once_on_the_card(
 
     def count(key, fn):
         def wrapped(*a):
-            calls[key] += 1
+            if key != "words" or isinstance(a[0], np.ndarray):
+                calls[key] += 1                # words: a host -> device copy
             return fn(*a)
         return wrapped
 
     def refuse(*a, **kw):
         raise AssertionError("a worker folded")
-    monkeypatch.setattr(t_server, "hashes_to_device",
-                        count("hashes", t_server.hashes_to_device))
-    monkeypatch.setattr(t_server, "u32_to_device",
-                        count("words", t_server.u32_to_device))
+    monkeypatch.setattr(t_store, "hashes_to_device",
+                        count("hashes", t_store.hashes_to_device))
+    monkeypatch.setattr(t_store, "as_device_words",
+                        count("words", t_store.as_device_words))
     monkeypatch.setattr(dispatch, "fold_hashes", refuse)
     replies = {}
     for d, st in stores.items():
         probes, folds = kp.KERNEL.launches, kq.KERNEL.launches
-        fold_probes = kq.FOLD_PROBE_KERNEL.launches
         replies[d], _ = t_server._handle(st, Message(MsgType.QUERY, {
             "hash_lo": lo, "hash_hi": hi, "qwords": qwords, "top_k": 5,
             "mode": "sig"}))
@@ -1074,7 +1074,6 @@ def test_tcp_worker_uploads_each_query_operand_once_on_the_card(
             assert calls == {"hashes": 1, "words": 1}
             assert kp.KERNEL.launches == probes + 1
             assert kq.KERNEL.launches == folds
-            assert kq.FOLD_PROBE_KERNEL.launches == fold_probes
     assert stores["cuda"].n_spilled > 0
     assert wire.message_bytes(replies["cuda"]) == \
         wire.message_bytes(replies["cpu"])
@@ -1656,7 +1655,8 @@ def test_probe_every_geometry_matches_plain(cuda, group, steps, ns, w, mp,
                                             load):
     """Each compiled geometry on nearly full tables (spilled keys, chains
     past a round trip, wrapping) and a sparser one (walks that stop early
-    at an unused slot), from hashes and from words."""
+    at an unused slot), from hashes and from the fold kernel's hashes of
+    words."""
     table, qh = _full_range_table(ns, w, mp, load, device=cuda)
     flat = torch.tensor(table.records.reshape(-1, 2 + w))
     h = torch.from_numpy(qh.view(np.int64))
@@ -1672,9 +1672,11 @@ def test_probe_every_geometry_matches_plain(cuda, group, steps, ns, w, mp,
     wtab.insert(band_hashes_packed(words, 3), np.arange(len(words)))
     rows = torch.from_numpy(words[::2].view(np.int32)).reshape(-1, 3, 4)
     wflat = torch.tensor(wtab.records.reshape(-1, 2 + w))
-    want = kq.fold_probe_plain(wflat, rows, n_slots=ns, max_probes=mp)
-    got = kq.fold_probe_kernel(wflat.to(cuda), rows.to(cuda), n_slots=ns,
-                               max_probes=mp, group=group, steps=steps)
+    want = kp.lsh_probe_hashes_plain(wflat, kq.fold_rows_plain(rows),
+                                     n_slots=ns, max_probes=mp)
+    got = kp.lsh_probe_hashes_kernel(
+        wflat.to(cuda), kq.fold_rows_kernel(rows.to(cuda)), n_slots=ns,
+        max_probes=mp, group=group, steps=steps)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
@@ -1736,8 +1738,6 @@ def test_launch_knobs_outside_the_compiled_instances_are_refused(cuda):
             lambda: kp.lsh_probe_hashes_kernel(rec, h, n_slots=64,
                                                max_probes=4, group=4,
                                                steps=8),
-            lambda: kq.fold_probe_kernel(rec, rows, n_slots=64,
-                                         max_probes=4, group=3, steps=2),
             lambda: kc.packed_collision_counts_kernel(words, words, 8, 32,
                                                       block_q=48)):
         with pytest.raises(RuntimeError, match="launch failed"):

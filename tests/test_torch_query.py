@@ -276,9 +276,9 @@ def test_probe_from_hashes_matches_pallas_kernel_interpret():
 @pytest.mark.parametrize("ns,w,mp", [(2048, 8, 16), (4096, 3, 16),
                                      (2048, 2, 1)])
 def test_probe_from_words_matches_reference(ns, w, mp):
-    """Fold + probe from packed words (one launch on the card) against the
-    reference's device pipeline: fold planes, ``meta_from_planes``,
-    ``lsh_probe_jnp``."""
+    """The words-in leg, the fold and then the probe from its hashes (two
+    launches on the card), against the reference's device pipeline: fold
+    planes, ``meta_from_planes``, ``lsh_probe_jnp``."""
     rng = np.random.default_rng(ns + w)
     nb, wpb = 4, 2
     words = rng.integers(0, 2**32, (900, nb * wpb), dtype=np.uint32)
@@ -293,8 +293,9 @@ def test_probe_from_words_matches_reference(ns, w, mp):
         jnp.asarray(flat), ref_qf.meta_from_planes(hi, lo, n_slots=ns),
         n_slots=ns, max_probes=mp))
     rows = t_qf.words_to_rows(u32_to_device(q, CPU), nb)
-    got = t_qf.fold_probe_kernel(torch.tensor(flat), rows, n_slots=ns,
-                                 max_probes=mp)
+    got = t_probe.lsh_probe_hashes_kernel(
+        torch.tensor(flat), t_qf.fold_rows_kernel(rows), n_slots=ns,
+        max_probes=mp)
     assert np.array_equal(got.numpy(), want)
     assert (want >= 0).any() and (want < 0).all(axis=1).any()
 
@@ -302,9 +303,9 @@ def test_probe_from_words_matches_reference(ns, w, mp):
 @pytest.mark.parametrize("spilled", [False, True])
 @pytest.mark.parametrize("with_hashes", [False, True])
 def test_query_fused_matches_reference_dispatch(spilled, with_hashes):
-    """``dispatch.query_fused`` from words (the fused fold + probe) and from
-    the coordinator's device hashes, with and without a spill leg, against
-    the reference's ``dispatch.query_fused``."""
+    """``dispatch.query_fused`` from words (the fold kernel, then the probe
+    from its hashes) and from the coordinator's device hashes, with and
+    without a spill leg, against the reference's ``dispatch.query_fused``."""
     from repro.kernels import dispatch as ref_dispatch
     rng = np.random.default_rng(int(spilled) + 2 * int(with_hashes))
     k, b, nb, ns, w = 32, 8, 4, 512, 2

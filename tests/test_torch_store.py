@@ -149,6 +149,41 @@ def test_raw_store_answers_like_the_reference(b):
     assert port.buffer.nbytes == ref.buffer.nbytes
 
 
+@pytest.mark.parametrize("b", [32, 2])
+@pytest.mark.parametrize("packed", [False, True])
+def test_store_queries_take_the_shard_leg_once_a_batch(monkeypatch, b,
+                                                       packed):
+    """``query`` (raw signatures) and ``query_packed`` (words, 16 rows a
+    band so that b = 2 bands word-aligned) each reach
+    ``partial_topk_packed_hashed``, the leg every shard runs, once a
+    batch, over a table with spilled keys, and answer as the reference's
+    store, the fallback rows included."""
+    nb, r = (4, 16) if packed else (NB, R)
+    cfg = dict(k=K, n_bands=nb, rows_per_band=r, b=b, n_slots=64,
+               bucket_width=1, auto_rebuild=False)
+    ref = RefStore(RefStoreConfig(**cfg))
+    port = SketchStore(StoreConfig(**cfg), device="cpu")
+    sigs = _corpus_sigs(n=120)
+    sigs[60:90] = sigs[:30]                    # shared buckets: spills
+    prep = (lambda x: pack_host(x, b)) if packed else (lambda x: x)
+    add, query = ("add_packed", "query_packed") if packed else \
+        ("add", "query")
+    for store in (ref, port):
+        getattr(store, add)(prep(sigs))
+    assert port.n_spilled == ref.n_spilled > 0
+    legs = []
+    leg = port.partial_topk_packed_hashed
+
+    def spy(*a, **kw):
+        legs.append(kw["mode"])
+        return leg(*a, **kw)
+    monkeypatch.setattr(port, "partial_topk_packed_hashed", spy)
+    for q in (_queries(sigs, n_strangers=3), sigs[[5, 61]]):
+        _same(getattr(ref, query)(prep(q), top_k=5),
+              getattr(port, query)(prep(q), top_k=5), (b, packed))
+    assert legs == ["packed" if packed else "sig"] * 2
+
+
 @pytest.mark.parametrize("top_k", [5, 10, 40])
 def test_tied_brute_force_ranks_like_the_reference(top_k):
     """The brute-force partial and the masked candidate partial over a

@@ -385,12 +385,14 @@ def test_worker_uploads_each_query_operand_once(monkeypatch, bw):
     from repro_torch.kernels import lsh_probe as t_probe
     from repro_torch.kernels import query_fused as t_qf
     from repro_torch.store import planner as t_planner
+    from repro_torch.store import store as t_store
     from repro.core.lsh import band_hashes
     calls = {"hashes": 0, "words": 0, "probe": 0}
 
     def count(key, fn):
         def wrapped(*a, **kw):
-            calls[key] += 1
+            if key != "words" or isinstance(a[0], np.ndarray):
+                calls[key] += 1                # words: a host -> device copy
             return fn(*a, **kw)
         return wrapped
 
@@ -401,13 +403,13 @@ def test_worker_uploads_each_query_operand_once(monkeypatch, bw):
     store.add(sigs)
     q = _queries(sigs, seed=3)
     lo, hi = wire.split_u64(band_hashes(q, NB, R))
-    monkeypatch.setattr(t_server, "hashes_to_device",
-                        count("hashes", t_server.hashes_to_device))
-    monkeypatch.setattr(t_server, "u32_to_device",
-                        count("words", t_server.u32_to_device))
+    monkeypatch.setattr(t_store, "hashes_to_device",
+                        count("hashes", t_store.hashes_to_device))
+    monkeypatch.setattr(t_store, "as_device_words",
+                        count("words", t_store.as_device_words))
     monkeypatch.setattr(t_probe, "lsh_probe_hashes_kernel",
                         count("probe", t_probe.lsh_probe_hashes_kernel))
-    for name in ("fold_rows_kernel", "fold_probe_kernel", "hashes_to_host"):
+    for name in ("fold_rows_kernel", "hashes_to_host"):
         monkeypatch.setattr(t_qf, name, refuse)
     monkeypatch.setattr(t_dispatch, "fold_hashes", refuse)
     reply, _ = t_server._handle(store, Message(MsgType.QUERY, {
